@@ -7,8 +7,10 @@ holes, left edge clamped, right edge under a uniform 100 kN traction,
 E = 10 GPa, nu = 0.3, 600 L-BFGS iterations), on the structured mesh with
 hole-interior nodes kept as pinned dead nodes.  It prints the same lines
 as the JAX example, plus the largest von Mises stress in place of the
-plots.  On a CUDA device the element energy runs the hand-written
-kernels of ``hidenn_fem_tpu_torch/csrc/element_energy.cu``.
+plots.  The mesh is a lattice triangulation, so the energy takes the
+gather-free lattice route, as the JAX package's does; on a CUDA device its
+domain term runs the stencil kernels K6/K7 of
+``hidenn_fem_tpu_torch/csrc/lattice_stencil.cu``.
 
 Run: ``python -m examples.example4_torch --device cuda``
 """
@@ -34,6 +36,10 @@ def main(cfg: PlateConfig = PlateConfig(), device="cpu"):
     print("Dirichlet BC nodes:", int(mesh.dirichlet_mask.sum()))
     print("Neumann MN nodes:", int(mesh.neumann_mask.sum()))
     print("Neumann edges:", tuple(mesh.neumann_edges.shape))
+    route = mesh.lattice
+    print("Energy route:", "gather" if route is None else
+          f"lattice {route.nx}x{route.ny} (identity numbering: "
+          f"{route.identity})")
 
     model = ht.TriangleP1(u_fixed=0.0)
     params = model.init(torch.Generator().manual_seed(cfg.seed), mesh)

@@ -18,10 +18,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import PlateConfig  # noqa: E402
-from .convert import mesh_from_numpy, params_from_numpy  # noqa: E402
+from .convert import (grid_from_numpy, mesh_from_numpy,  # noqa: E402
+                      params_from_numpy)
 from .mesh.structured import (generate_mesh, proxy_plate_mesh,  # noqa: E402
                               rectangle_tri_zigzag)
 from .mesh.types import TriMesh  # noqa: E402
+from .models.structured_grid import (StructuredGrid,  # noqa: E402
+                                     StructuredGridP1,
+                                     generate_structured_grid)
 from .models.triangle_p1 import TriangleP1  # noqa: E402
 from .ops.elasticity import plane_stress_C, \
     von_mises_plane_stress  # noqa: E402

@@ -3,13 +3,8 @@
 // Replaces the TPU kernels of hidenn_fem_tpu/ops/pallas_energy.py:
 //   K1  _forward  (pallas_call at pallas_energy.py:154): the energy sum
 //   K2  _bwd_rule (pallas_call at pallas_energy.py:178): d(energy)/d(corners)
-// Per element, with a = v0 - v2, b = v1 - v2, d0 = u0 - u2, d1 = u1 - u2:
-//   det = ax*by - bx*ay, guarded to +-1e-12 when |det| < 1e-12
-//   exx = ( by*d0x - ay*d1x) / det
-//   eyy = (-bx*d0y + ax*d1y) / det
-//   gxy = (by*d0y - ay*d1y - bx*d0x + ax*d1x) / det
-//   dens = f/2 (exx^2 + eyy^2 + 2 nu exx eyy) + f(1-nu)/4 gxy^2
-//   E_elem = w_sum * |det| * dens
+// Per element, the triangle energy E_elem = w_sum |det| dens and its
+// cotangents of p1_triangle.cuh (shared with the lattice kernels),
 // and, for elements e >= edge_start (Neumann edges appended as (n0, n1, n1)
 // pseudo-elements), the traction term tw * ds * (u0x + u1x) / 2 with
 // ds = sqrt(max(|v0 - v1|^2, 1e-30)).
@@ -37,36 +32,34 @@
 // double in a fixed order; the node gradient sums each node's slots in a
 // fixed order.  No atomics anywhere.
 //
-// Conventions kept from the JAX package: d|det|/d det = +1 at det == 0
-// (jax.grad(jnp.abs)(0.0) == 1), d max(x, c)/dx = 1/2 at a tie, and det
-// is computed without FMA contraction so that collinear and degenerate
-// elements give det == 0 exactly, as the plain versions do.
+// Conventions kept from the JAX package: those of p1_triangle.cuh (|det|'
+// = +1 at 0, det without FMA contraction), and d max(x, c)/dx = 1/2 at a
+// tie in the edge length.
 //
-// Built by hidenn_fem_tpu_torch/ops/element_energy.py with
+// Built by hidenn_fem_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
+//        -Xcompiler -fPIC -I csrc
 // and bound through the plain C interface at the end of this file.
 
 #include <cuda_runtime.h>
 
+#include "p1_triangle.cuh"
+
 namespace {
 
+using hdnn::Corners;
+using hdnn::Material;
+using hdnn::Strain;
+using hdnn::block_sum;
+using hdnn::corner_cotangents;
+using hdnn::kSumThreads;
+using hdnn::material;
+using hdnn::strain;
+using hdnn::sum_partials_kernel;
+using hdnn::tri_energy;
+
 constexpr int kThreads = 256;
-constexpr int kSumThreads = 1024;
-constexpr float kEpsDet = 1e-12f;
 constexpr float kDsFloor = 1e-30f;
-
-struct Material {
-  float f;       // E / (1 - nu^2)
-  float nu;
-  float two_nu;  // 2 nu
-  float shear;   // f (1 - nu) / 2
-  float w_sum;   // quadrature weight sum (triangle area factor)
-};
-
-struct Corners {
-  float4 v0, v1, v2;  // (cx, cy, ux, uy) of the three vertices
-};
 
 __device__ __forceinline__ Corners load_corners(
     const float4* __restrict__ node, const int* __restrict__ conn,
@@ -77,60 +70,12 @@ __device__ __forceinline__ Corners load_corners(
   return {__ldg(node + n0), __ldg(node + n1), __ldg(node + n2)};
 }
 
-struct Strain {
-  float ax, ay, bx, by, d0x, d0y, d1x, d1y;
-  float det, inv, P, Q, R, exx, eyy, gxy, dens;
-  bool tiny;
-};
-
-__device__ __forceinline__ Strain strain(const Corners& c,
-                                         const Material& m) {
-  Strain s;
-  s.ax = c.v0.x - c.v2.x;
-  s.ay = c.v0.y - c.v2.y;
-  s.bx = c.v1.x - c.v2.x;
-  s.by = c.v1.y - c.v2.y;
-  s.d0x = c.v0.z - c.v2.z;
-  s.d0y = c.v0.w - c.v2.w;
-  s.d1x = c.v1.z - c.v2.z;
-  s.d1y = c.v1.w - c.v2.w;
-  s.det = __fsub_rn(__fmul_rn(s.ax, s.by), __fmul_rn(s.bx, s.ay));
-  s.tiny = fabsf(s.det) < kEpsDet;
-  const float safe = s.tiny ? (s.det < 0.f ? -kEpsDet : kEpsDet) : s.det;
-  s.inv = 1.0f / safe;
-  s.P = s.by * s.d0x - s.ay * s.d1x;
-  s.Q = -s.bx * s.d0y + s.ax * s.d1y;
-  s.R = (s.by * s.d0y - s.ay * s.d1y) + (-s.bx * s.d0x + s.ax * s.d1x);
-  s.exx = s.P * s.inv;
-  s.eyy = s.Q * s.inv;
-  s.gxy = s.R * s.inv;
-  s.dens = 0.5f * (m.f * (s.exx * s.exx + s.eyy * s.eyy
-                          + m.two_nu * s.exx * s.eyy)
-                   + m.shear * s.gxy * s.gxy);
-  return s;
-}
-
 __device__ __forceinline__ float edge_len(const Corners& c, float* sx,
                                           float* sy, float* s2) {
   *sx = c.v0.x - c.v1.x;
   *sy = c.v0.y - c.v1.y;
   *s2 = *sx * *sx + *sy * *sy;
   return sqrtf(fmaxf(*s2, kDsFloor));
-}
-
-template <typename T, int kWarps>
-__device__ __forceinline__ T block_sum(T v) {
-  __shared__ T warp_sums[kWarps];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  T total = T(0);
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
-  return total;  // valid in thread 0 only
 }
 
 // K1: one thread per element; one partial energy per block.
@@ -144,7 +89,7 @@ energy_fwd_kernel(const float4* __restrict__ node,
   if (e < ne) {
     const Corners c = load_corners(node, conn, e);
     const Strain s = strain(c, m);
-    acc = m.w_sum * fabsf(s.det) * s.dens;
+    acc = tri_energy(s, m);
     if (e >= edge_start) {
       float sx, sy, s2;
       const float ds = edge_len(c, &sx, &sy, &s2);
@@ -153,16 +98,6 @@ energy_fwd_kernel(const float4* __restrict__ node,
   }
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
-// Sums the per-block partials in double, in a fixed order.
-__global__ void __launch_bounds__(kSumThreads)
-sum_partials_kernel(const float* __restrict__ partials, int n,
-                    float* __restrict__ out) {
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < n; i += kSumThreads) acc += partials[i];
-  const double total = block_sum<double, kSumThreads / 32>(acc);
-  if (threadIdx.x == 0) *out = (float)total;
 }
 
 // K2: one thread per element; writes the 12 corner cotangents times the
@@ -177,30 +112,12 @@ energy_bwd_kernel(const float4* __restrict__ node,
   const Corners c = load_corners(node, conn, e);
   const Strain s = strain(c, m);
 
-  // d E / d (exx, eyy, gxy) = w_sum |det| * stress
-  const float A = m.w_sum * fabsf(s.det);
-  const float gexx = A * (m.f * (s.exx + m.nu * s.eyy));
-  const float geyy = A * (m.f * (s.eyy + m.nu * s.exx));
-  const float ggxy = A * (m.shear * s.gxy);
-  const float gP = gexx * s.inv;
-  const float gQ = geyy * s.inv;
-  const float gR = ggxy * s.inv;
-  const float ginv = gexx * s.P + geyy * s.Q + ggxy * s.R;
-  const float sgn = s.det >= 0.f ? 1.f : -1.f;
-  float gdet = m.w_sum * sgn * s.dens;
-  if (!s.tiny) gdet -= ginv * s.inv * s.inv;
-
-  const float g_ax = gQ * s.d1y + gR * s.d1x + gdet * s.by;
-  const float g_ay = -gP * s.d1x - gR * s.d1y - gdet * s.bx;
-  const float g_bx = -gQ * s.d0y - gR * s.d0x - gdet * s.ay;
-  const float g_by = gP * s.d0x + gR * s.d0y + gdet * s.ax;
-  const float g_d0x = gP * s.by - gR * s.bx;
-  const float g_d0y = -gQ * s.bx + gR * s.by;
-  const float g_d1x = -gP * s.ay + gR * s.ax;
-  const float g_d1y = gQ * s.ax - gR * s.ay;
-
-  float4 c0 = make_float4(g_ax, g_ay, g_d0x, g_d0y);
-  float4 c1 = make_float4(g_bx, g_by, g_d1x, g_d1y);
+  float4 c0, c1;
+  corner_cotangents(s, m, &c0, &c1);
+  // vertex 2 enters the elastic term only through a, b, d0 and d1 (and
+  // not the edge term): minus their sums
+  const float4 v2 = make_float4(-(c0.x + c1.x), -(c0.y + c1.y),
+                                -(c0.z + c1.z), -(c0.w + c1.w));
   if (e >= edge_start) {
     float sx, sy, s2;
     const float ds = edge_len(c, &sx, &sy, &s2);
@@ -217,10 +134,6 @@ energy_bwd_kernel(const float4* __restrict__ node,
     c1.y -= gsy;
     c1.z += gu;
   }
-  // vertex 2 enters the elastic term only through a, b, d0 and d1 (and
-  // not the edge term): minus their sums
-  const float4 v2 = make_float4(-(g_ax + g_bx), -(g_ay + g_by),
-                                -(g_d0x + g_d1x), -(g_d0y + g_d1y));
   const float k = __ldg(ct);
   cot[3 * e] = make_float4(c0.x * k, c0.y * k, c0.z * k, c0.w * k);
   cot[3 * e + 1] = make_float4(c1.x * k, c1.y * k, c1.z * k, c1.w * k);
@@ -247,10 +160,6 @@ incidence_sum_kernel(const float4* __restrict__ cot,
     }
   }
   grad[n] = acc;
-}
-
-Material material(float f, float nu, float shear, float w_sum) {
-  return {f, nu, 2.f * nu, shear, w_sum};
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Mesh container (port of ``hidenn_fem_tpu/mesh/types.py``).
 
 Tables are built as numpy on the host, exactly as in the JAX package, and
-held as torch tensors; ``TriMesh.to(device)`` moves them to the card.
+held as torch tensors; ``TriMesh.to(device)`` moves them, and the lattice
+route's, to the card.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .lattice import detect_lattice
 
 __all__ = ["TriMesh", "build_incidence_table"]
 
@@ -53,9 +56,12 @@ class TriMesh:
       fused_connectivity / fused_incidence: connectivity with the Neumann
         edges appended as (n0, n1, n1) pseudo-elements, and its incidence
         table; they let the traction work ride the element kernel.
-      banded, banded_paired, lattice, hybrid: the JAX package's other
-        energy routes.  They are not ported yet and stay None, so every
-        mesh takes the gather route.
+      lattice: the recovered ``LatticeRoute`` (``mesh/lattice.py``) of a
+        lattice-topology mesh, or None.  ``from_arrays`` detects it where
+        the JAX package does, and the energy then takes the gather-free
+        lattice route first, as the JAX package's does.
+      banded, banded_paired, hybrid: the JAX package's banded and hybrid
+        routes.  They are not ported yet and stay None.
     """
 
     coords: torch.Tensor
@@ -89,21 +95,28 @@ class TriMesh:
         return self.coords.device
 
     def to(self, device) -> "TriMesh":
-        """A copy with every tensor field on ``device``."""
+        """A copy with every tensor field, and the lattice route's
+        tensors, on ``device``."""
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
+        if self.lattice is not None:
+            moved["lattice"] = self.lattice.to(device)
         return dataclasses.replace(self, **moved)
 
     @classmethod
     def from_arrays(cls, coords, connectivity, geom_boundary_mask=None,
                     dirichlet_mask=None, neumann_mask=None,
                     neumann_edges=None, dtype=torch.float32,
-                    device=None) -> "TriMesh":
+                    device=None, build_lattice=True) -> "TriMesh":
         """Normalize host arrays into a TriMesh on ``device`` (CPU by
-        default), building the incidence and fused edge tables."""
-        coords_np = np.asarray(coords)
-        n = coords_np.shape[0]
+        default), building the incidence and fused edge tables.
+
+        build_lattice: run ``detect_lattice`` (on the coordinates as cast
+        to ``dtype``, as the JAX package does), so that lattice-topology
+        meshes take the gather-free energy route."""
+        coords_t = torch.tensor(np.asarray(coords), dtype=dtype)
+        n = coords_t.shape[0]
 
         def _mask(m):
             if m is None:
@@ -124,6 +137,11 @@ class TriMesh:
                 raise ValueError(f"{name} indexes nodes outside [0, {n})")
         inc_np = build_incidence_table(conn_np, n) if conn_np.size else None
 
+        lattice = None
+        if build_lattice and conn_np.size:
+            lattice = detect_lattice(coords_t.numpy(), conn_np, edges_np,
+                                     device=device)
+
         fused_conn = fused_inc = None
         if conn_np.size and edges_np.size:
             edge_tri = np.concatenate(
@@ -133,7 +151,7 @@ class TriMesh:
             fused_inc = build_incidence_table(fused_conn, n)
 
         return cls(
-            coords=torch.tensor(coords_np, dtype=dtype, device=device),
+            coords=coords_t.to(device),
             connectivity=_int(conn_np),
             geom_boundary_mask=_mask(geom_boundary_mask),
             dirichlet_mask=_mask(dirichlet_mask),
@@ -144,4 +162,5 @@ class TriMesh:
                                 if fused_conn is not None else None),
             fused_incidence=(_int(fused_inc)
                              if fused_inc is not None else None),
+            lattice=lattice,
         )

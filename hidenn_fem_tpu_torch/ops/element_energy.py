@@ -45,27 +45,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from .assembly import assemble_node_grad, flat_gather
+from .cuda_build import library, raise_on
 
 __all__ = ["element_energy", "element_energy_plain",
            "element_cotangent_plain", "element_energy_fwd",
-           "element_energy_bwd", "incidence_sum", "build_kernels",
-           "launch_counts", "reset_launch_counts"]
+           "element_energy_bwd", "incidence_sum", "launch_counts",
+           "reset_launch_counts"]
 
 _EPS_DET = 1e-12
 _DS_FLOOR = 1e-30
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "element_energy.cu"
-_BUILD_DIR = _SRC.parent / "build"
 
 # launches of each kernel wrapper since the last reset
 launch_counts = {"element_energy_fwd": 0, "element_energy_bwd": 0,
@@ -186,49 +179,9 @@ def element_cotangent_plain(g: torch.Tensor, ct: torch.Tensor, E: float,
 
 
 # ----------------------------------------------------------- CUDA kernels
-def _nvcc() -> str:
-    """nvcc from PATH, else from $CUDA_HOME (default /usr/local/cuda)."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME): the "
-                       "element-energy kernels are built from source with "
-                       "the CUDA toolkit")
-
-
-def build_kernels() -> dict:
-    """Compile ``csrc/element_energy.cu`` for sm_90a into
-    ``csrc/build/`` unless a library of this source is there already.
-
-    Returns {"path", "seconds", "log"} (log: nvcc/ptxas output, with the
-    register and spill counts per kernel)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD_DIR / f"libelement_energy_{tag}.so"
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": "cached"}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": time.perf_counter() - t0,
-            "log": res.stdout + res.stderr}
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_kernels()["path"])
+    lib = library("element_energy")
     vp, ll, fl, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                      ctypes.c_int)
     lib.hdnn_threads_per_block.argtypes = []
@@ -241,8 +194,6 @@ def _library() -> ctypes.CDLL:
     lib.hdnn_element_energy_bwd.restype = i
     lib.hdnn_incidence_sum.argtypes = [i, vp, vp, ll, i, vp, vp]
     lib.hdnn_incidence_sum.restype = i
-    lib.hdnn_error_string.argtypes = [i]
-    lib.hdnn_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -262,12 +213,6 @@ def _check_inputs(node: torch.Tensor, conn: torch.Tensor) -> None:
                          "on the node table's device")
     if conn.shape[0] == 0:
         raise ValueError("no elements")
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.hdnn_error_string(err).decode()}")
 
 
 def _scalars(conn, E, nu, w_sum, edge_start, tw):
@@ -295,7 +240,7 @@ def element_energy_fwd(node: torch.Tensor, conn: torch.Tensor, E: float,
         node.device.index, node.data_ptr(), conn.data_ptr(),
         *_scalars(conn, E, nu, w_sum, edge_start, tw),
         partials.data_ptr(), n_part, out.data_ptr(), stream)
-    _raise_on(lib, err, "element_energy_fwd")
+    raise_on(lib, err, "element_energy_fwd")
     launch_counts["element_energy_fwd"] += 1
     return out
 
@@ -318,7 +263,7 @@ def element_energy_bwd(node: torch.Tensor, conn: torch.Tensor,
         node.device.index, node.data_ptr(), conn.data_ptr(),
         *_scalars(conn, E, nu, w_sum, edge_start, tw),
         ct.data_ptr(), cot.data_ptr(), stream)
-    _raise_on(lib, err, "element_energy_bwd")
+    raise_on(lib, err, "element_energy_bwd")
     launch_counts["element_energy_bwd"] += 1
     return cot
 
@@ -347,7 +292,7 @@ def incidence_sum(cot: torch.Tensor,
     err = lib.hdnn_incidence_sum(cot.device.index, cot.data_ptr(),
                                  incidence.data_ptr(), n, k,
                                  grad.data_ptr(), stream)
-    _raise_on(lib, err, "incidence_sum")
+    raise_on(lib, err, "incidence_sum")
     launch_counts["incidence_sum"] += 1
     return grad
 

@@ -1,10 +1,14 @@
 """Plane-stress total potential energy (port of ``PlaneStressEnergy`` and
 ``mesh_quality_penalty`` from ``hidenn_fem_tpu/ops/losses.py``).
 
-Only the gather route exists in the port so far: every mesh, lattice or
-not, goes through the fused element energy (``ops/element_energy.py``) or
-the general quadrature path.  The reference quirks live behind
-``compat="reference"`` as in the JAX package:
+``total`` tries the routes in the JAX package's order: the gather-free
+lattice route when the mesh carries a ``LatticeRoute``
+(``ops/lattice_energy.py``, with the stencil kernels of
+``ops/lattice_slab.py`` on the card), then the hybrid route (not ported:
+``mesh.hybrid`` is always None), then the fused edges, then domain - edge
+on the gather route (``ops/element_energy.py``) or the general quadrature
+path.  The reference quirks live behind ``compat="reference"`` as in the
+JAX package:
 
 E3  the edge rule takes the raw [-1, 1] Gauss points as edge coordinates;
 E7  the order-4 triangle rule is double-scaled (weights sum to 0.25);
@@ -27,6 +31,9 @@ from .assembly import flat_gather, gather_with_incidence
 from .elasticity import energy_density, plane_stress_C, \
     strain_voigt_from_grad
 from .element_energy import element_energy, element_energy_plain
+from .lattice_energy import (lattice_body_work, lattice_domain_energy,
+                             lattice_total)
+from .lattice_slab import lattice_total_slab, slab_supported
 
 __all__ = ["PlaneStressEnergy", "mesh_quality_penalty"]
 
@@ -64,8 +71,13 @@ class PlaneStressEnergy:
       compat: "exact" or "reference" (quirks E3/E7/E8).
       backend: "auto" runs the CUDA kernels for float32 tensors on the
         card and the plain torch version on the CPU or for float64;
-        "kernel" forces the kernels (and raises on a CPU tensor); "plain"
-        forces the plain version.
+        "kernel" forces the kernels (and raises on a CPU tensor, or on a
+        lattice route the stencil kernels do not take); "plain" forces
+        the plain version.  The lattice route's stencil kernels take
+        identity-numbered routes (``lattice_slab.slab_supported``); a
+        renumbered route runs the plain lattice route under "auto", and
+        so do a body force and a custom traction under any backend, as
+        in the JAX package.
       mesh_penalty_weight: weight of ``mesh_quality_penalty`` (0: off).
       fuse_edges: fold the Neumann traction work into the element energy
         as (n0, n1, n1) pseudo-elements (``mesh.fused_connectivity``).
@@ -269,10 +281,74 @@ class PlaneStressEnergy:
         return element_energy_plain(g, self.E, self.nu, w_sum,
                                     mesh.n_elements, -t_x)
 
+    def _lattice_total(self, params, mesh: TriMesh):
+        """Gather-free route for lattice-detected meshes (or None): the
+        whole energy from [nx, ny] node-lattice slices.  A body force
+        rides the route (``lattice_body_work``); a custom traction keeps
+        the domain on it and evaluates the edge term generically."""
+        if (mesh.lattice is None or self.assembly != "fused"
+                or self.compat != "exact" or self.model.dim_u != 2
+                or getattr(self.model, "compat", "exact") != "exact"):
+            return None
+        node = self.model.packed_nodes(params, mesh)
+        if self.traction is None:
+            return self._lattice_total_node(node, mesh)
+        w_sum = quad.triangle_weight_sum(self.gauss_order)
+        e = lattice_domain_energy(node, mesh.lattice, self.E, self.nu,
+                                  w_sum)
+        if self.body_force is not None:
+            pts, w = self._domain_rule(node.device)
+            e = e - lattice_body_work(node, mesh.lattice, self.body_force,
+                                      pts, w)
+        return e - self.edge_energy(params, mesh)
+
+    def total_from_nodes(self, node, mesh: TriMesh) -> torch.Tensor:
+        """Energy as a function of the packed [N, 4] node table (pins
+        already applied), for lattice-routable configurations only."""
+        if self.mesh_penalty_weight:
+            raise ValueError("node-space energy does not carry the "
+                             "mesh-quality penalty (it needs params)")
+        e = self._lattice_total_node(node, mesh)
+        if e is None:
+            raise ValueError("total_from_nodes requires a lattice-"
+                             "routable configuration (lattice mesh, "
+                             "fused assembly, exact compat, default "
+                             "traction)")
+        return e
+
+    def _lattice_total_node(self, node, mesh: TriMesh):
+        if (mesh.lattice is None or self.assembly != "fused"
+                or self.compat != "exact" or self.traction is not None
+                or self.model.dim_u != 2
+                or getattr(self.model, "compat", "exact") != "exact"):
+            return None
+        route = mesh.lattice
+        w_sum = quad.triangle_weight_sum(self.gauss_order)
+        t_x = self.F_total / self.traction_length
+        backend = self._resolve_backend(node)
+        if self.body_force is not None:
+            # body-force work from the same lattice slices; the stencil
+            # kernels do not carry it
+            pts, w = self._domain_rule(node.device)
+            return (lattice_total(node, route, self.E, self.nu, w_sum, t_x)
+                    - lattice_body_work(node, route, self.body_force,
+                                        pts, w))
+        if backend == "kernel":
+            if slab_supported(route, node.dtype):
+                return lattice_total_slab(node, route, self.E, self.nu,
+                                          w_sum, t_x)
+            if self.backend == "kernel":
+                raise ValueError("backend='kernel' needs an identity-"
+                                 "numbered lattice route (the stencil "
+                                 "kernels take no permutation fill)")
+        return lattice_total(node, route, self.E, self.nu, w_sum, t_x)
+
     def total(self, params, mesh: TriMesh) -> torch.Tensor:
         """Total potential = domain - edge, plus the optional mesh-quality
         regularization."""
-        e = self._fused_total(params, mesh)
+        e = self._lattice_total(params, mesh)
+        if e is None:
+            e = self._fused_total(params, mesh)
         if e is None:
             e = self.domain_energy(params, mesh) - self.edge_energy(
                 params, mesh)

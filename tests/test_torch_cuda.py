@@ -11,12 +11,17 @@ with atol 1e-5 x max|grad| on cotangents and gradients (coordinate
 gradients are sums of cancelling terms; see tests/test_torch_losses.py).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import hidenn_fem_tpu_torch as pt
+from hidenn_fem_tpu_torch.models.structured_grid import (
+    StructuredGridP1, generate_structured_grid)
 from hidenn_fem_tpu_torch.ops import element_energy as ee
+from hidenn_fem_tpu_torch.ops import lattice_slab as ls
 
 pytestmark = pytest.mark.cuda
 
@@ -117,7 +122,10 @@ def test_kernel_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("fuse_edges", [False, True])
 def test_energy_kernel_path_matches_plain_path(dev, fuse_edges):
-    mesh = pt.generate_mesh(nx=41, ny=21, keep_dead_nodes=True, device=dev)
+    """The gather route (lattice stripped): K1, K2 and incidence_sum."""
+    mesh = dataclasses.replace(
+        pt.generate_mesh(nx=41, ny=21, keep_dead_nodes=True, device=dev),
+        lattice=None)
     rng = np.random.default_rng(2)
     n = mesh.n_nodes
     params_np = {"coords": mesh.coords.cpu().numpy()
@@ -136,3 +144,115 @@ def test_energy_kernel_path_matches_plain_path(dev, fuse_edges):
     _close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol_scale=0.0)
     for a, b in zip(out["kernel"][1:], out["plain"][1:]):
         _close(a, b)
+
+
+def _lattice_node(nx, ny, seed, dev):
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.linspace(0, 2, nx), np.linspace(0, 1, ny),
+                         indexing="ij")
+    xy = np.stack([xs, ys], -1).reshape(-1, 2)
+    node = np.concatenate([xy + 1e-3 * rng.standard_normal(xy.shape),
+                           1e-4 * rng.standard_normal(xy.shape)], 1)
+    return torch.tensor(node, dtype=torch.float32, device=dev), rng
+
+
+@pytest.mark.parametrize("diag", [ls.UP, ls.DOWN, ls.SEL_MASK, ls.PARITY])
+@pytest.mark.parametrize("masked", [False, True])
+def test_lattice_stencil_kernels_match_plain(dev, diag, masked):
+    """K7 and K6 against their plain versions for every diagonal mode,
+    with and without presence weights (a lattice of 300 rows: several
+    blocks, ragged last block)."""
+    nx, ny = 300, 37
+    node, rng = _lattice_node(nx, ny, 7, dev)
+    q = (nx - 1, ny - 1)
+    kw = dict(diag=diag, phase=1 if diag == ls.PARITY else 0)
+    if diag == ls.SEL_MASK:
+        kw["sel"] = torch.tensor((rng.random(q) > 0.5).astype(np.float32),
+                                 device=dev)
+    if masked:
+        for k in ("t1", "t2"):
+            kw[k] = torch.tensor((rng.random(q) > 0.1).astype(np.float32),
+                                 device=dev)
+    before = dict(ls.launch_counts)
+    e7 = ls.lattice_stencil_fwd(node, nx, ny, E, NU, W_SUM, **kw)
+    e6, g6 = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
+    torch.cuda.synchronize()
+    assert ls.launch_counts["lattice_stencil_fwd"] == \
+        before["lattice_stencil_fwd"] + 1
+    assert ls.launch_counts["lattice_stencil_vg"] == \
+        before["lattice_stencil_vg"] + 1
+    ep, gp = ls.lattice_stencil_vg_plain(node, nx, ny, E, NU, W_SUM, **kw)
+    assert float(e6) == float(e7)      # same threads, same blocks
+    _close(e7, ep, rtol=1e-4, atol_scale=0.0)
+    _close(g6, gp)
+
+
+def test_lattice_route_kernel_path_matches_plain_path(dev):
+    """PlaneStressEnergy on the keep-dead zigzag plate (sel, t1, t2 in use):
+    the stencil kernels against the plain lattice route, value and both
+    gradient groups; K7 under no_grad gives K6's energy."""
+    mesh = pt.generate_mesh(nx=61, ny=31, keep_dead_nodes=True, device=dev)
+    assert mesh.lattice.identity and mesh.lattice.uniform_sel == ""
+    rng = np.random.default_rng(2)
+    n = mesh.n_nodes
+    params_np = {"coords": mesh.coords.cpu().numpy()
+                 + 1e-3 * rng.standard_normal((n, 2)),
+                 "u": 1e-4 * rng.standard_normal((n, 2))}
+    out = {}
+    for backend in ("kernel", "plain"):
+        p = pt.params_from_numpy(params_np, device=dev)
+        for v in p.values():
+            v.requires_grad_(True)
+        e = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend=backend)
+        before = dict(ls.launch_counts)
+        val = e.total(p, mesh)
+        out[backend] = (val,) + torch.autograd.grad(
+            val, [p["coords"], p["u"]])
+        grew = ls.launch_counts["lattice_stencil_vg"] - \
+            before["lattice_stencil_vg"]
+        assert grew == (1 if backend == "kernel" else 0)
+    _close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol_scale=0.0)
+    for a, b in zip(out["kernel"][1:], out["plain"][1:]):
+        _close(a, b)
+    with torch.no_grad():
+        p = pt.params_from_numpy(params_np, device=dev)
+        e = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
+        before = ls.launch_counts["lattice_stencil_fwd"]
+        v7 = e.total(p, mesh)
+        assert ls.launch_counts["lattice_stencil_fwd"] == before + 1
+    assert float(v7) == float(out["kernel"][0].detach())
+
+
+@pytest.mark.parametrize("split", ["up", "zigzag"])
+def test_structured_kernel_path_matches_plain_path(dev, split):
+    grid = generate_structured_grid(nx=97, ny=49, split=split,
+                                    holes=((1.0, 0.5, 0.3),), device=dev)
+    out = {}
+    for backend in ("kernel", "plain"):
+        model = StructuredGridP1(backend=backend)
+        p = model.init(np.random.default_rng(4), grid)
+        p["u"] = p["u"] * 10.0
+        for v in p.values():
+            v.requires_grad_(True)
+        val = model.total(p, grid)
+        out[backend] = (val,) + torch.autograd.grad(
+            val, [p["coords"], p["u"]])
+    _close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol_scale=0.0)
+    for a, b in zip(out["kernel"][1:], out["plain"][1:]):
+        _close(a, b)
+
+
+def test_lattice_kernels_refuse_what_they_do_not_take(dev):
+    node = torch.zeros((12, 4), device=dev)
+    with pytest.raises(ValueError):
+        ls.lattice_stencil_fwd(node.double(), 4, 3, E, NU, W_SUM)
+    with pytest.raises(ValueError):
+        ls.lattice_stencil_fwd(node, 3, 3, E, NU, W_SUM)
+    with pytest.raises(ValueError):
+        ls.lattice_stencil_fwd(node, 4, 3, E, NU, W_SUM, diag=ls.SEL_MASK)
+    renumbered = pt.generate_mesh(nx=33, ny=17, device=dev)
+    assert not renumbered.lattice.identity
+    kernel = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
+    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), renumbered)
+    with pytest.raises(ValueError):
+        kernel.total(p, renumbered)

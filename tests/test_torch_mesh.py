@@ -14,6 +14,8 @@ from hidenn_fem_tpu.ops import quadrature as jq
 from hidenn_fem_tpu_torch.mesh import structured as ps
 from hidenn_fem_tpu_torch.ops import quadrature as pq
 
+from torch_port_common import assert_route_equal
+
 
 @pytest.mark.parametrize("order", [1, 3, 4, 6, 7])
 def test_triangle_rules_bit_equal(order):
@@ -83,7 +85,11 @@ def test_generate_mesh_equal(case):
                                       err_msg=name)
     assert tm.connectivity.dtype == torch.int32
     assert tm.coords.dtype == torch.float32
-    assert tm.lattice is None and tm.banded is None and tm.hybrid is None
+    # the lattice route is detected as in the JAX package; the banded and
+    # hybrid routes are not ported
+    assert tm.lattice is not None
+    assert_route_equal(tm.lattice, jm.lattice)
+    assert tm.banded is None and tm.hybrid is None
     if kw.get("keep_dead_nodes"):
         # dead hole nodes: referenced by no element, all -1 incidence
         used = np.zeros(tm.n_nodes, bool)

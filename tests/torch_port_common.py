@@ -15,7 +15,7 @@ import hidenn_fem_tpu_torch as pt
 def jax_mesh(*, holes=(), nx=17, ny=9, variant="zigzag",
              keep_dead_nodes=False, boundaries=None, dtype=jnp.float32):
     """A JAX-package plate mesh with the lattice route stripped, so the
-    JAX energy takes the gather route the port has."""
+    JAX energy takes the gather route (``port_mesh`` strips it too)."""
     m = ht.generate_mesh(holes=list(holes), nx=nx, ny=ny, variant=variant,
                          keep_dead_nodes=keep_dead_nodes,
                          boundaries=boundaries)
@@ -26,7 +26,29 @@ def jax_mesh(*, holes=(), nx=17, ny=9, variant="zigzag",
 
 
 def port_mesh(mesh_jax, dtype=torch.float32):
-    return pt.mesh_from_numpy(mesh_jax, dtype=dtype)
+    """The port's mesh of the same arrays, with a lattice route exactly
+    when the JAX mesh has one, so both packages take the same route."""
+    return pt.mesh_from_numpy(mesh_jax, dtype=dtype,
+                              build_lattice=mesh_jax.lattice is not None)
+
+
+def assert_route_equal(port_route, jax_route):
+    """The port's LatticeRoute holds the JAX package's arrays and static
+    flags (exact equality)."""
+    assert (port_route is None) == (jax_route is None)
+    if jax_route is None:
+        return
+    for name in ("sel", "t1", "t2", "inv_map", "fwd_map"):
+        np.testing.assert_array_equal(getattr(port_route, name).numpy(),
+                                      np.asarray(getattr(jax_route, name)),
+                                      err_msg=name)
+    assert sorted(port_route.edge_masks) == sorted(jax_route.edge_masks)
+    for face, mask in jax_route.edge_masks.items():
+        np.testing.assert_array_equal(port_route.edge_masks[face].numpy(),
+                                      np.asarray(mask), err_msg=face)
+    for name in ("nx", "ny", "identity", "prefix_identity", "uniform_sel",
+                 "all_present"):
+        assert getattr(port_route, name) == getattr(jax_route, name), name
 
 
 def random_params(mesh_jax, seed=0, u_scale=1e-4, coord_scale=1e-3):

@@ -1,16 +1,20 @@
 """Where the time of the PyTorch port's solve goes, on a CUDA card.
 
 Profiles (``torch.profiler``, CPU and CUDA activities) a window of L-BFGS
-steps and of energy value-and-grad calls on the example-4 plate and on
-the 922K-class plate, after a warm-up, and prints for each window: the
-wall time per call, the device-busy time per call (the union of kernel
-intervals), the idle share, and the top operators by device and by host
-time.  Chrome traces go to ``--out`` (default ``chiprun_out/``).
+steps and of energy value-and-grad calls, after a warm-up, on: the
+example-4 plate on its default route (the lattice route, stencil kernel
+K6) and on the gather route (lattice stripped: K1, K2, incidence_sum);
+the 922K-class plate on the lattice route; and example 6's 1000x500
+``StructuredGridP1`` (K6).  For each window it prints the wall time per
+call, the device-busy time per call (the union of kernel intervals), the
+idle share, and the top operators by device and by host time.  Chrome
+traces go to the ``--out`` directory.
 
 Run from the repository root:  ``python -m tools.profile_torch_port``
 """
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -58,21 +62,33 @@ def _window(name, fn, calls, out_dir, card):
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
 
 
-def _case(mesh, dev):
-    model = ht.TriangleP1()
-    energy = ht.PlaneStressEnergy(model=model)
-    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
-    params = ht.params_from_numpy(
-        {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
-
+def _case(loss, params, data, memory_size=100):
     def vg():
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        v = energy.total(p, mesh)
+        v = loss(p, data)
         torch.autograd.grad(v, [p["coords"], p["u"]])
 
     def steps():
-        ht.run_lbfgs(energy.total, params, num_steps=10, loss_args=(mesh,))
+        ht.run_lbfgs(loss, params, num_steps=10, memory_size=memory_size,
+                     loss_args=(data,))
     return vg, steps
+
+
+def _plate(mesh, dev):
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    params = ht.params_from_numpy(
+        {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
+    return _case(energy.total, params, mesh)
+
+
+def _example6(dev):
+    grid = ht.generate_structured_grid(
+        holes=((0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1)),
+        nx=1000, ny=500, device=dev)
+    model = ht.StructuredGridP1()
+    return _case(model.total, model.init(np.random.default_rng(0), grid),
+                 grid, memory_size=10)
 
 
 def main():
@@ -84,14 +100,18 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
-    meshes = {
-        "ex4": ht.generate_mesh(nx=200, ny=100, keep_dead_nodes=True,
-                                device=dev),
-        "922k": ht.generate_mesh(nx=961, ny=481, keep_dead_nodes=True,
-                                 device=dev),
+    ex4 = ht.generate_mesh(nx=200, ny=100, keep_dead_nodes=True,
+                           device=dev)
+    cases = {
+        "ex4_lattice": lambda: _plate(ex4, dev),
+        "ex4_gather": lambda: _plate(dataclasses.replace(ex4, lattice=None),
+                                     dev),
+        "922k_lattice": lambda: _plate(ht.generate_mesh(
+            nx=961, ny=481, keep_dead_nodes=True, device=dev), dev),
+        "ex6_structured": lambda: _example6(dev),
     }
-    for name, mesh in meshes.items():
-        vg, steps = _case(mesh, dev)
+    for name, make in cases.items():
+        vg, steps = make()
         _window(f"{name}_value_and_grad", vg, 20, args.out, card)
         _window(f"{name}_lbfgs10", steps, 2, args.out, card)
 
