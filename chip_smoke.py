@@ -14,7 +14,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    plain:
    a. the gather route on the 922K-class plate
       (``generate_mesh(nx=961, ny=481, keep_dead_nodes=True)``, three
-      reference holes: 852,676 elements; lattice stripped): K1, K2 and
+      reference holes: 852,676 elements; lattice and banded tables
+      stripped, so the gather route is what runs): K1, K2 and
       ``incidence_sum`` against their plain versions, and the energy with
       both gradient groups on the kernel path against the plain path;
    b. the lattice route on the same plate (zigzag; sel, t1 and t2 all in
@@ -22,7 +23,19 @@ Phases (each raises on failure, and the script then exits non-zero):
       energy and both gradient groups on the kernel path against the
       plain path;
    c. the hole-free 961x481 "up" ``StructuredGridP1`` (uniform diagonal,
-      ``quad_mask`` as presence): K6 and K7 against their plain versions.
+      ``quad_mask`` as presence): K6 and K7 against their plain versions;
+   d. the banded route on the 898K Delaunay plate
+      (``generate_mesh_delaunay(lc=0.00218)``, three reference holes:
+      898,032 elements): K3, K4 and K5 (recompute windows and two-pass
+      windows, the two fallbacks) against their plain versions on the
+      paired (k=4), triangle (k=3) and strip (k=6) tables; then the
+      banded-route energy with both gradient groups against the flat
+      gather route (banded stripped: K1, K2, ``incidence_sum``) on the
+      same mesh, timed in turns;
+   e. the windowed-gather probe K8 on the RCM-reordered hole-free
+      961x481 plate (921,600 elements) at sub-blocks of 64 and 128:
+      against its plain version and the flat-gather sum, and the same
+      kernel over flat (absolute) index tables, all timed.
 4. Example 4 on its default route, the lattice route: 600 ``run_lbfgs``
    steps from u0 = 1e-5 N(0,1) (``np.random.default_rng(0)``), K6 on
    every step; the final energy against the JAX package's lattice-route
@@ -36,11 +49,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    energy at step 25 against the JAX package's (the 600-step value
    against the spread of the reference runs; see ``EX6_COMPARE_STEP``).
 7. Scale: 50 L-BFGS steps on the 922K-class plate, lattice route (K6).
+8. The irregular-mesh path at full width: on the 898K Delaunay plate,
+   ``PlaneStressEnergy`` on its default route (banded, paired tables),
+   50 ``run_lbfgs`` steps from u0 = 1e-5 N(0,1), K4 on every step and K3
+   for the energy under ``torch.no_grad()``; the energy at init and at
+   step 25 against the JAX package's; von Mises.  Then 5 steps on each
+   fallback (no ownership intervals: K3 + K5 over the recompute windows;
+   no recompute tables: K3 + K5 over the two-pass windows).
+9. Hybrid at scale: ``generate_mesh_hybrid(lc=0.00209)`` (847,261
+   elements): the hybrid-route energy and both gradient groups against
+   the same mesh with the route stripped (gather route, K1/K2), then 10
+   L-BFGS steps against the JAX package's.
 
-Each path of phases 4-7 runs with every launch count set to 0 just before
-it and read just after, and fails if a kernel of that path did not
-launch.  The last three lines of standard output are the kernels' JSON,
-the ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``.
+Each path of phases 4-9 (and K8's timed A/B) runs with every launch
+count set to 0 just before it and read just after, and fails if a kernel
+of that path did not launch.  The last three lines of standard output
+are the kernels' JSON, the ``nvidia-smi`` name and power limit, and
+``{"ok": true, ...}``.
 """
 
 import dataclasses
@@ -90,6 +115,65 @@ JAX_EX6_F64_AT_STEP = 34.60655657313985
 EX6_RTOL = 2e-3
 JAX_EX6_F64_FINAL = -0.2910684935454196
 EX6_FINAL_RTOL = 5e-2
+
+# The irregular-mesh plates, with the three reference holes.  JAX package
+# values (CPU) of the L-BFGS loss history from u0 = 1e-5 N(0,1) of shape
+# [n_nodes, 2] (np.random.default_rng(0)), made with
+#   JAX_PLATFORMS=cpu python -c "
+#   import numpy as np, jax.numpy as jnp, hidenn_fem_tpu as ht
+#   from hidenn_fem_tpu.mesh.delaunay import generate_mesh_delaunay
+#   from hidenn_fem_tpu.mesh.hybrid import generate_mesh_hybrid
+#   holes = [(0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1)]
+#   m = generate_mesh_delaunay(holes=holes, lc=0.00218)  # or:
+#   # m = generate_mesh_hybrid(holes=holes, lc=0.00209)
+#   u0 = 1e-5 * np.random.default_rng(0).standard_normal((m.n_nodes, 2))
+#   e = ht.PlaneStressEnergy(model=ht.TriangleP1())
+#   _, l = ht.run_lbfgs(e.total, {'coords': m.coords,
+#       'u': jnp.asarray(u0, jnp.float32)}, num_steps=50, loss_args=(m,))
+#   print(float(l[0]), float(l[25]))"
+# (10 steps and l[9] for the hybrid mesh).  On the CPU the JAX package
+# runs the Delaunay plate through gather_banded (the triangle tables) and
+# XLA, the hybrid mesh on its hybrid route: the same physics as the
+# port's kernels.  The f64 values come from the same arrays in f64 on the
+# gather route, made with
+#   JAX_PLATFORMS=cpu python -c "
+#   import jax; jax.config.update('jax_enable_x64', True)
+#   <the imports and m as above>
+#   import jax.numpy as jnp
+#   m = ht.TriMesh.from_arrays(*[np.asarray(a) for a in m.astuple()],
+#       dtype=jnp.float64, build_banded=False, build_lattice=False)
+#   u0 = <as above>
+#   e = ht.PlaneStressEnergy(model=ht.TriangleP1(dtype=jnp.float64))
+#   _, l = ht.run_lbfgs(e.total, {'coords': m.coords, 'u': jnp.asarray(u0)},
+#       num_steps=26, loss_args=(m,))"   # 10 for the hybrid mesh
+# The first fixed step jumps to ~2e10 and each run's f32 rounding of it
+# carries on: at step 25 of the Delaunay solve JAX f32 lies 2.1e-3 from
+# JAX f64 (and a second JAX f32 run, on the XLA gather route with the
+# banded tables stripped, 13.000329971313477, 6.2e-5 from it), at step 9
+# of the hybrid solve 9.4e-4.  So the energy at init is held to JAX f32 at
+# rtol 1e-4; the later energy to JAX f64 at rtol 2e-3, and to JAX f32
+# within that f32 spread, rtol 5e-3 (the limit of the f32 L-BFGS checks
+# of tests/test_torch_delaunay.py and tests/test_torch_hybrid.py).
+HOLES = [(0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1)]
+DELAUNAY_LC = 0.00218
+JAX_DELAUNAY_INIT = 1156116.125
+DELAUNAY_COMPARE_STEP = 25
+JAX_DELAUNAY_F32_AT_STEP = 12.971711158752441
+JAX_DELAUNAY_F64_AT_STEP = 12.999536768762024
+HYBRID_LC = 0.00209
+# (elements, nodes) of the Delaunay plate; (elements, nodes, collar
+# triangles, stair rows) of the hybrid plate, as the JAX package builds
+# them; the K8 plate's lattice (921,600 elements)
+DELAUNAY_SIZES = (898_032, 450_924)
+HYBRID_SIZES = (847_261, 459_995, 2_553, 1_440)
+K8_GRID = (961, 481)
+JAX_HYBRID_INIT = 1257711.0
+HYBRID_STEPS = 10
+JAX_HYBRID_F32_LAST = 1063.1953125
+JAX_HYBRID_F64_LAST = 1064.1994153392743
+INIT_RTOL = 1e-4
+F64_RTOL = 2e-3
+F32_SPREAD_RTOL = 5e-3
 
 # kernel vs plain tolerances at full size (f32 on both sides, sums and
 # products in other orders): energy rtol 1e-4; gradients rtol 5e-4 with
@@ -221,15 +305,23 @@ def plate_922k(ht, dev):
             and lat.uniform_sel == "" and not lat.all_present):
         raise AssertionError("the 922K-class plate must carry an identity "
                              "zigzag lattice route with holes")
+    if mesh.banded is None:
+        raise AssertionError("the 922K-class plate must carry banded "
+                             "tables, as in the JAX package")
     return mesh
 
 
-def perturbed_params(ht, mesh, dev):
+def perturbed_params(ht, mesh, dev, coord_scale=1e-3):
+    """coords + coord_scale N(0,1), u ~ 1e-4 N(0,1).  The irregular
+    plates take coord_scale 2e-5 (1% of their spacing): at 1e-3 many of
+    their elements fold to near-zero area, whose f32 energies then hang on
+    which corner the determinant starts from, and two routes that order
+    the corners differently part by more than a rounding error."""
     rng = np.random.default_rng(0)
     n = mesh.n_nodes
     coords = mesh.coords.cpu().numpy().astype(np.float64)
     return ht.params_from_numpy(
-        {"coords": coords + 1e-3 * rng.standard_normal((n, 2)),
+        {"coords": coords + coord_scale * rng.standard_normal((n, 2)),
          "u": 1e-4 * rng.standard_normal((n, 2))}, device=dev)
 
 
@@ -238,7 +330,10 @@ def phase_gather(ht, ee, mesh922, dev, card):
     from hidenn_fem_tpu_torch.ops.assembly import (assemble_node_grad,
                                                    flat_gather)
 
-    mesh = dataclasses.replace(mesh922, lattice=None)
+    # strip the lattice and the banded tables, or total() would take the
+    # lattice or the banded route instead of K1/K2
+    mesh = dataclasses.replace(mesh922, lattice=None, banded=None,
+                               banded_paired=None)
     params = perturbed_params(ht, mesh, dev)
     model = ht.TriangleP1()
     E, nu, w_sum = 10e9, 0.3, 0.5
@@ -413,6 +508,355 @@ def phase_structured(ls, dev, card):
                model.E, model.nu, 0.5, dict(diag=ls.UP, t1=qm, t2=qm), card)
 
 
+def delaunay_898k(ht, mb, dev):
+    """The 898K Delaunay plate (host build timed) and its table sizes."""
+    t0 = time.perf_counter()
+    mesh = ht.generate_mesh_delaunay(holes=HOLES, lc=DELAUNAY_LC, device=dev)
+    build_s = time.perf_counter() - t0
+    conn = mesh.connectivity.cpu().numpy()
+    n = mesh.n_nodes
+    inc = mesh.incidence.cpu().numpy()
+    t0 = time.perf_counter()
+    mb.build_banded_assembly(conn, n, inc)
+    tri_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mb.build_paired_assembly(conn, n)
+    pair_s = time.perf_counter() - t0
+    pa, tri = mesh.banded_paired, mesh.banded
+    log(f"  898K Delaunay plate: {n} nodes, {mesh.n_elements} elements, "
+        f"{mesh.n_neumann_edges} Neumann edges; built in {build_s:.2f} s on "
+        f"the host, of which the triangle tables {tri_s:.2f} s and the "
+        f"paired tables {pair_s:.2f} s (timed again alone)")
+    if (mesh.n_elements, n) != DELAUNAY_SIZES:
+        raise AssertionError(f"expected (elements, nodes) {DELAUNAY_SIZES},"
+                             f" got {(mesh.n_elements, n)}")
+    if mesh.lattice is not None or tri is None or pa is None or pa.k != 4:
+        raise AssertionError("the Delaunay plate must carry triangle and "
+                             "paired banded tables and no lattice route")
+    for tag, ba in (("paired", pa), ("triangle", tri)):
+        if ba.re_conn_rel is None or ba.re_own_lo is None:
+            raise AssertionError(f"the {tag} tables lack the recompute "
+                                 "tables or their ownership intervals")
+        log(f"  {tag} tables (k={ba.k}): conn_rel "
+            f"{tuple(ba.conn_rel.shape)}, inc_rel {tuple(ba.inc_rel.shape)},"
+            f" re_conn_rel {tuple(ba.re_conn_rel.shape)}, re_inc_rel "
+            f"{tuple(ba.re_inc_rel.shape)}")
+    return mesh
+
+
+def without_recompute(ba, keep_tables):
+    """The tables with the ownership intervals (and, unless keep_tables,
+    every recompute table) removed: the two fallbacks of the banded
+    gradient."""
+    drop = dict(re_own_lo=None, re_own_hi=None)
+    if not keep_tables:
+        drop.update(re_nstarts=None, re_estarts=None, re_conn_rel=None,
+                    re_inc_rel=None)
+    return dataclasses.replace(ba, **drop)
+
+
+def banded_layout(be, tag, node, ba, ct, card, timed):
+    """K3, K4 and K5 (both fallbacks) against their plain versions on one
+    table layout; returns {kernel: (max_abs_err, ms, plain_ms)} when
+    timed."""
+    E, nu, w_sum = 10e9, 0.3, 0.5
+    args = (E, nu, w_sum)
+    k3 = be.banded_fwd(node, ba, *args)
+    err3 = check_close(f"{tag} K3 banded_fwd vs plain", k3,
+                       be.banded_fwd_plain(node, ba, *args), ENERGY_RTOL, 0.0)
+    e4, g4 = be.banded_vg(node, ba, *args)
+    pe4, pg4 = be.banded_vg_plain(node, ba, *args)
+    check_close(f"{tag} K4 energy vs plain", e4, pe4, ENERGY_RTOL, 0.0)
+    check_close(f"{tag} K4 energy (owned rows) vs K3 (every row)", e4, k3,
+                ENERGY_RTOL, 0.0)
+    err4 = check_close(f"{tag} K4 node gradient vs plain", g4, pg4,
+                       GRAD_RTOL, GRAD_ATOL)
+    na = node.detach().clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(be.banded_fwd_plain(na, ba, *args), na)
+    check_close(f"{tag} K4 node gradient vs autograd(plain K3)", g4, auto,
+                GRAD_RTOL, GRAD_ATOL)
+    fallbacks = {}
+    for name, keep in (("recompute windows", True),
+                       ("two-pass windows", False)):
+        fb = without_recompute(ba, keep)
+        g5 = be.banded_bwd(node, fb, ct, *args)
+        fallbacks[name] = (fb, check_close(
+            f"{tag} K5 ({name}) vs plain", g5,
+            be.banded_bwd_plain(node, fb, ct, *args), GRAD_RTOL, GRAD_ATOL))
+        check_close(f"{tag} K5 ({name}) vs ct x K4 node gradient", g5,
+                    ct * g4, GRAD_RTOL, GRAD_ATOL)
+    torch.cuda.synchronize()
+    if not timed:
+        return None
+    fb, err5 = fallbacks["recompute windows"]
+    ms3, pms3 = ab_ms(lambda: be.banded_fwd(node, ba, *args),
+                      lambda: be.banded_fwd_plain(node, ba, *args))
+    ms4, pms4 = ab_ms(lambda: be.banded_vg(node, ba, *args),
+                      lambda: be.banded_vg_plain(node, ba, *args))
+    ms5, pms5 = ab_ms(lambda: be.banded_bwd(node, fb, ct, *args),
+                      lambda: be.banded_bwd_plain(node, fb, ct, *args))
+    two, _ = fallbacks["two-pass windows"]
+    ms5b, pms5b = ab_ms(lambda: be.banded_bwd(node, two, ct, *args),
+                        lambda: be.banded_bwd_plain(node, two, ct, *args))
+    rows = ba.conn_rel.shape[0] * ba.conn_rel.shape[1]
+    re_rows = ba.re_conn_rel.shape[0] * ba.re_conn_rel.shape[1]
+    log(f"  {tag} K3 fwd over {rows} rows: kernel {ms3:.4f} ms, plain "
+        f"{pms3:.4f} ms [{card}]")
+    log(f"  {tag} K4 vg over {re_rows} recompute rows: kernel {ms4:.4f} ms, "
+        f"plain {pms4:.4f} ms [{card}]")
+    log(f"  {tag} K5 bwd over the recompute windows: kernel {ms5:.4f} ms, "
+        f"plain {pms5:.4f} ms; over the two-pass windows: kernel "
+        f"{ms5b:.4f} ms, plain {pms5b:.4f} ms [{card}]")
+    return {"banded_fwd": (err3, ms3, pms3), "banded_vg": (err4, ms4, pms4),
+            "banded_bwd": (err5, ms5, pms5)}
+
+
+def phase_banded(ht, be, mb, mesh, dev, card):
+    """Phase 3d: K3/K4/K5 against plain on the three layouts, then the
+    banded route against the flat gather route."""
+    params = perturbed_params(ht, mesh, dev, coord_scale=2e-5)
+    model = ht.TriangleP1()
+    node = model.packed_nodes(params, mesh).contiguous()
+    ct = torch.tensor(0.75, device=dev)
+    res = banded_layout(be, "paired k=4", node, mesh.banded_paired, ct, card,
+                        timed=True)
+    banded_layout(be, "triangle k=3", node, mesh.banded, ct, card,
+                  timed=True)
+    t0 = time.perf_counter()
+    strip = mb.build_striped_assembly(mesh.connectivity.cpu().numpy(),
+                                      mesh.n_nodes, device=dev)
+    log(f"  strip tables built in {time.perf_counter() - t0:.2f} s: "
+        f"conn_rel {tuple(strip.conn_rel.shape)}")
+    banded_layout(be, "strip k=6", node, strip, ct, card, timed=False)
+
+    # the banded route against the flat gather route on the same mesh
+    energy = ht.PlaneStressEnergy(model=model)
+    flat = dataclasses.replace(mesh, banded=None, banded_paired=None)
+    before = dict(be.launch_counts)
+    vb, gcb, gub = value_and_grads(energy, params, mesh)
+    if be.launch_counts["banded_vg"] == before["banded_vg"]:
+        raise AssertionError("the banded route did not launch K4")
+    vf, gcf, guf = value_and_grads(energy, params, flat)
+    tag = "banded route vs flat gather route"
+    check_close(f"{tag} energy", vb, vf, ENERGY_RTOL, 0.0)
+    check_close(f"{tag} d/d coords", gcb, gcf, GRAD_RTOL, GRAD_ATOL)
+    check_close(f"{tag} d/d u", gub, guf, GRAD_RTOL, GRAD_ATOL)
+    bms, fms = ab_ms(lambda: value_and_grads(energy, params, mesh),
+                     lambda: value_and_grads(energy, params, flat))
+    log(f"  value-and-grad at {mesh.n_elements} elements: banded route "
+        f"(K4) {bms:.4f} ms, flat gather route (K1, K2, incidence_sum) "
+        f"{fms:.4f} ms [{card}]")
+    return res
+
+
+def phase_window_gather(ht, wg, mb, counts, dev, card):
+    """Phase 3e: K8 against its plain version and the flat-gather sum."""
+    t0 = time.perf_counter()
+    mesh = mb.reorder_mesh(ht.generate_mesh(nx=K8_GRID[0], ny=K8_GRID[1],
+                                            holes=()), build_banded=False)
+    log(f"  reordered hole-free {K8_GRID[0]}x{K8_GRID[1]} plate: "
+        f"{mesh.n_elements} elements, "
+        f"{mesh.n_nodes} nodes ({time.perf_counter() - t0:.2f} s on the "
+        "host)")
+    if mesh.n_elements != 2 * (K8_GRID[0] - 1) * (K8_GRID[1] - 1):
+        raise AssertionError(f"unexpected element count {mesh.n_elements}")
+    conn = mesh.connectivity.numpy()
+    n = mesh.n_nodes
+    node = torch.tensor(np.random.default_rng(3).standard_normal((n, 4)),
+                        dtype=torch.float32, device=dev)
+    conn_d = mesh.connectivity.to(dev)
+    cases, err = [], 0.0
+    for eb in (64, 128):
+        relT, wblk, wp, npad, s = wg.build_subblocks(conn, n, eb)
+        node_pad = wg.pad_nodes(node, npad)
+        relT_d = torch.tensor(relT, device=dev)
+        wblk_d = torch.tensor(wblk, device=dev)
+        # the same kernel over absolute indices (window block 0): the flat
+        # gather with the windowed kernel's access pattern
+        flatT = torch.tensor(np.ascontiguousarray(np.swapaxes(
+            conn.reshape(s, eb, 3), 1, 2)).astype(np.int32), device=dev)
+        zero = torch.zeros(s, dtype=torch.int32, device=dev)
+        k = wg.window_sq(node_pad, relT_d, wblk_d, wp)
+        tag = f"K8 eb={eb} (wp={wp}, {s} sub-blocks)"
+        err = max(err, check_close(
+            f"{tag} vs window_sq_plain", k,
+            wg.window_sq_plain(node_pad, relT_d, wblk_d, wp), ENERGY_RTOL,
+            0.0))
+        check_close(f"{tag} vs the flat-gather sum", k,
+                    wg.flat_sq_plain(node, conn_d), ENERGY_RTOL, 0.0)
+        check_close(f"{tag} over flat index tables vs windowed", wg.window_sq(
+            node_pad, flatT, zero, wp), k, ENERGY_RTOL, 0.0)
+        cases.append((eb, node_pad, relT_d, wblk_d, wp, flatT, zero))
+    torch.cuda.synchronize()
+
+    def timed_ab():
+        out = []
+        for eb, node_pad, relT_d, wblk_d, wp, flatT, zero in cases:
+            kms, pms = ab_ms(
+                lambda: wg.window_sq(node_pad, relT_d, wblk_d, wp),
+                lambda: wg.window_sq_plain(node_pad, relT_d, wblk_d, wp))
+            fkms, fpms = ab_ms(
+                lambda: wg.window_sq(node_pad, flatT, zero, wp),
+                lambda: wg.flat_sq_plain(node, conn_d))
+            log(f"  K8 at {mesh.n_elements} elements, eb={eb}: windowed "
+                f"kernel {kms:.4f} ms, same kernel over flat tables "
+                f"{fkms:.4f} ms, plain windowed gather {pms:.4f} ms, plain "
+                f"flat gather {fpms:.4f} ms [{card}]")
+            out.append((kms, pms))
+        return out
+
+    times, launches = run_path(counts, "K8 windowed-vs-flat gather A/B",
+                               ("window_sq",), timed_ab)
+    kms, pms = times[0]
+    return {"name": "window_sq", "route": "cuda",
+            "source": "hidenn_fem_tpu_torch/csrc/window_gather.cu",
+            "replaces": "tools/microbench_gather.py:177",
+            "launches": launches["window_sq"], "max_abs_err": err,
+            "ms": kms, "plain_ms": pms}
+
+
+def lbfgs_from_rest(ht, energy, mesh, dev, steps):
+    """run_lbfgs from u0 = 1e-5 N(0,1) after a 3-step warm-up; returns
+    (params, losses as numpy, seconds of the timed solve)."""
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    params = ht.params_from_numpy(
+        {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
+    ht.run_lbfgs(energy.total, params, num_steps=3, loss_args=(mesh,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = ht.run_lbfgs(energy.total, params, num_steps=steps,
+                                  loss_args=(mesh,))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = losses.cpu().numpy()
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"energy not finite and falling: {losses[0]} "
+                             f"-> {losses[-1]}")
+    return params, losses, seconds
+
+
+def check_ref(what, got, f32, f32_rtol, f64=None):
+    """|got - ref| <= rtol |ref| against the JAX f32 value and, when
+    given, the JAX f64 value (at F64_RTOL)."""
+    refs = [("f32", f32, f32_rtol)] + (
+        [] if f64 is None else [("f64", f64, F64_RTOL)])
+    for name, want, rtol in refs:
+        rel = abs(got - want) / abs(want)
+        log(f"  {what}: {got!r} vs JAX {name} {want!r}: rel {rel:.3e} "
+            f"(limit {rtol})")
+        if rel > rtol:
+            raise AssertionError(f"{what} off the JAX {name} value")
+
+
+def phase_delaunay_solve(ht, be, mesh, dev, card, steps=50):
+    """Phase 8: the slice's main path on the 898K Delaunay plate."""
+    from hidenn_fem_tpu_torch import postproc
+
+    model = ht.TriangleP1()
+    energy = ht.PlaneStressEnergy(model=model)
+    before = dict(be.launch_counts)
+    params, losses, seconds = lbfgs_from_rest(ht, energy, mesh, dev, steps)
+    vg = be.launch_counts["banded_vg"] - before["banded_vg"]
+    if vg != steps + 3:
+        raise AssertionError(f"K4 launched {vg} times in {steps} + 3 "
+                             "steps")
+    before = be.launch_counts["banded_fwd"]
+    with torch.no_grad():
+        at_solution = float(energy.total(params, mesh))
+    if be.launch_counts["banded_fwd"] != before + 1:
+        raise AssertionError("the no_grad energy did not run K3")
+    for i in range(0, steps, 10):
+        log(f"  Iter {i:04d}: Loss = {losses[i]:.6e}")
+    check_ref("898K Delaunay energy at init", float(losses[0]),
+              JAX_DELAUNAY_INIT, INIT_RTOL)
+    check_ref(f"898K Delaunay energy at step {DELAUNAY_COMPARE_STEP}",
+              float(losses[DELAUNAY_COMPARE_STEP]), JAX_DELAUNAY_F32_AT_STEP,
+              F32_SPREAD_RTOL, JAX_DELAUNAY_F64_AT_STEP)
+    # the solve is unconverged at step 50, so the energy at the solution
+    # is held to the plain route's at the same point, not to the last loss
+    with torch.no_grad():
+        plain = float(ht.PlaneStressEnergy(model=model, backend="plain")
+                      .total(params, mesh))
+    rel = abs(at_solution - plain) / abs(plain)
+    log(f"  energy at the solution under no_grad: K3 {at_solution!r} vs the "
+        f"plain banded gather {plain!r}: rel {rel:.3e} (limit "
+        f"{ENERGY_RTOL})")
+    if not np.isfinite(at_solution) or rel > ENERGY_RTOL:
+        raise AssertionError("no_grad energy off the plain route's")
+    vm = postproc.von_mises_per_element(model, params, mesh, 10e9, 0.3)
+    if not (bool(torch.isfinite(vm).all()) and float(vm.max()) > 0.0):
+        raise AssertionError("bad von Mises stress")
+    log(f"  max von Mises stress {float(vm.max()):.6e}")
+    log(f"  898K Delaunay L-BFGS (banded route, paired tables) at "
+        f"{mesh.n_elements} elements: {steps} steps in {seconds:.3f} s, "
+        f"{1e3 * seconds / steps:.4f} ms/iter [{card}]")
+    return losses
+
+
+def phase_banded_fallbacks(ht, mesh, dev, card, main_losses, steps=5):
+    """The two fallbacks of the banded gradient, each for a few steps."""
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+    for name, keep in (("no ownership intervals", True),
+                       ("no recompute tables", False)):
+        m = dataclasses.replace(mesh, banded_paired=without_recompute(
+            mesh.banded_paired, keep))
+        _, losses, seconds = lbfgs_from_rest(ht, energy, m, dev, steps)
+        rel = np.abs(losses[:2] - main_losses[:2]) / np.abs(main_losses[:2])
+        log(f"  fallback ({name}): {steps} steps, {1e3 * seconds / steps:.4f}"
+            f" ms/iter, losses[:2] rel {rel.max():.3e} to the main path "
+            f"[{card}]")
+        if rel.max() > INIT_RTOL:
+            raise AssertionError(f"fallback ({name}) off the main path")
+
+
+def phase_hybrid(ht, ee, dev, card):
+    """Phase 9: the hybrid route at scale."""
+    t0 = time.perf_counter()
+    mesh = ht.generate_mesh_hybrid(holes=HOLES, lc=HYBRID_LC, device=dev)
+    build_s = time.perf_counter() - t0
+    hy = mesh.hybrid
+    sizes = (mesh.n_elements, mesh.n_nodes, hy.extra_conn.shape[0],
+             hy.stair_ids.shape[0])
+    log(f"  hybrid plate: {sizes[0]} elements, {sizes[1]} nodes, {sizes[2]}"
+        f" collar triangles, {sizes[3]} stair rows, lattice "
+        f"{hy.lattice.nx}x{hy.lattice.ny} ({build_s:.2f} s on the host)")
+    if sizes != HYBRID_SIZES:
+        raise AssertionError(f"unexpected hybrid mesh sizes {sizes}")
+    model = ht.TriangleP1()
+    energy = ht.PlaneStressEnergy(model=model)
+    params = perturbed_params(ht, mesh, dev, coord_scale=2e-5)
+    gather = dataclasses.replace(mesh, hybrid=None)
+    before = dict(ee.launch_counts)
+    vh, gch, guh = value_and_grads(energy, params, mesh)
+    if ee.launch_counts != before:
+        raise AssertionError("the hybrid route launched a gather kernel")
+    vg, gcg, gug = value_and_grads(energy, params, gather)
+    if ee.launch_counts["element_energy_fwd"] == before["element_energy_fwd"]:
+        raise AssertionError("the stripped mesh did not take the gather "
+                             "route")
+    tag = "hybrid route vs gather route"
+    check_close(f"{tag} energy", vh, vg, ENERGY_RTOL, 0.0)
+    check_close(f"{tag} d/d coords", gch, gcg, GRAD_RTOL, GRAD_ATOL)
+    check_close(f"{tag} d/d u", guh, gug, GRAD_RTOL, GRAD_ATOL)
+    hms, gms = ab_ms(lambda: value_and_grads(energy, params, mesh),
+                     lambda: value_and_grads(energy, params, gather))
+    log(f"  value-and-grad at {mesh.n_elements} elements: hybrid route "
+        f"{hms:.4f} ms, gather route (K1, K2, incidence_sum) {gms:.4f} ms "
+        f"[{card}]")
+
+    def solve():
+        _, losses, seconds = lbfgs_from_rest(ht, energy, mesh, dev,
+                                             HYBRID_STEPS)
+        check_ref("hybrid energy at init", float(losses[0]),
+                  JAX_HYBRID_INIT, INIT_RTOL)
+        check_ref(f"hybrid energy at step {HYBRID_STEPS - 1}",
+                  float(losses[-1]), JAX_HYBRID_F32_LAST, F32_SPREAD_RTOL,
+                  JAX_HYBRID_F64_LAST)
+        log(f"  hybrid L-BFGS at {mesh.n_elements} elements: "
+            f"{1e3 * seconds / HYBRID_STEPS:.4f} ms/iter [{card}]")
+    return solve
+
+
 def plate_energy(ht, cfg, model):
     return ht.PlaneStressEnergy(
         model=model, E=cfg.youngs_modulus, nu=cfg.poisson_ratio,
@@ -556,12 +1000,15 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script runs "
                          "only on a GPU")
     import hidenn_fem_tpu_torch as ht
+    from hidenn_fem_tpu_torch.mesh import banded as mb
+    from hidenn_fem_tpu_torch.ops import banded_energy as be
     from hidenn_fem_tpu_torch.ops import cuda_build
     from hidenn_fem_tpu_torch.ops import element_energy as ee
     from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+    from hidenn_fem_tpu_torch.ops import window_gather as wg
 
-    counts = Counts(ee, ls)
-    log("[1/7] environment")
+    counts = Counts(ee, ls, be, wg)
+    log("[1/9] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -571,7 +1018,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/7] build")
+    log("[2/9] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -581,7 +1028,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/7] kernel vs plain at full size")
+    log("[3/9] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -595,9 +1042,21 @@ def main():
              "replaces": "hidenn_fem_tpu/ops/lattice_slab.py" + line,
              "launches": None, "max_abs_err": err, "ms": ms,
              "plain_ms": pms})
+    mesh898 = delaunay_898k(ht, mb, dev)
+    banded = phase_banded(ht, be, mb, mesh898, dev, card)
+    for name, line in (("banded_fwd", ":116"), ("banded_vg", ":133"),
+                       ("banded_bwd", ":159")):
+        err, ms, pms = banded[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "hidenn_fem_tpu_torch/csrc/banded_energy.cu",
+             "replaces": "hidenn_fem_tpu/ops/banded_energy.py" + line,
+             "launches": None, "max_abs_err": err, "ms": ms,
+             "plain_ms": pms})
+    kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/7] example 4 on its default route (lattice), 600 steps")
+    log("[4/9] example 4 on its default route (lattice), 600 steps")
     _, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -605,27 +1064,52 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/7] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/9] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
         lambda: solve_example4(ht, dataclasses.replace(mesh4, lattice=None),
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
-    for k in kernels:
-        k["launches"] = (lattice_launches[k["name"]]
-                         if k["name"].startswith("lattice_")
-                         else gather_launches[k["name"]])
 
-    log("[6/7] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/9] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/7] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/9] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
+    log("[8/9] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    main_losses, delaunay_launches = run_path(
+        counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
+        lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
+    _, fallback_launches = run_path(
+        counts, "898K Delaunay banded fallbacks",
+        ("banded_fwd", "banded_bwd"),
+        lambda: phase_banded_fallbacks(ht, mesh898, dev, card, main_losses))
+    del mesh898
+
+    log("[9/9] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    solve = phase_hybrid(ht, ee, dev, card)
+    _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
+    if any(hybrid_launches.values()):
+        raise AssertionError("the hybrid route launched a kernel")
+
+    path_launches = {
+        "lattice_stencil_vg": lattice_launches,
+        "lattice_stencil_fwd": lattice_launches,
+        "element_energy_fwd": gather_launches,
+        "element_energy_bwd": gather_launches,
+        "incidence_sum": gather_launches,
+        "banded_fwd": delaunay_launches,
+        "banded_vg": delaunay_launches,
+        "banded_bwd": fallback_launches,
+    }
+    for k in kernels:
+        if k["launches"] is None:
+            k["launches"] = path_launches[k["name"]][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

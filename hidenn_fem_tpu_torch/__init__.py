@@ -20,6 +20,11 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import PlateConfig  # noqa: E402
 from .convert import (grid_from_numpy, mesh_from_numpy,  # noqa: E402
                       params_from_numpy)
+from .mesh.banded import reorder_mesh  # noqa: E402
+from .mesh.delaunay import (generate_mesh_delaunay,  # noqa: E402
+                            generate_mesh_unstructured)
+from .mesh.gmsh_backend import generate_mesh_gmsh, have_gmsh  # noqa: E402
+from .mesh.hybrid import generate_mesh_hybrid  # noqa: E402
 from .mesh.structured import (generate_mesh, proxy_plate_mesh,  # noqa: E402
                               rectangle_tri_zigzag)
 from .mesh.types import TriMesh  # noqa: E402

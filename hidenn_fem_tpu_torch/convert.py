@@ -26,14 +26,15 @@ def params_from_numpy(params_np: dict, device=None,
 
 
 def mesh_from_numpy(mesh, device=None, dtype=torch.float32,
-                    build_lattice=True) -> TriMesh:
+                    build_lattice=True, build_banded="auto") -> TriMesh:
     """``TriMesh.from_arrays`` on the six arrays of a mesh object (for
-    example the JAX package's ``TriMesh``)."""
+    example the JAX package's ``TriMesh``); ``build_banded`` as there."""
     return TriMesh.from_arrays(
         np.asarray(mesh.coords), np.asarray(mesh.connectivity),
         np.asarray(mesh.geom_boundary_mask), np.asarray(mesh.dirichlet_mask),
         np.asarray(mesh.neumann_mask), np.asarray(mesh.neumann_edges),
-        dtype=dtype, device=device, build_lattice=build_lattice)
+        dtype=dtype, device=device, build_lattice=build_lattice,
+        build_banded=build_banded)
 
 
 def grid_from_numpy(grid, device=None) -> StructuredGrid:

@@ -1,18 +1,21 @@
 """Mesh container (port of ``hidenn_fem_tpu/mesh/types.py``).
 
 Tables are built as numpy on the host, exactly as in the JAX package, and
-held as torch tensors; ``TriMesh.to(device)`` moves them, and the lattice
-route's, to the card.
+held as torch tensors; ``TriMesh.to(device)`` moves them, and those of the
+lattice, banded and hybrid routes, to the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .banded import (build_banded_assembly, build_paired_assembly,
+                     build_striped_assembly)
 from .lattice import detect_lattice
 
 __all__ = ["TriMesh", "build_incidence_table"]
@@ -60,8 +63,12 @@ class TriMesh:
         lattice-topology mesh, or None.  ``from_arrays`` detects it where
         the JAX package does, and the energy then takes the gather-free
         lattice route first, as the JAX package's does.
-      banded, banded_paired, hybrid: the JAX package's banded and hybrid
-        routes.  They are not ported yet and stay None.
+      banded: the triangle ``BandedAssembly`` (``mesh/banded.py``), built
+        by ``from_arrays`` for large meshes, as in the JAX package.
+      banded_paired: the quad-paired (or, under ``HDNN_STRIPS``, striped)
+        tables; the banded energy prefers them.
+      hybrid: the ``HybridRoute`` of a ``generate_mesh_hybrid`` mesh
+        (``mesh/hybrid.py``), or None.
     """
 
     coords: torch.Tensor
@@ -95,26 +102,36 @@ class TriMesh:
         return self.coords.device
 
     def to(self, device) -> "TriMesh":
-        """A copy with every tensor field, and the lattice route's
-        tensors, on ``device``."""
+        """A copy with every tensor field, and the tensors of the lattice,
+        banded and hybrid routes, on ``device``."""
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
-        if self.lattice is not None:
-            moved["lattice"] = self.lattice.to(device)
+        for name in ("lattice", "banded", "banded_paired", "hybrid"):
+            if getattr(self, name) is not None:
+                moved[name] = getattr(self, name).to(device)
         return dataclasses.replace(self, **moved)
 
     @classmethod
     def from_arrays(cls, coords, connectivity, geom_boundary_mask=None,
                     dirichlet_mask=None, neumann_mask=None,
                     neumann_edges=None, dtype=torch.float32,
-                    device=None, build_lattice=True) -> "TriMesh":
+                    device=None, build_banded="auto", build_lattice=True,
+                    build_fused=True) -> "TriMesh":
         """Normalize host arrays into a TriMesh on ``device`` (CPU by
         default), building the incidence and fused edge tables.
 
+        build_banded: "auto" builds the banded tables when a gather table
+        would pass 250,000 rows (``max(N, 3 Ne)``, the JAX package's
+        threshold), True forces them, False skips them, "nopair" builds
+        the triangle tables only.  The paired tables follow the triangle
+        tables unless ``HDNN_NO_PAIR`` is set; ``HDNN_STRIPS`` asks for
+        the k=6 strip tables instead (pairs if the mesh does not strip),
+        as in the JAX package.
         build_lattice: run ``detect_lattice`` (on the coordinates as cast
         to ``dtype``, as the JAX package does), so that lattice-topology
-        meshes take the gather-free energy route."""
+        meshes take the gather-free energy route.
+        build_fused: build the fused domain + edge tables."""
         coords_t = torch.tensor(np.asarray(coords), dtype=dtype)
         n = coords_t.shape[0]
 
@@ -137,13 +154,28 @@ class TriMesh:
                 raise ValueError(f"{name} indexes nodes outside [0, {n})")
         inc_np = build_incidence_table(conn_np, n) if conn_np.size else None
 
+        banded = banded_paired = None
+        want_banded = (build_banded in (True, "nopair") or (
+            build_banded == "auto" and conn_np.size
+            and max(n, 3 * conn_np.shape[0]) > 250_000))
+        if want_banded and inc_np is not None:
+            banded = build_banded_assembly(conn_np, n, inc_np, device=device)
+            if (banded is not None and build_banded != "nopair"
+                    and not os.environ.get("HDNN_NO_PAIR")):
+                if os.environ.get("HDNN_STRIPS"):
+                    banded_paired = build_striped_assembly(conn_np, n,
+                                                           device=device)
+                if banded_paired is None:
+                    banded_paired = build_paired_assembly(conn_np, n,
+                                                          device=device)
+
         lattice = None
         if build_lattice and conn_np.size:
             lattice = detect_lattice(coords_t.numpy(), conn_np, edges_np,
                                      device=device)
 
         fused_conn = fused_inc = None
-        if conn_np.size and edges_np.size:
+        if build_fused and conn_np.size and edges_np.size:
             edge_tri = np.concatenate(
                 [edges_np, edges_np[:, 1:2]], axis=1)     # (n0, n1, n1)
             fused_conn = np.concatenate(
@@ -158,6 +190,8 @@ class TriMesh:
             neumann_mask=_mask(neumann_mask),
             neumann_edges=_int(edges_np).reshape(-1, 2),
             incidence=_int(inc_np) if inc_np is not None else None,
+            banded=banded,
+            banded_paired=banded_paired,
             fused_connectivity=(_int(fused_conn)
                                 if fused_conn is not None else None),
             fused_incidence=(_int(fused_inc)

@@ -11,6 +11,8 @@ through a node -> corner incidence table (``mesh.types``):
 
 Slots of -1 read a zero row appended to the cotangent, so padding needs
 no masks and nodes referenced by no element get exactly zero.
+``gather_banded`` is the same through the windows of the banded tables
+(``mesh/banded.py``): the plain banded route.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["flat_gather", "gather_with_incidence", "incidence_gather_sum",
-           "weighted_incidence_gather_sum"]
+           "weighted_incidence_gather_sum", "gather_banded",
+           "window_incidence_sum"]
 
 
 def flat_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -84,3 +87,49 @@ def gather_with_incidence(node: torch.Tensor, conn: torch.Tensor,
     """node[conn] ([Ne, V, F]) whose backward is the incidence
     gather-sum instead of a scatter-add."""
     return _GatherWithIncidence.apply(node, conn, incidence)
+
+
+# ------------------------------------------------------------------ banded
+def window_incidence_sum(rows: torch.Tensor, inc_rel: torch.Tensor,
+                         base: torch.Tensor, sentinel: int,
+                         n_nodes: int) -> torch.Tensor:
+    """Node gradients [n_nodes, F] from flat rows [R, F] through windowed
+    incidence tables inc_rel [Bn, NB, maxdeg]: node ``b*NB + i`` sums the
+    rows ``rows[base[b] + inc_rel[b, i, d]]`` over its slots in slot
+    order; slots equal to ``sentinel`` read a zero row."""
+    f = rows.shape[-1]
+    table = torch.cat([rows, rows.new_zeros((1, f))])
+    rel = inc_rel.long()
+    idx = torch.where(rel == sentinel, rows.shape[0],
+                      base.long()[:, None, None] + rel)
+    return flat_gather(table, idx.reshape(-1, rel.shape[-1])).sum(
+        dim=1)[:n_nodes]
+
+
+def _banded_index(ba) -> torch.Tensor:
+    """Node index [B*EB, k] of every forward-table row."""
+    idx = ba.starts.long()[:, None, None] + ba.conn_rel.long()
+    return idx.reshape(-1, ba.k)
+
+
+class _GatherBanded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, node, ba):
+        ctx.ba, ctx.n_nodes = ba, node.shape[0]
+        return flat_gather(node, _banded_index(ba))
+
+    @staticmethod
+    def backward(ctx, ct):
+        ba = ctx.ba
+        return (window_incidence_sum(ct.reshape(-1, ct.shape[-1]),
+                                     ba.inc_rel, ba.ct_starts, ba.wct,
+                                     ctx.n_nodes), None)
+
+
+def gather_banded(node: torch.Tensor, ba) -> torch.Tensor:
+    """[B*EB, k, F] rows of the forward banded tables (``>= Ne`` rows; the
+    padding rows are degenerate and contribute exactly zero).  The
+    backward sums each node's cotangent rows through the two-pass windows
+    (``ct_starts``, ``inc_rel``, sentinel ``wct``) instead of a
+    scatter-add, in a fixed order."""
+    return _GatherBanded.apply(node, ba)

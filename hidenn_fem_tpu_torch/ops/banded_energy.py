@@ -1,0 +1,321 @@
+"""Banded plane-stress energy, the large-mesh path (port of
+``hidenn_fem_tpu/ops/banded_energy.py``).
+
+The JAX package evaluated the energy of a mesh with banded tables
+(``mesh/banded.py``) by scanning element blocks over node windows (the
+forward, Pallas kernel K3), and took its gradient by scanning node blocks
+over element windows that recompute their cotangents in-block (K5), or,
+when the recompute tables carry ownership intervals, computed the value
+and the gradient in that one node-block scan (K4).  On the card the three
+are the CUDA kernels of ``hidenn_fem_tpu_torch/csrc/banded_energy.cu``:
+one thread per table row reads its node rows straight from the [N, 4]
+table (the source's header says what bounds them and how they are laid
+out).  The TPU's lane-major [k*4, 2048] blocks, transposes and zero
+padding are not reproduced.
+
+In this module:
+
+* ``banded_fwd`` (K3), ``banded_vg`` (K4), ``banded_bwd`` (K5): the kernel
+  wrappers (CUDA float32 tensors only; each launch adds one to
+  ``launch_counts``).  ``banded_vg`` and ``banded_bwd`` return node
+  gradients: their kernels include the incidence sum over the windows.
+* ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
+  same functions in plain torch, walking the same tables (window gather,
+  the per-layout energy of ``element_energy_plain``'s algebra and the
+  cotangents of ``element_cotangent_plain``, the ownership mask, the
+  block-relative incidence sum).
+* ``banded_element_energy``: node table -> energy as an autograd Function,
+  as the JAX package's custom_vjp does: with a gradient wanted and
+  ownership intervals present, the forward runs K4 and keeps its gradient;
+  otherwise the forward is K3 and the backward K5 (over the recompute
+  windows, or, without recompute tables, the two-pass windows).  Tensors
+  on the CPU run the plain versions.
+
+Row layouts (``BandedAssembly.k``): 3 a triangle, 4 an edge pair
+(triangles (0,1,2) and (0,1,3)), 6 a strip (triangle i is slots i..i+2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from .assembly import flat_gather, window_incidence_sum
+from .cuda_build import library, raise_on
+from .element_energy import _abs_jax, _constants, _strain, \
+    element_cotangent_plain
+
+__all__ = ["banded_element_energy", "banded_fwd", "banded_vg", "banded_bwd",
+           "banded_fwd_plain", "banded_vg_plain", "banded_bwd_plain",
+           "launch_counts", "reset_launch_counts"]
+
+# the triangles (slot triples) of each row layout
+_TRIS = {3: ((0, 1, 2),),
+         4: ((0, 1, 2), (0, 1, 3)),
+         6: ((0, 1, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5))}
+
+# launches of each kernel wrapper since the last reset
+launch_counts = {"banded_fwd": 0, "banded_vg": 0, "banded_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ------------------------------------------------------------ plain torch
+def _rows(node, starts, rel):
+    """Gathered table rows [B*EB, k, 4]: node[starts[b] + rel[b, e, s]]."""
+    idx = starts.long()[:, None, None] + rel.long()
+    return flat_gather(node, idx.reshape(-1, rel.shape[-1]))
+
+
+def _row_energies(g, E, nu, w_sum) -> torch.Tensor:
+    """Energy of each row [R] of gathered rows g [R, k, 4]."""
+    total = None
+    for tri in _TRIS[g.shape[1]]:
+        s = _strain(g[:, list(tri)], E, nu)
+        e = w_sum * _abs_jax(s["det"]) * s["dens"]
+        total = e if total is None else total + e
+    return total
+
+
+def _row_cotangents(g, E, nu, w_sum) -> torch.Tensor:
+    """d(row energy)/d(slot rows) [R, k, 4] by the hand-derived triangle
+    cotangents, summed over the row's triangles."""
+    cot = torch.zeros_like(g)
+    one = g.new_ones(())
+    for tri in _TRIS[g.shape[1]]:
+        cot[:, list(tri)] += element_cotangent_plain(g[:, list(tri)], one, E,
+                                                     nu, w_sum)
+    return cot
+
+
+def _recompute_sum(cot, ba, n_nodes):
+    """Node gradients from the recompute windows' row cotangents
+    cot [Br*EW, k, 4] through ``re_inc_rel`` (sentinel k*EW)."""
+    kew = ba.k * ba.re_ew
+    base = torch.arange(ba.re_inc_rel.shape[0], device=cot.device) * kew
+    return window_incidence_sum(cot.reshape(-1, cot.shape[-1]),
+                                ba.re_inc_rel, base, kew, n_nodes)
+
+
+def banded_fwd_plain(node, ba, E, nu, w_sum) -> torch.Tensor:
+    """The function K3 computes, in plain torch (differentiable): the
+    energy of the forward tables' rows."""
+    return torch.sum(_row_energies(_rows(node, ba.starts, ba.conn_rel),
+                                   E, nu, w_sum))
+
+
+def banded_vg_plain(node, ba, E, nu, w_sum
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The function K4 computes, in plain torch: (energy of the owned rows
+    of the recompute windows, node gradient [N, 4])."""
+    with torch.no_grad():
+        g = _rows(node.detach(), ba.re_nstarts, ba.re_conn_rel)
+        e = _row_energies(g, E, nu, w_sum).reshape(-1, ba.re_ew)
+        col = torch.arange(ba.re_ew, device=node.device)[None, :]
+        owned = (col >= ba.re_own_lo[:, None]) & (col < ba.re_own_hi[:, None])
+        energy = torch.sum(torch.where(owned, e, torch.zeros_like(e)))
+        grad = _recompute_sum(_row_cotangents(g, E, nu, w_sum), ba,
+                              node.shape[0])
+        return energy, grad
+
+
+def banded_bwd_plain(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
+    """The function K5 computes, in plain torch: ``ct`` times the node
+    gradient [N, 4], from the recompute windows when the tables have them,
+    else from the forward tables' cotangents through the two-pass windows
+    (``ct_starts``, ``inc_rel``, sentinel ``wct``)."""
+    with torch.no_grad():
+        node = node.detach()
+        n = node.shape[0]
+        if ba.re_conn_rel is not None:
+            g = _rows(node, ba.re_nstarts, ba.re_conn_rel)
+            grad = _recompute_sum(_row_cotangents(g, E, nu, w_sum), ba, n)
+        else:
+            cot = _row_cotangents(_rows(node, ba.starts, ba.conn_rel), E, nu,
+                                  w_sum)
+            grad = window_incidence_sum(cot.reshape(-1, 4), ba.inc_rel,
+                                        ba.ct_starts, ba.wct, n)
+        return grad * ct
+
+
+# ----------------------------------------------------------- CUDA kernels
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = library("banded_energy")
+    vp, ll, fl, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                     ctypes.c_int)
+    mat = [fl, fl, fl, fl]
+    lib.hdnn_banded_threads_per_block.argtypes = []
+    lib.hdnn_banded_threads_per_block.restype = i
+    lib.hdnn_banded_fwd.argtypes = [i, vp, vp, vp, ll, ll, i] + mat + [
+        vp, i, vp, vp]
+    lib.hdnn_banded_fwd.restype = i
+    lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
+        vp, vp, i, vp, vp, ll, i, ll, vp, vp]
+    lib.hdnn_banded_vg.restype = i
+    lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, ll, i] + mat + [
+        vp, vp, ll, i, vp, i, ll, vp, vp, vp]
+    lib.hdnn_banded_bwd.restype = i
+    return lib
+
+
+def _check(node: torch.Tensor, ba, *tables) -> None:
+    if not node.is_cuda:
+        raise ValueError("the banded kernels take CUDA tensors")
+    if node.dtype != torch.float32 or node.dim() != 2 \
+            or node.shape[1] != 4 or not node.is_contiguous():
+        raise ValueError("node must be a contiguous float32 [N, 4] table, "
+                         f"got {node.dtype} {tuple(node.shape)}")
+    if node.data_ptr() % 16:
+        raise ValueError("node rows must be 16-byte aligned (float4)")
+    if ba.k not in _TRIS:
+        raise ValueError(f"no banded kernel for k={ba.k}")
+    for t in tables:
+        if t is None or t.device != node.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError("the banded tables must be contiguous int32 "
+                             "tensors on the node table's device (move the "
+                             "mesh with TriMesh.to)")
+
+
+def _head(node, ba, starts, rel, E, nu, w_sum):
+    f, shear = _constants(E, nu)
+    return (node.device.index, node.data_ptr(), starts.data_ptr(),
+            rel.data_ptr(), rel.shape[1], rel.shape[0] * rel.shape[1], ba.k,
+            f, float(nu), shear, float(w_sum))
+
+
+def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
+    """K3 on the card: the energy (0-dim float32 tensor) of the forward
+    tables ``ba.starts``/``ba.conn_rel`` over the node table."""
+    _check(node, ba, ba.starts, ba.conn_rel)
+    lib = _library()
+    n_rows = ba.conn_rel.shape[0] * ba.conn_rel.shape[1]
+    n_part = -(-n_rows // lib.hdnn_banded_threads_per_block())
+    partials = torch.empty(n_part, dtype=torch.float32, device=node.device)
+    out = torch.empty((), dtype=torch.float32, device=node.device)
+    stream = torch.cuda.current_stream(node.device).cuda_stream
+    err = lib.hdnn_banded_fwd(
+        *_head(node, ba, ba.starts, ba.conn_rel, E, nu, w_sum),
+        partials.data_ptr(), n_part, out.data_ptr(), stream)
+    raise_on(lib, err, "banded_fwd")
+    launch_counts["banded_fwd"] += 1
+    return out
+
+
+def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on the card: (energy of the owned rows of the recompute windows,
+    node gradient [N, 4]).  Needs the recompute tables with ownership."""
+    _check(node, ba, ba.re_nstarts, ba.re_conn_rel, ba.re_own_lo,
+           ba.re_own_hi, ba.re_inc_rel)
+    lib = _library()
+    rel = ba.re_conn_rel
+    n_rows = rel.shape[0] * rel.shape[1]
+    n_part = -(-n_rows // lib.hdnn_banded_threads_per_block())
+    dev = node.device
+    cot = torch.empty((n_rows * ba.k, 4), dtype=torch.float32, device=dev)
+    partials = torch.empty(n_part, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    grad = torch.empty_like(node)
+    inc = ba.re_inc_rel
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = _head(node, ba, ba.re_nstarts, rel, E, nu, w_sum)
+    err = lib.hdnn_banded_vg(
+        *head[:4], ba.re_own_lo.data_ptr(), ba.re_own_hi.data_ptr(),
+        *head[4:], cot.data_ptr(), partials.data_ptr(), n_part,
+        out.data_ptr(), inc.data_ptr(), inc.shape[1], inc.shape[2],
+        node.shape[0], grad.data_ptr(), stream)
+    raise_on(lib, err, "banded_vg")
+    launch_counts["banded_vg"] += 1
+    return out, grad
+
+
+def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
+    """K5 on the card: ``ct`` (a one-element float32 tensor on the card)
+    times the node gradient [N, 4], over the recompute windows when the
+    tables have them, else over the two-pass windows."""
+    recompute = ba.re_conn_rel is not None
+    if recompute:
+        starts, rel, inc = ba.re_nstarts, ba.re_conn_rel, ba.re_inc_rel
+        block_starts, sentinel = None, ba.k * ba.re_ew
+    else:
+        starts, rel, inc = ba.starts, ba.conn_rel, ba.inc_rel
+        block_starts, sentinel = ba.ct_starts, ba.wct
+    _check(node, ba, starts, rel, inc,
+           *(() if block_starts is None else (block_starts,)))
+    ct = ct.reshape(()).to(dtype=torch.float32).contiguous()
+    if ct.device != node.device:
+        raise ValueError("ct must lie on the node table's device")
+    lib = _library()
+    dev = node.device
+    cot = torch.empty((rel.shape[0] * rel.shape[1] * ba.k, 4),
+                      dtype=torch.float32, device=dev)
+    grad = torch.empty_like(node)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.hdnn_banded_bwd(
+        *_head(node, ba, starts, rel, E, nu, w_sum), cot.data_ptr(),
+        inc.data_ptr(), inc.shape[1], inc.shape[2],
+        None if block_starts is None else block_starts.data_ptr(),
+        sentinel, node.shape[0], ct.data_ptr(), grad.data_ptr(), stream)
+    raise_on(lib, err, "banded_bwd")
+    launch_counts["banded_bwd"] += 1
+    return grad
+
+
+# ------------------------------------------------------- autograd wrapper
+def _single_pass(ba) -> bool:
+    return ba.re_conn_rel is not None and ba.re_own_lo is not None
+
+
+class _BandedEnergy(torch.autograd.Function):
+    """Energy of the node table over the banded tables ``ba``.  With
+    ``want_grad`` and ownership intervals the forward runs K4 and keeps
+    its gradient; otherwise it runs K3 and the backward K5.  Tensors on
+    the CPU run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, node, want_grad, ba, E, nu, w_sum):
+        ctx.ba, ctx.args = ba, (E, nu, w_sum)
+        if want_grad and _single_pass(ba):
+            e, g = (banded_vg(node, ba, E, nu, w_sum) if node.is_cuda
+                    else banded_vg_plain(node, ba, E, nu, w_sum))
+            ctx.single_pass = True
+            ctx.save_for_backward(g)
+            return e
+        ctx.single_pass = False
+        ctx.save_for_backward(node)
+        return (banded_fwd(node, ba, E, nu, w_sum) if node.is_cuda
+                else banded_fwd_plain(node, ba, E, nu, w_sum))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (saved,) = ctx.saved_tensors
+        if ctx.single_pass:
+            grad = ct * saved
+        elif saved.is_cuda:
+            grad = banded_bwd(saved, ctx.ba, ct, *ctx.args)
+        else:
+            grad = banded_bwd_plain(saved, ctx.ba, ct, *ctx.args)
+        return grad, None, None, None, None, None
+
+
+def banded_element_energy(node: torch.Tensor, ba, E: float, nu: float,
+                          w_sum: float) -> torch.Tensor:
+    """Total elastic energy of the packed node table ``node`` [N, 4] over
+    the banded tables ``ba`` (``mesh.banded_paired`` or ``mesh.banded``),
+    differentiable in ``node``.
+
+    When a gradient will be taken (grad mode on and ``node`` requiring
+    grad) the forward is the single-pass K4, as ``jax.value_and_grad``
+    picks the JAX package's; under ``torch.no_grad()`` it is K3."""
+    want_grad = torch.is_grad_enabled() and node.requires_grad
+    if node.is_cuda:
+        node = node.contiguous()
+    return _BandedEnergy.apply(node, want_grad, ba, float(E), float(nu),
+                               float(w_sum))

@@ -14,18 +14,19 @@ connectivity gather:
 The numerics are the P1 constant-strain element energy of the gather
 route up to reassociation.  On a CUDA float32 identity route the energy
 runs the stencil kernels of ``ops/lattice_slab.py`` instead.  The hybrid
-route's collar terms (``extra_elements_energy``, ``_take_sorted_rows``,
-``collar_energy``) are not ported yet.
+meshes' collar of irregular triangles (``mesh/hybrid.py``) adds
+``collar_energy`` (``extra_elements_energy`` is its generic reference).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .assembly import flat_gather, gather_with_incidence
 from .element_energy import _abs_jax
 
 __all__ = ["lattice_total", "lattice_domain_energy", "lattice_body_work",
-           "body_work_from_lat"]
+           "body_work_from_lat", "extra_elements_energy", "collar_energy"]
 
 
 class _PermFill(torch.autograd.Function):
@@ -164,6 +165,58 @@ def body_work_from_lat(lat: torch.Tensor, route, body_force, pts, w
     if route.all_present:
         return torch.sum(w1) + torch.sum(w2)
     return torch.sum(route.t1 * w1 + route.t2 * w2)
+
+
+def extra_elements_energy(node: torch.Tensor, conn: torch.Tensor,
+                          E: float, nu: float, w_sum: float) -> torch.Tensor:
+    """Elastic strain energy of a small irregular element set gathered
+    from the [N, 4] node table: the generic collar term of hybrid meshes,
+    the reference that ``collar_energy`` is held to."""
+    f = E / (1.0 - nu ** 2)
+    g = flat_gather(node, conn)                  # [K, 3, 4]
+    return w_sum * torch.sum(_tri_energy(g[:, 0], g[:, 1], g[:, 2], f, nu))
+
+
+class _TakeSortedRows(torch.autograd.Function):
+    """node[ids] for sorted unique ids; the backward adds the rows back at
+    ``ids`` (``index_add_`` of unique indices: no two rows meet, so the
+    result does not depend on the order)."""
+
+    @staticmethod
+    def forward(ctx, node, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = node.shape[0]
+        return node.index_select(0, ids.long())
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ids,) = ctx.saved_tensors
+        out = ct.new_zeros((ctx.n_rows, ct.shape[1]))
+        return out.index_add_(0, ids.long(), ct), None
+
+
+def _take_sorted_rows(node, ids):
+    return _TakeSortedRows.apply(node, ids)
+
+
+def collar_energy(node: torch.Tensor, hy, E: float, nu: float, w_sum: float,
+                  body_force=None, pts=None, w=None) -> torch.Tensor:
+    """Collar term of hybrid meshes in the compact ``[stair | rim]`` node
+    space: the staircase lattice rows (``hy.stair_ids``) taken by one
+    sorted-unique gather, the rim rows as the node-table suffix (a
+    slice), then the element energy (and body-force work) by the
+    incidence-gather assembly over ``hy.extra_conn_rel``.  Equal to
+    ``extra_elements_energy`` up to reassociation."""
+    n_lat = hy.lattice.nx * hy.lattice.ny
+    f = E / (1.0 - nu ** 2)
+    compact = torch.cat([_take_sorted_rows(node, hy.stair_ids),
+                         node[n_lat:]], dim=0)
+    g = gather_with_incidence(compact, hy.extra_conn_rel, hy.extra_incidence)
+    e = w_sum * torch.sum(_tri_energy(g[:, 0], g[:, 1], g[:, 2], f, nu))
+    if body_force is not None:
+        e = e - torch.sum(_tri_body_work(g[:, 0], g[:, 1], g[:, 2], pts, w,
+                                         body_force))
+    return e
 
 
 def lattice_total(node: torch.Tensor, route, E: float, nu: float,

@@ -4,11 +4,14 @@
 ``total`` tries the routes in the JAX package's order: the gather-free
 lattice route when the mesh carries a ``LatticeRoute``
 (``ops/lattice_energy.py``, with the stencil kernels of
-``ops/lattice_slab.py`` on the card), then the hybrid route (not ported:
-``mesh.hybrid`` is always None), then the fused edges, then domain - edge
-on the gather route (``ops/element_energy.py``) or the general quadrature
-path.  The reference quirks live behind ``compat="reference"`` as in the
-JAX package:
+``ops/lattice_slab.py`` on the card), then the hybrid lattice + collar
+route (``mesh/hybrid.py``), then the fused edges (never on a mesh with
+banded tables), then domain - edge.  The domain term of a mesh with banded
+tables runs on the banded route (``ops/banded_energy.py``, kernels K3-K5
+on the card, the paired tables preferred); other meshes take the gather
+route (``ops/element_energy.py``), or the general quadrature path.  The
+reference quirks live behind ``compat="reference"`` as in the JAX
+package:
 
 E3  the edge rule takes the raw [-1, 1] Gauss points as edge coordinates;
 E7  the order-4 triangle rule is double-scaled (weights sum to 0.25);
@@ -27,12 +30,13 @@ import torch
 from ..mesh.types import TriMesh
 from ..models.triangle_p1 import TriangleP1
 from . import quadrature as quad
-from .assembly import flat_gather, gather_with_incidence
+from . import banded_energy
+from .assembly import flat_gather, gather_banded, gather_with_incidence
 from .elasticity import energy_density, plane_stress_C, \
     strain_voigt_from_grad
 from .element_energy import element_energy, element_energy_plain
-from .lattice_energy import (lattice_body_work, lattice_domain_energy,
-                             lattice_total)
+from .lattice_energy import (collar_energy, lattice_body_work,
+                             lattice_domain_energy, lattice_total)
 from .lattice_slab import lattice_total_slab, slab_supported
 
 __all__ = ["PlaneStressEnergy", "mesh_quality_penalty"]
@@ -77,7 +81,12 @@ class PlaneStressEnergy:
         identity-numbered routes (``lattice_slab.slab_supported``); a
         renumbered route runs the plain lattice route under "auto", and
         so do a body force and a custom traction under any backend, as
-        in the JAX package.
+        in the JAX package.  On a mesh with banded tables, "auto" and
+        "kernel" run the banded route for float32 (its kernels on the
+        card, their plain versions on the CPU, as the JAX package's
+        interpret mode does); "plain", float64 and a body force take
+        the plain banded gather (``gather_banded``), or with a body force
+        on the card K1/K2 over ``mesh.connectivity``.
       mesh_penalty_weight: weight of ``mesh_quality_penalty`` (0: off).
       fuse_edges: fold the Neumann traction work into the element energy
         as (n0, n1, n1) pseudo-elements (``mesh.fused_connectivity``).
@@ -166,18 +175,36 @@ class PlaneStressEnergy:
 
     # ------------------------------------------------------------- domain
     def domain_energy(self, params, mesh: TriMesh) -> torch.Tensor:
-        """Elastic strain energy minus body-force work."""
+        """Elastic strain energy minus body-force work.
+
+        A mesh with banded tables takes the banded route (paired tables
+        preferred; either table set is enough).  With a body force, the
+        JAX package gathers through the triangle tables and runs K1 on
+        the gathered rows; on the card the port runs K1 over
+        ``mesh.connectivity`` instead: the same elements, since the
+        tables' padding rows contribute exactly 0."""
         if self.assembly == "fused" and self.compat == "exact" \
                 and self.model.dim_u == 2:
             node = self.model.packed_nodes(params, mesh)
             w_sum = quad.triangle_weight_sum(self.gauss_order)
-            if self._resolve_backend(node) == "kernel":
+            backend = self._resolve_backend(node)
+            ba = (mesh.banded_paired if mesh.banded_paired is not None
+                  else mesh.banded)
+            if (ba is not None and self.body_force is None
+                    and self.backend != "plain"
+                    and node.dtype == torch.float32):
+                return banded_energy.banded_element_energy(
+                    node, ba, self.E, self.nu, w_sum)
+            if backend == "kernel":
                 elastic = element_energy(node, mesh.connectivity,
                                          mesh.incidence, self.E, self.nu,
                                          w_sum)
                 g = None
             else:
-                g = self._gather(node, mesh.connectivity, mesh.incidence)
+                g = (gather_banded(node, mesh.banded)
+                     if mesh.banded is not None
+                     else self._gather(node, mesh.connectivity,
+                                       mesh.incidence))
                 elastic = element_energy_plain(g, self.E, self.nu, w_sum)
             if self.body_force is None:
                 return elastic
@@ -261,12 +288,15 @@ class PlaneStressEnergy:
         """Domain + edge energy as one element energy over
         ``mesh.fused_connectivity`` (edges as (n0, n1, n1) columns past
         ``n_elements`` with traction weight -t_x), or None when the
-        configuration can't use it."""
+        configuration can't use it.  A mesh with banded tables (either
+        set) keeps its banded route, as in the JAX package."""
         if (not self.fuse_edges
                 or self.assembly != "fused" or self.compat != "exact"
                 or self.traction is not None or self.body_force is not None
                 or self.model.dim_u != 2
-                or mesh.fused_connectivity is None):
+                or mesh.fused_connectivity is None
+                or mesh.banded is not None
+                or mesh.banded_paired is not None):
             return None
         node = self.model.packed_nodes(params, mesh)
         t_x = self.F_total / self.traction_length
@@ -316,6 +346,37 @@ class PlaneStressEnergy:
                              "traction)")
         return e
 
+    def _hybrid_total(self, params, mesh: TriMesh):
+        """Slice + gather route for hybrid lattice+collar meshes (or
+        None): the node-table-prefix lattice by ``lattice_total`` (the
+        plain lattice route: the JAX package runs no stencil kernel
+        here either), the collar by ``collar_energy``."""
+        if (mesh.hybrid is None or self.assembly != "fused"
+                or self.compat != "exact" or self.model.dim_u != 2
+                or getattr(self.model, "compat", "exact") != "exact"):
+            return None
+        hy = mesh.hybrid
+        node = self.model.packed_nodes(params, mesh)
+        w_sum = quad.triangle_weight_sum(self.gauss_order)
+        if self.traction is None:
+            t_x = self.F_total / self.traction_length
+            e = lattice_total(node, hy.lattice, self.E, self.nu, w_sum, t_x)
+        else:
+            # custom traction: the domain stays on the route, the
+            # O(boundary) edge term evaluates generically
+            e = (lattice_domain_energy(node, hy.lattice, self.E, self.nu,
+                                       w_sum)
+                 - self.edge_energy(params, mesh))
+        pts = w = None
+        if self.body_force is not None:
+            pts, w = self._domain_rule(node.device)
+            e = e - lattice_body_work(node, hy.lattice, self.body_force,
+                                      pts, w)
+        if hy.extra_conn.shape[0]:
+            e = e + collar_energy(node, hy, self.E, self.nu, w_sum,
+                                  body_force=self.body_force, pts=pts, w=w)
+        return e
+
     def _lattice_total_node(self, node, mesh: TriMesh):
         if (mesh.lattice is None or self.assembly != "fused"
                 or self.compat != "exact" or self.traction is not None
@@ -347,6 +408,8 @@ class PlaneStressEnergy:
         """Total potential = domain - edge, plus the optional mesh-quality
         regularization."""
         e = self._lattice_total(params, mesh)
+        if e is None:
+            e = self._hybrid_total(params, mesh)
         if e is None:
             e = self._fused_total(params, mesh)
         if e is None:

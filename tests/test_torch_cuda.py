@@ -20,8 +20,11 @@ import torch
 import hidenn_fem_tpu_torch as pt
 from hidenn_fem_tpu_torch.models.structured_grid import (
     StructuredGridP1, generate_structured_grid)
+from hidenn_fem_tpu_torch.mesh import banded as mb
+from hidenn_fem_tpu_torch.ops import banded_energy as be
 from hidenn_fem_tpu_torch.ops import element_energy as ee
 from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+from hidenn_fem_tpu_torch.ops import window_gather as wg
 
 pytestmark = pytest.mark.cuda
 
@@ -256,3 +259,129 @@ def test_lattice_kernels_refuse_what_they_do_not_take(dev):
     p = pt.TriangleP1().init(torch.Generator().manual_seed(0), renumbered)
     with pytest.raises(ValueError):
         kernel.total(p, renumbered)
+
+
+def _banded_tables(mesh, k):
+    """Banded tables of one layout at window_limit 300 (several blocks)."""
+    conn = mesh.connectivity.cpu().numpy()
+    n = mesh.n_nodes
+    if k == 3:
+        return mb.build_banded_assembly(conn, n, mesh.incidence.cpu().numpy(),
+                                        window_limit=300)
+    build = mb.build_paired_assembly if k == 4 else mb.build_striped_assembly
+    return build(conn, n, window_limit=300)
+
+
+def _banded_node(mesh, dev, seed=5):
+    rng = np.random.default_rng(seed)
+    n = mesh.n_nodes
+    node = np.concatenate([mesh.coords.cpu().numpy()
+                           + 1e-3 * rng.standard_normal((n, 2)),
+                           1e-4 * rng.standard_normal((n, 2))], 1)
+    return torch.tensor(node, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("k", [3, 4, 6])
+@pytest.mark.parametrize("which", ["plate", "delaunay"])
+def test_banded_kernels_match_plain(dev, k, which):
+    """K3, K4 and K5 (both fallbacks) against their plain versions."""
+    mesh = (pt.proxy_plate_mesh(nx=33, ny=17) if which == "plate"
+            else pt.generate_mesh_delaunay(lc=0.09))
+    ba = _banded_tables(mesh, k)
+    assert ba is not None and ba.re_own_lo is not None
+    assert ba.n_element_blocks > 1
+    ba = ba.to(dev)
+    node = _banded_node(mesh, dev)
+    ct = torch.tensor(0.75, device=dev)
+    before = dict(be.launch_counts)
+    e3 = be.banded_fwd(node, ba, E, NU, W_SUM)
+    e4, g4 = be.banded_vg(node, ba, E, NU, W_SUM)
+    g5 = be.banded_bwd(node, ba, ct, E, NU, W_SUM)
+    no_re = dataclasses.replace(ba, re_nstarts=None, re_estarts=None,
+                                re_conn_rel=None, re_inc_rel=None,
+                                re_own_lo=None, re_own_hi=None)
+    g5b = be.banded_bwd(node, no_re, ct, E, NU, W_SUM)
+    torch.cuda.synchronize()
+    assert {k2: be.launch_counts[k2] - before[k2] for k2 in before} == \
+        {"banded_fwd": 1, "banded_vg": 1, "banded_bwd": 2}
+    p3 = be.banded_fwd_plain(node, ba, E, NU, W_SUM)
+    p4, pg4 = be.banded_vg_plain(node, ba, E, NU, W_SUM)
+    _close(e3, p3, rtol=1e-4, atol_scale=0.0)
+    _close(e4, p4, rtol=1e-4, atol_scale=0.0)
+    _close(e4, e3, rtol=1e-4, atol_scale=0.0)
+    _close(g4, pg4)
+    _close(g5, be.banded_bwd_plain(node, ba, ct, E, NU, W_SUM))
+    _close(g5b, be.banded_bwd_plain(node, no_re, ct, E, NU, W_SUM))
+    _close(g5, 0.75 * g4)
+
+
+def test_banded_route_kernel_path_matches_plain_path(dev):
+    """PlaneStressEnergy on a banded Delaunay mesh: the banded kernels
+    (K4 with a gradient, K3 under no_grad) against the plain route."""
+    mesh = pt.generate_mesh_delaunay(lc=0.09)
+    mesh = dataclasses.replace(mesh, banded=_banded_tables(mesh, 3),
+                               banded_paired=_banded_tables(mesh, 4)).to(dev)
+    params_np = {"coords": mesh.coords.cpu().numpy(),
+                 "u": 1e-4 * np.random.default_rng(6).standard_normal(
+                     (mesh.n_nodes, 2))}
+    out = {}
+    for backend in ("kernel", "plain"):
+        p = pt.params_from_numpy(params_np, device=dev)
+        for v in p.values():
+            v.requires_grad_(True)
+        e = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend=backend)
+        before = be.launch_counts["banded_vg"]
+        val = e.total(p, mesh)
+        out[backend] = (val,) + torch.autograd.grad(
+            val, [p["coords"], p["u"]])
+        assert be.launch_counts["banded_vg"] - before == \
+            (1 if backend == "kernel" else 0)
+    _close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol_scale=0.0)
+    for a, b in zip(out["kernel"][1:], out["plain"][1:]):
+        _close(a, b)
+    with torch.no_grad():
+        p = pt.params_from_numpy(params_np, device=dev)
+        e = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
+        before = dict(be.launch_counts)
+        v3 = e.total(p, mesh)
+        assert be.launch_counts["banded_fwd"] == before["banded_fwd"] + 1
+        assert be.launch_counts["banded_vg"] == before["banded_vg"]
+    _close(v3, out["kernel"][0], rtol=1e-5, atol_scale=0.0)
+
+
+@pytest.mark.parametrize("eb", [64, 128])
+def test_window_sq_matches_plain(dev, eb):
+    """K8 against its plain version and the flat-gather sum."""
+    mesh = mb.reorder_mesh(pt.generate_mesh(nx=81, ny=41, holes=()),
+                           build_banded=False)
+    conn = mesh.connectivity.numpy()
+    relT, wblk, wp, npad, _ = wg.build_subblocks(conn, mesh.n_nodes, eb)
+    node = torch.tensor(np.random.default_rng(8).standard_normal(
+        (mesh.n_nodes, 4)), dtype=torch.float32, device=dev)
+    node_pad = wg.pad_nodes(node, npad)
+    relT_d = torch.tensor(relT, device=dev)
+    wblk_d = torch.tensor(wblk, device=dev)
+    before = wg.launch_counts["window_sq"]
+    got = wg.window_sq(node_pad, relT_d, wblk_d, wp)
+    torch.cuda.synchronize()
+    assert wg.launch_counts["window_sq"] == before + 1
+    _close(got, wg.window_sq_plain(node_pad, relT_d, wblk_d, wp), rtol=1e-5,
+           atol_scale=0.0)
+    _close(got, wg.flat_sq_plain(node, torch.tensor(conn, device=dev)),
+           rtol=1e-5, atol_scale=0.0)
+
+
+def test_banded_kernels_refuse_what_they_do_not_take(dev):
+    mesh = pt.proxy_plate_mesh(nx=33, ny=17)
+    ba = _banded_tables(mesh, 4)
+    node = _banded_node(mesh, dev)
+    with pytest.raises(ValueError):        # tables left on the host
+        be.banded_fwd(node, ba, E, NU, W_SUM)
+    ba = ba.to(dev)
+    with pytest.raises(ValueError):
+        be.banded_fwd(node.double(), ba, E, NU, W_SUM)
+    with pytest.raises(ValueError):
+        be.banded_vg(node, dataclasses.replace(ba, re_own_lo=None), E, NU,
+                     W_SUM)
+    with pytest.raises(ValueError):
+        be.banded_fwd(node.cpu(), ba, E, NU, W_SUM)

@@ -4,8 +4,11 @@ Profiles (``torch.profiler``, CPU and CUDA activities) a window of L-BFGS
 steps and of energy value-and-grad calls, after a warm-up, on: the
 example-4 plate on its default route (the lattice route, stencil kernel
 K6) and on the gather route (lattice stripped: K1, K2, incidence_sum);
-the 922K-class plate on the lattice route; and example 6's 1000x500
-``StructuredGridP1`` (K6).  For each window it prints the wall time per
+the 922K-class plate on the lattice route; example 6's 1000x500
+``StructuredGridP1`` (K6); and the 898K Delaunay plate
+(``generate_mesh_delaunay(lc=0.00218)``) on its banded route (K4 each
+value-and-grad) and, banded tables stripped, on the flat gather route
+(K1, K2, incidence_sum).  For each window it prints the wall time per
 call, the device-busy time per call (the union of kernel intervals), the
 idle share, and the top operators by device and by host time.  Chrome
 traces go to the ``--out`` directory.
@@ -102,13 +105,25 @@ def main():
     card = torch.cuda.get_device_name(0)
     ex4 = ht.generate_mesh(nx=200, ny=100, keep_dead_nodes=True,
                            device=dev)
+    delaunay = []                     # built once, by the first window
+
+    def _delaunay():
+        if not delaunay:
+            delaunay.append(ht.generate_mesh_delaunay(lc=0.00218,
+                                                      device=dev))
+        return delaunay[0]
+
     cases = {
         "ex4_lattice": lambda: _plate(ex4, dev),
-        "ex4_gather": lambda: _plate(dataclasses.replace(ex4, lattice=None),
-                                     dev),
+        # lattice and banded tables stripped, so the gather route runs
+        "ex4_gather": lambda: _plate(dataclasses.replace(
+            ex4, lattice=None, banded=None, banded_paired=None), dev),
         "922k_lattice": lambda: _plate(ht.generate_mesh(
             nx=961, ny=481, keep_dead_nodes=True, device=dev), dev),
         "ex6_structured": lambda: _example6(dev),
+        "898k_delaunay_banded": lambda: _plate(_delaunay(), dev),
+        "898k_delaunay_flat": lambda: _plate(dataclasses.replace(
+            _delaunay(), banded=None, banded_paired=None), dev),
     }
     for name, make in cases.items():
         vg, steps = make()
