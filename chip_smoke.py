@@ -36,6 +36,13 @@ Phases (each raises on failure, and the script then exits non-zero):
       961x481 plate (921,600 elements) at sub-blocks of 64 and 128:
       against its plain version and the flat-gather sum, and the same
       kernel over flat (absolute) index tables, all timed.
+   Each kernel is also profiled (``torch.profiler``, 20 calls): its device
+   µs per call by kernel name, beside its bound (``bound``: bytes over
+   3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and, for the
+   node sums, one ``index_add_`` of the same cotangents.  The fused K4 is
+   held bit for bit to itself over two launches and to K5 over the
+   recompute windows (K5 = ct x K4), and its energy to K3's; K6's energy
+   to K7's.
 4. Example 4 on its default route, the lattice route: 600 ``run_lbfgs``
    steps from u0 = 1e-5 N(0,1) (``np.random.default_rng(0)``), K6 on
    every step; the final energy against the JAX package's lattice-route
@@ -185,6 +192,20 @@ ENERGY_RTOL = 1e-4
 GRAD_RTOL = 5e-4
 GRAD_ATOL = 1e-5
 
+# The least time the card could take for a kernel's work (bound_ms) is the
+# larger of its bytes over the memory rate and its flops over the float32
+# rate (NVIDIA H100 SXM at 700 W: 3.35 TB/s of HBM3, 67 TFLOP/s of f32
+# outside the tensor cores).  Bytes: each input read once, each output
+# written once.  Flops, counted from csrc/p1_triangle.cuh (one per add,
+# multiply or divide): a triangle's strain and energy TRI_E, the
+# cotangents of its three corners given the strain TRI_C, the sum of one
+# float4 ADD4.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TRI_E = 42
+TRI_C = 60
+ADD4 = 4
+
 
 def log(msg):
     print(msg, flush=True)
@@ -281,6 +302,64 @@ def run_path(counts, name, needs, fn):
     return result, launches
 
 
+def bound(bytes_, flops):
+    """(bound_ms, bound_by) of a kernel that must move ``bytes_`` and do
+    ``flops`` float32 operations."""
+    mem_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / F32_FLOPS_PER_S
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def device_us(fn, calls=20):
+    """(device µs per call, {kernel: µs per call}) of fn() from
+    torch.profiler's key_averages(), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_port import kernel_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = kernel_us(prof, calls)
+    if not per or sum(per.values()) <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(per.values()), per
+
+
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_, flops,
+                 prof, card, library_ms=None, tag=""):
+    """One kernel's record for the kernels JSON line (its launches on the
+    main path are filled in later); logs its device time against its
+    bound."""
+    bound_ms, bound_by = bound(bytes_, flops)
+    us, per = prof
+    log(f"  {tag}{name}: {us:.2f} us of device time per call (profiler: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"); bound {1e3 * bound_ms:.2f} us by {bound_by} "
+        f"({bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): "
+        f"{1e3 * bound_ms / us:.0%} of the bound [{card}]")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "device_us": us, "device_kernels": per,
+            "bytes": bytes_, "flops": flops}
+
+
+def index_add_ms(src, index, n_nodes):
+    """The library yardstick of a node sum: one ``index_add_`` of the
+    corner cotangents ``src`` [R, 4] into a zeroed [n_nodes, 4] (timed as
+    the kernels are; never used by the port)."""
+    src = src.reshape(-1, 4).contiguous()
+    index = index.reshape(-1).long()
+    return cuda_ms(lambda: torch.zeros((n_nodes, 4), device=src.device)
+                   .index_add_(0, index, src))
+
+
 def plate_922k(ht, dev):
     from hidenn_fem_tpu_torch.mesh.lattice import detect_lattice
 
@@ -291,7 +370,7 @@ def plate_922k(ht, dev):
     arrays = [a.cpu().numpy() for a in (mesh.coords, mesh.connectivity,
                                         mesh.neumann_edges)]
     t0 = time.perf_counter()
-    route = detect_lattice(*arrays)
+    route = detect_lattice(*arrays, device=dev)
     detect_s = time.perf_counter() - t0
     log(f"  922K-class plate: {mesh.n_nodes} nodes, {mesh.n_elements} "
         f"elements, {mesh.n_neumann_edges} Neumann edges, incidence "
@@ -411,25 +490,35 @@ def phase_gather(ht, ee, mesh922, dev, card):
         log(f"  value-and-grad {tag} at {mesh.n_elements} elements: "
             f"kernel path {kms:.4f} ms, plain path {pms:.4f} ms [{card}]")
     src = "hidenn_fem_tpu_torch/csrc/element_energy.cu"
+    ne = mesh.n_elements
+    nodes_b, conn_b, cot_b = 16 * n, 12 * ne, 48 * ne
+    lib3 = index_add_ms(k2, conn, n)
+    log(f"  library yardstick: index_add_ of the corner cotangents into "
+        f"[{n}, 4] {lib3:.4f} ms [{card}]")
     return [
-        {"name": "element_energy_fwd", "route": "cuda", "source": src,
-         "replaces": "hidenn_fem_tpu/ops/pallas_energy.py:154",
-         "launches": None, "max_abs_err": err1, "ms": ms1,
-         "plain_ms": pms1},
-        {"name": "element_energy_bwd", "route": "cuda", "source": src,
-         "replaces": "hidenn_fem_tpu/ops/pallas_energy.py:178",
-         "launches": None, "max_abs_err": err2, "ms": ms2,
-         "plain_ms": pms2},
-        {"name": "incidence_sum", "route": "cuda", "source": src,
-         "replaces": "hidenn_fem_tpu/ops/assembly.py:113",
-         "launches": None, "max_abs_err": err3, "ms": ms3,
-         "plain_ms": pms3},
+        kernel_entry(
+            "element_energy_fwd", src,
+            "hidenn_fem_tpu/ops/pallas_energy.py:154", err1, ms1, pms1,
+            nodes_b + conn_b + 4, ne * (TRI_E + 1),
+            device_us(lambda: ee.element_energy_fwd(node, conn, E, nu,
+                                                    w_sum)), card),
+        kernel_entry(
+            "element_energy_bwd", src,
+            "hidenn_fem_tpu/ops/pallas_energy.py:178", err2, ms2, pms2,
+            nodes_b + conn_b + 4 + cot_b, ne * (TRI_E + TRI_C + 12),
+            device_us(lambda: ee.element_energy_bwd(node, conn, ct, E, nu,
+                                                    w_sum)), card),
+        kernel_entry(
+            "incidence_sum", src, "hidenn_fem_tpu/ops/assembly.py:113",
+            err3, ms3, pms3, cot_b + inc.numel() * 4 + 16 * n,
+            3 * ne * ADD4, device_us(lambda: ee.incidence_sum(k2, inc)),
+            card, library_ms=lib3),
     ]
 
 
 def stencil_ab(ls, tag, node, nx, ny, E, nu, w_sum, kw, card):
-    """K7 and K6 against their plain versions on one lattice: checks and
-    times; returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    """K7 and K6 against their plain versions on one lattice: checks,
+    times and profiles; returns their kernel entries."""
     k7 = ls.lattice_stencil_fwd(node, nx, ny, E, nu, w_sum, **kw)
     p7 = ls.lattice_stencil_fwd_plain(node, nx, ny, E, nu, w_sum, **kw)
     err7 = check_close(f"{tag} K7 lattice_stencil_fwd vs plain", k7, p7,
@@ -461,8 +550,27 @@ def stencil_ab(ls, tag, node, nx, ny, E, nu, w_sum, kw, card):
         f" plain {pms7:.4f} ms [{card}]")
     log(f"  {tag} K6 vg at {nx}x{ny} ({quads} quads): kernel {ms6:.4f} ms, "
         f"plain (hand-derived gradient in torch) {pms6:.4f} ms [{card}]")
-    return {"lattice_stencil_fwd": (err7, ms7, pms7),
-            "lattice_stencil_vg": (err6, ms6, pms6)}
+    n = nx * ny
+    masks = sum(4 * quads for k in ("sel", "t1", "t2")
+                if kw.get(k) is not None)
+    tris = (2 * quads if kw.get("t1") is None
+            else int((kw["t1"] != 0).sum()) + int((kw["t2"] != 0).sum()))
+    src = "hidenn_fem_tpu_torch/csrc/lattice_stencil.cu"
+    return [
+        kernel_entry(
+            "lattice_stencil_vg", src, "hidenn_fem_tpu/ops/lattice_slab.py:346",
+            err6, ms6, pms6, 32 * n + masks + 4,
+            tris * (TRI_E + 2 + TRI_C + 3 * (ADD4 + 4)),
+            device_us(lambda: ls.lattice_stencil_vg(node, nx, ny, E, nu,
+                                                    w_sum, **kw)),
+            card, tag=f"{tag} "),
+        kernel_entry(
+            "lattice_stencil_fwd", src,
+            "hidenn_fem_tpu/ops/lattice_slab.py:365", err7, ms7, pms7,
+            16 * n + masks + 4, tris * (TRI_E + 2),
+            device_us(lambda: ls.lattice_stencil_fwd(node, nx, ny, E, nu,
+                                                     w_sum, **kw)),
+            card, tag=f"{tag} ")]
 
 
 def phase_lattice(ht, ls, mesh, dev, card):
@@ -500,7 +608,7 @@ def phase_structured(ls, dev, card):
 
     grid = generate_structured_grid(nx=961, ny=481, split="up", device=dev)
     model = StructuredGridP1()
-    params = model.init(np.random.default_rng(1), grid)
+    params = model.init(np.random.default_rng(1), grid, device=dev)
     params["u"] = params["u"] * 10.0
     node = model._node(params, grid).reshape(-1, 4).contiguous()
     qm = grid.quad_mask
@@ -517,10 +625,10 @@ def delaunay_898k(ht, mb, dev):
     n = mesh.n_nodes
     inc = mesh.incidence.cpu().numpy()
     t0 = time.perf_counter()
-    mb.build_banded_assembly(conn, n, inc)
+    mb.build_banded_assembly(conn, n, inc, device=dev)
     tri_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mb.build_paired_assembly(conn, n)
+    mb.build_paired_assembly(conn, n, device=dev)
     pair_s = time.perf_counter() - t0
     pa, tri = mesh.banded_paired, mesh.banded
     log(f"  898K Delaunay plate: {n} nodes, {mesh.n_elements} elements, "
@@ -555,10 +663,10 @@ def without_recompute(ba, keep_tables):
     return dataclasses.replace(ba, **drop)
 
 
-def banded_layout(be, tag, node, ba, ct, card, timed):
+def banded_layout(be, tag, node, ba, ct, card, timed, ne):
     """K3, K4 and K5 (both fallbacks) against their plain versions on one
-    table layout; returns {kernel: (max_abs_err, ms, plain_ms)} when
-    timed."""
+    table layout of a mesh of ``ne`` elements; returns their kernel
+    entries when timed."""
     E, nu, w_sum = 10e9, 0.3, 0.5
     args = (E, nu, w_sum)
     k3 = be.banded_fwd(node, ba, *args)
@@ -569,6 +677,12 @@ def banded_layout(be, tag, node, ba, ct, card, timed):
     check_close(f"{tag} K4 energy vs plain", e4, pe4, ENERGY_RTOL, 0.0)
     check_close(f"{tag} K4 energy (owned rows) vs K3 (every row)", e4, k3,
                 ENERGY_RTOL, 0.0)
+    log(f"  {tag} K4 energy {float(e4)!r}, K3 energy {float(k3)!r}: "
+        + ("equal bit for bit" if float(e4) == float(k3) else
+           "not bit-equal"))
+    e4b, g4b = be.banded_vg(node, ba, *args)
+    if float(e4b) != float(e4) or not torch.equal(g4b, g4):
+        raise AssertionError(f"{tag} K4: two launches gave other bits")
     err4 = check_close(f"{tag} K4 node gradient vs plain", g4, pg4,
                        GRAD_RTOL, GRAD_ATOL)
     na = node.detach().clone().requires_grad_(True)
@@ -585,6 +699,12 @@ def banded_layout(be, tag, node, ba, ct, card, timed):
             be.banded_bwd_plain(node, fb, ct, *args), GRAD_RTOL, GRAD_ATOL))
         check_close(f"{tag} K5 ({name}) vs ct x K4 node gradient", g5,
                     ct * g4, GRAD_RTOL, GRAD_ATOL)
+        if name == "recompute windows":
+            # the fused K4 adds exactly the cotangents K5's buffer holds
+            if not torch.equal(g5, ct * g4):
+                raise AssertionError(f"{tag} K5 over the recompute windows "
+                                     "is not ct x K4 bit for bit")
+            log(f"  {tag} K5 (recompute windows) equals ct x K4 bit for bit")
     torch.cuda.synchronize()
     if not timed:
         return None
@@ -607,8 +727,42 @@ def banded_layout(be, tag, node, ba, ct, card, timed):
     log(f"  {tag} K5 bwd over the recompute windows: kernel {ms5:.4f} ms, "
         f"plain {pms5:.4f} ms; over the two-pass windows: kernel "
         f"{ms5b:.4f} ms, plain {pms5b:.4f} ms [{card}]")
-    return {"banded_fwd": (err3, ms3, pms3), "banded_vg": (err4, ms4, pms4),
-            "banded_bwd": (err5, ms5, pms5)}
+    n = node.shape[0]
+    nodes_b = 16 * n
+    fwd_b = 4 * ba.starts.numel() + 4 * ba.conn_rel.numel()
+    re_b = 4 * ba.re_nstarts.numel() + 4 * ba.re_conn_rel.numel()
+    inc_b = 4 * ba.re_inc_rel.numel()
+    own_b = 4 * (ba.re_own_lo.numel() + ba.re_own_hi.numel())
+    src = "hidenn_fem_tpu_torch/csrc/banded_energy.cu"
+    line = "hidenn_fem_tpu/ops/banded_energy.py:"
+    entries = [
+        kernel_entry("banded_fwd", src, line + "116", err3, ms3, pms3,
+                     nodes_b + fwd_b + 4, ne * (TRI_E + 1),
+                     device_us(lambda: be.banded_fwd(node, ba, *args)),
+                     card, tag=f"{tag} "),
+        kernel_entry("banded_vg", src, line + "133", err4, ms4, pms4,
+                     2 * nodes_b + re_b + own_b + inc_b + 4,
+                     ne * (TRI_E + 1 + TRI_C + 3 * ADD4),
+                     device_us(lambda: be.banded_vg(node, ba, *args)),
+                     card, tag=f"{tag} "),
+        kernel_entry("banded_bwd", src, line + "159", err5, ms5, pms5,
+                     2 * nodes_b + re_b + inc_b + 4,
+                     ne * (TRI_E + TRI_C + 3 * ADD4) + 4 * n,
+                     device_us(lambda: be.banded_bwd(node, fb, ct, *args)),
+                     card, tag=f"{tag} ")]
+    # K5's node sum alone (banded_node_sum_kernel), against its bound and
+    # one index_add_ of the forward rows' cotangents (each element once)
+    us = entries[2]["device_kernels"].get("banded_node_sum_kernel", 0.0)
+    sum_ms, sum_by = bound(16 * ba.re_conn_rel.numel() + inc_b + nodes_b,
+                           3 * ne * ADD4)
+    fwd_cot = be._row_cotangents(be._rows(node, ba.starts, ba.conn_rel),
+                                 *args)
+    fwd_idx = ba.starts.long()[:, None, None] + ba.conn_rel.long()
+    lib = index_add_ms(fwd_cot, fwd_idx, n)
+    log(f"  {tag} banded_node_sum (in K5): {us:.2f} us of device time per "
+        f"call; bound {1e3 * sum_ms:.2f} us by {sum_by}; index_add_ of the "
+        f"forward rows' cotangents {lib:.4f} ms [{card}]")
+    return entries
 
 
 def phase_banded(ht, be, mb, mesh, dev, card):
@@ -618,16 +772,18 @@ def phase_banded(ht, be, mb, mesh, dev, card):
     model = ht.TriangleP1()
     node = model.packed_nodes(params, mesh).contiguous()
     ct = torch.tensor(0.75, device=dev)
+    ne = mesh.n_elements
     res = banded_layout(be, "paired k=4", node, mesh.banded_paired, ct, card,
-                        timed=True)
+                        timed=True, ne=ne)
     banded_layout(be, "triangle k=3", node, mesh.banded, ct, card,
-                  timed=True)
+                  timed=True, ne=ne)
     t0 = time.perf_counter()
     strip = mb.build_striped_assembly(mesh.connectivity.cpu().numpy(),
                                       mesh.n_nodes, device=dev)
     log(f"  strip tables built in {time.perf_counter() - t0:.2f} s: "
         f"conn_rel {tuple(strip.conn_rel.shape)}")
-    banded_layout(be, "strip k=6", node, strip, ct, card, timed=False)
+    banded_layout(be, "strip k=6", node, strip, ct, card, timed=False,
+                  ne=ne)
 
     # the banded route against the flat gather route on the same mesh
     energy = ht.PlaneStressEnergy(model=model)
@@ -653,18 +809,19 @@ def phase_window_gather(ht, wg, mb, counts, dev, card):
     """Phase 3e: K8 against its plain version and the flat-gather sum."""
     t0 = time.perf_counter()
     mesh = mb.reorder_mesh(ht.generate_mesh(nx=K8_GRID[0], ny=K8_GRID[1],
-                                            holes=()), build_banded=False)
+                                            holes=(), device=dev),
+                           build_banded=False)
     log(f"  reordered hole-free {K8_GRID[0]}x{K8_GRID[1]} plate: "
         f"{mesh.n_elements} elements, "
         f"{mesh.n_nodes} nodes ({time.perf_counter() - t0:.2f} s on the "
         "host)")
     if mesh.n_elements != 2 * (K8_GRID[0] - 1) * (K8_GRID[1] - 1):
         raise AssertionError(f"unexpected element count {mesh.n_elements}")
-    conn = mesh.connectivity.numpy()
+    conn = mesh.connectivity.cpu().numpy()
     n = mesh.n_nodes
     node = torch.tensor(np.random.default_rng(3).standard_normal((n, 4)),
                         dtype=torch.float32, device=dev)
-    conn_d = mesh.connectivity.to(dev)
+    conn_d = mesh.connectivity
     cases, err = [], 0.0
     for eb in (64, 128):
         relT, wblk, wp, npad, s = wg.build_subblocks(conn, n, eb)
@@ -708,11 +865,16 @@ def phase_window_gather(ht, wg, mb, counts, dev, card):
     times, launches = run_path(counts, "K8 windowed-vs-flat gather A/B",
                                ("window_sq",), timed_ab)
     kms, pms = times[0]
-    return {"name": "window_sq", "route": "cuda",
-            "source": "hidenn_fem_tpu_torch/csrc/window_gather.cu",
-            "replaces": "tools/microbench_gather.py:177",
-            "launches": launches["window_sq"], "max_abs_err": err,
-            "ms": kms, "plain_ms": pms}
+    _, node_pad, relT_d, wblk_d, wp, _, _ = cases[0]
+    entry = kernel_entry(
+        "window_sq", "hidenn_fem_tpu_torch/csrc/window_gather.cu",
+        "tools/microbench_gather.py:177", err, kms, pms,
+        16 * node_pad.shape[0] + 4 * (relT_d.numel() + wblk_d.numel()) + 4,
+        24 * mesh.n_elements,
+        device_us(lambda: wg.window_sq(node_pad, relT_d, wblk_d, wp)), card,
+        tag="eb=64 ")
+    entry["launches"] = launches["window_sq"]
+    return entry
 
 
 def lbfgs_from_rest(ht, energy, mesh, dev, steps):
@@ -1033,26 +1195,10 @@ def main():
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
     phase_structured(ls, dev, card)
-    for name, line in (("lattice_stencil_vg", ":346"),
-                       ("lattice_stencil_fwd", ":365")):
-        err, ms, pms = stencil[name]
-        kernels.append(
-            {"name": name, "route": "cuda",
-             "source": "hidenn_fem_tpu_torch/csrc/lattice_stencil.cu",
-             "replaces": "hidenn_fem_tpu/ops/lattice_slab.py" + line,
-             "launches": None, "max_abs_err": err, "ms": ms,
-             "plain_ms": pms})
+    kernels += stencil
     mesh898 = delaunay_898k(ht, mb, dev)
     banded = phase_banded(ht, be, mb, mesh898, dev, card)
-    for name, line in (("banded_fwd", ":116"), ("banded_vg", ":133"),
-                       ("banded_bwd", ":159")):
-        err, ms, pms = banded[name]
-        kernels.append(
-            {"name": name, "route": "cuda",
-             "source": "hidenn_fem_tpu_torch/csrc/banded_energy.cu",
-             "replaces": "hidenn_fem_tpu/ops/banded_energy.py" + line,
-             "launches": None, "max_abs_err": err, "ms": ms,
-             "plain_ms": pms})
+    kernels += banded
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)

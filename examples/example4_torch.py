@@ -12,7 +12,8 @@ gather-free lattice route, as the JAX package's does; on a CUDA device its
 domain term runs the stencil kernels K6/K7 of
 ``hidenn_fem_tpu_torch/csrc/lattice_stencil.cu``.
 
-Run: ``python -m examples.example4_torch --device cuda``
+Run: ``python -m examples.example4_torch`` (on the card; ``--device cpu``
+for the CPU)
 """
 
 import argparse
@@ -25,7 +26,7 @@ from hidenn_fem_tpu_torch import postproc
 from hidenn_fem_tpu_torch.config import PlateConfig
 
 
-def main(cfg: PlateConfig = PlateConfig(), device="cpu"):
+def main(cfg: PlateConfig = PlateConfig(), device="cuda"):
     mesh = ht.generate_mesh(cfg.length, cfg.height, list(cfg.holes),
                             cfg.make_boundaries(), cfg.nx, cfg.ny,
                             keep_dead_nodes=True, device=device)
@@ -42,7 +43,8 @@ def main(cfg: PlateConfig = PlateConfig(), device="cpu"):
           f"{route.identity})")
 
     model = ht.TriangleP1(u_fixed=0.0)
-    params = model.init(torch.Generator().manual_seed(cfg.seed), mesh)
+    params = model.init(torch.Generator().manual_seed(cfg.seed), mesh,
+                        device=device)
     energy = ht.PlaneStressEnergy(
         model=model, E=cfg.youngs_modulus, nu=cfg.poisson_ratio,
         gauss_order=cfg.gauss_order, gauss_order_1d=cfg.gauss_order_1d,
@@ -75,6 +77,6 @@ def main(cfg: PlateConfig = PlateConfig(), device="cpu"):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu",
-                    help="torch device, e.g. cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
     main(device=torch.device(ap.parse_args().device))

@@ -14,7 +14,8 @@ the domain energy runs the stencil kernels K6/K7 of
 The initial displacement is 1e-5 N(0, 1) from ``np.random.default_rng(
 seed)``, so the JAX package can start from the same numbers.
 
-Run: ``python -m examples.example6_structured_torch --device cuda``
+Run: ``python -m examples.example6_structured_torch`` (on the card;
+``--device cpu`` for the CPU)
 """
 
 import argparse
@@ -31,7 +32,7 @@ from hidenn_fem_tpu_torch.models.structured_grid import (
 HOLES = ((0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1))
 
 
-def main(nx=1000, ny=500, lbfgs_steps=600, device="cpu", seed=0,
+def main(nx=1000, ny=500, lbfgs_steps=600, device="cuda", seed=0,
          backend="auto"):
     t0 = time.perf_counter()
     grid = generate_structured_grid(length=2.0, height=1.0, holes=HOLES,
@@ -41,7 +42,7 @@ def main(nx=1000, ny=500, lbfgs_steps=600, device="cpu", seed=0,
 
     model = StructuredGridP1(E=10e9, nu=0.3, F_total=100e3,
                              backend=backend)
-    params = model.init(np.random.default_rng(seed), grid)
+    params = model.init(np.random.default_rng(seed), grid, device=device)
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -58,7 +59,7 @@ def main(nx=1000, ny=500, lbfgs_steps=600, device="cpu", seed=0,
     print(f"Energy at the solution: {final:.6e}")
 
     # post-processing through the equivalent TriMesh
-    mesh = model.to_trimesh(grid)
+    mesh = model.to_trimesh(grid, device=device)
     tparams = {"coords": params["coords"].reshape(-1, 2),
                "u": params["u"].reshape(-1, 2)}
     tmodel = ht.TriangleP1()
@@ -72,8 +73,8 @@ def main(nx=1000, ny=500, lbfgs_steps=600, device="cpu", seed=0,
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu",
-                    help="torch device, e.g. cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
     ap.add_argument("--nx", type=int, default=1000)
     ap.add_argument("--ny", type=int, default=500)
     ap.add_argument("--steps", type=int, default=600)

@@ -2,7 +2,8 @@
 
 The port never imports JAX; these take anything ``np.asarray`` reads
 (numpy arrays, or the JAX package's arrays), so one numpy mesh or grid and
-one set of numpy params can feed both packages.
+one set of numpy params can feed both packages.  Their tensors go to the
+card unless ``device`` names another device (``device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .mesh.types import TriMesh
 from .models.structured_grid import StructuredGrid
 
@@ -21,6 +23,7 @@ def params_from_numpy(params_np: dict, device=None,
     """Params as tensors on ``device``: ``TriangleP1``'s {"coords": [N, 2],
     "u": [N, 2]} or ``StructuredGridP1``'s {"coords": [nx, ny, 2],
     "u": [nx, ny, 2]} (any shapes are carried as they are)."""
+    device = resolve_device(device)
     return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in params_np.items()}
 
@@ -40,6 +43,8 @@ def mesh_from_numpy(mesh, device=None, dtype=torch.float32,
 def grid_from_numpy(grid, device=None) -> StructuredGrid:
     """A ``StructuredGrid`` from the arrays and static fields of a grid
     object (for example the JAX package's ``StructuredGrid``)."""
+    device = resolve_device(device)
+
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
 

@@ -29,22 +29,35 @@
 // Nothing is transposed and nothing is padded.
 //
 // What bounds it on the H100: bytes, not arithmetic.  A paired row reads
-// 16 B of indices and four 16 B node rows (mostly from L2: neighbouring
-// rows share nodes) for two triangles (~60 flops each; ~150 more for the
-// cotangents) and writes 64 B of cotangents.  The node-gradient pass reads
-// each node's <= maxdeg incidence slots and their 16 B cotangent rows.
+// 16 B of indices (one int4 load) and four 16 B node rows (mostly from L2:
+// neighbouring rows share nodes) for two triangles (~60 flops each; ~150
+// more for the cotangents).  The element algebra is scalar and per
+// triangle: there is no matrix product for the tensor cores to take.
 //
-// Value and gradient (K4, "vg").  Launch (a) evaluates every row of the
-// recompute windows: the energy of the rows the node block owns
-// ([own_lo, own_hi), the ownership intervals partition the elements, so
-// each element counts once though halo rows are evaluated by two blocks)
-// into per-block partials, and the cotangents of all rows into a
-// [Br, EW, k] buffer.  Launch (b) gives each node the sum of its
-// incidence slots' cotangent rows, in slot order, skipping the sentinel
-// slot (the TPU path appended a zero row for it).  Node block b holds
-// nodes [b*NB, (b+1)*NB), so the rows are placed at 0.  A fused per-node
-// recompute (as K6 does on the lattice) would skip the buffer; it is the
-// candidate redesign once this pair is measured.
+// Value and gradient (K4, "vg"): one launch over the recompute windows,
+// no cotangent buffer.  Thread t < n_rows adds the energy of row t to its
+// block's partial when the row's node block owns it ([own_lo, own_hi): the
+// ownership intervals partition the elements, so each element counts once
+// though halo rows lie in two windows).  Thread t < n_nodes recomputes the
+// gradient of node t: node block b = t / NB holds nodes [b*NB, (b+1)*NB)
+// (the rows are placed at 0), and for each slot r of its re_inc_rel row,
+// in slot order and skipping the sentinel k*EW, it loads row b*EW + r/k
+// (its k indices and k node rows) and adds the cotangent of vertex r%k:
+// the corner terms of the row's triangles that hold the vertex, added in
+// triangle order to zero exactly as row_cotangents adds them.  So every
+// term is the float the cotangent buffer of the two-launch design held,
+// summed in the same order: the gradient keeps its bits, and K5 (which
+// keeps the two launches, for the fallbacks) gives ct x K4 exactly.
+// Each triangle is evaluated once per vertex (about 3x the flops of one
+// row pass) in exchange for the ~30 MB a call that the buffer cost in
+// device-memory writes and reads at 898K elements; the node and row tables
+// (~15 MB) stay in the 50 MB L2, and RCM order keeps neighbouring threads
+// on shared rows.  The TPU kernel's per-block scratch had no counterpart
+// to keep.
+//
+// K5 evaluates every row's cotangents into a [B, EB, k] buffer, then gives
+// each node the sum of its incidence slots' cotangent rows in slot order,
+// skipping the sentinel slot (the TPU path appended a zero row for it).
 //
 // Determinism: per-block partials reduced in a fixed tree order, then a
 // one-block double sum in a fixed order; each node's slots are summed in
@@ -93,7 +106,9 @@ __device__ __forceinline__ void tri_slots(int t, int* a, int* b, int* c) {
   }
 }
 
-// The k node rows of table row `row` of block `blk`.
+// The k node rows of table row `row` of block `blk`.  A paired row's four
+// indices come in one 16 B load (the wrappers check rel's alignment), a
+// strip's six in three 8 B loads.
 template <int K>
 __device__ __forceinline__ void load_row(const float4* __restrict__ node,
                                          const int* __restrict__ starts,
@@ -101,9 +116,27 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ node,
                                          long long blk, long long row,
                                          float4* v) {
   const long long s = __ldg(starts + blk);
-  const int* r = rel + row * K;
+  int r[K];
+  if constexpr (K == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(rel) + row);
+    r[0] = q.x;
+    r[1] = q.y;
+    r[2] = q.z;
+    r[3] = q.w;
+  } else if constexpr (K == 6) {
+    const int2* p = reinterpret_cast<const int2*>(rel) + row * 3;
 #pragma unroll
-  for (int i = 0; i < K; ++i) v[i] = __ldg(node + s + __ldg(r + i));
+    for (int i = 0; i < 3; ++i) {
+      const int2 q = __ldg(p + i);
+      r[2 * i] = q.x;
+      r[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) r[i] = __ldg(rel + row * K + i);
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) v[i] = __ldg(node + s + r[i]);
 }
 
 template <int K>
@@ -168,8 +201,34 @@ banded_fwd_kernel(const float4* __restrict__ node,
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-// K4 launch (a): the owned rows' energy partials and every row's
-// cotangents cot[row * K + slot].
+// The cotangent of slot s of a row with respect to its energy: what
+// row_cotangents leaves in cot[s], the same terms added in the same order.
+template <int K>
+__device__ __forceinline__ float4 slot_cotangent(const float4* v, int s,
+                                                 const Material& m) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int t = 0; t < n_tris<K>(); ++t) {
+    int a, b, c;
+    tri_slots<K>(t, &a, &b, &c);
+    if (s != a && s != b && s != c) continue;
+    const Strain st = strain(Corners{v[a], v[b], v[c]}, m);
+    float4 c0, c1;
+    corner_cotangents(st, m, &c0, &c1);
+    if (s == a)
+      add4(&acc, c0);
+    else if (s == b)
+      add4(&acc, c1);
+    else
+      add4(&acc, make_float4(-(c0.x + c1.x), -(c0.y + c1.y),
+                             -(c0.z + c1.z), -(c0.w + c1.w)));
+  }
+  return acc;
+}
+
+// K4: thread i adds the energy of recompute row i (when its block owns
+// it) to the block's partial, and writes the gradient of node i,
+// recomputed per incidence slot (the source's header says how).
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 banded_vg_kernel(const float4* __restrict__ node,
@@ -177,21 +236,34 @@ banded_vg_kernel(const float4* __restrict__ node,
                  const int* __restrict__ rel,
                  const int* __restrict__ own_lo,
                  const int* __restrict__ own_hi, long long rows_per_block,
-                 long long n_rows, Material m,
-                 float* __restrict__ partials, float4* __restrict__ cot) {
+                 long long n_rows, const int* __restrict__ inc_rel,
+                 long long nodes_per_block, int degree, long long n_nodes,
+                 Material m, float* __restrict__ partials,
+                 float4* __restrict__ grad) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   float acc = 0.f;
   if (i < n_rows) {
     const long long blk = i / rows_per_block;
     const long long e = i - blk * rows_per_block;
-    float4 v[K];
-    load_row<K>(node, starts, rel, blk, i, v);
-    if (e >= __ldg(own_lo + blk) && e < __ldg(own_hi + blk))
+    if (e >= __ldg(own_lo + blk) && e < __ldg(own_hi + blk)) {
+      float4 v[K];
+      load_row<K>(node, starts, rel, blk, i, v);
       acc = row_energy<K>(v, m);
-    float4 c[K];
-    row_cotangents<K>(v, m, c);
-#pragma unroll
-    for (int s = 0; s < K; ++s) cot[i * K + s] = c[s];
+    }
+  }
+  if (i < n_nodes) {
+    const long long b = i / nodes_per_block;
+    const int sentinel = (int)(rows_per_block * K);
+    const int* slots = inc_rel + i * degree;
+    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int d = 0; d < degree; ++d) {
+      const int r = __ldg(slots + d);
+      if (r == sentinel) continue;
+      float4 v[K];
+      load_row<K>(node, starts, rel, b, b * rows_per_block + r / K, v);
+      add4(&g, slot_cotangent<K>(v, r % K, m));
+    }
+    grad[i] = g;
   }
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -296,12 +368,13 @@ int hdnn_banded_fwd(int device, const void* node, const void* starts,
 // K4: the owned rows' energy into *out and the node gradient [n_nodes, 4]
 // into grad, from the recompute tables (starts = re_nstarts, rel =
 // re_conn_rel [Br, EW, k], own_lo/own_hi [Br], inc_rel = re_inc_rel
-// [Br, nodes_per_block, degree], sentinel k*EW).  cot is scratch of
-// n_rows * k float4; partials of ceil(n_rows / kThreads) floats.
+// [Br, nodes_per_block, degree], sentinel k*EW), in one launch and the
+// partial sum; partials must hold ceil(max(n_rows, n_nodes) / kThreads)
+// floats.
 int hdnn_banded_vg(int device, const void* node, const void* starts,
                    const void* rel, const void* own_lo, const void* own_hi,
                    long long rows_per_block, long long n_rows, int k,
-                   float f, float nu, float shear, float w_sum, void* cot,
+                   float f, float nu, float shear, float w_sum,
                    void* partials, int n_partials, void* out,
                    const void* inc_rel, long long nodes_per_block,
                    int degree, long long n_nodes, void* grad, void* stream) {
@@ -314,20 +387,24 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   const int* r = (const int*)rel;
   const int* lo = (const int*)own_lo;
   const int* hi = (const int*)own_hi;
+  const int* inc = (const int*)inc_rel;
   float* p = (float*)partials;
-  float4* c = (float4*)cot;
+  float4* g = (float4*)grad;
   switch (k) {
     case 3:
       banded_vg_kernel<3><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, m, p, c);
+          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
+          degree, n_nodes, m, p, g);
       break;
     case 4:
       banded_vg_kernel<4><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, m, p, c);
+          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
+          degree, n_nodes, m, p, g);
       break;
     case 6:
       banded_vg_kernel<6><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, m, p, c);
+          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
+          degree, n_nodes, m, p, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -336,12 +413,6 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, kSumThreads, 0, st>>>(p, n_partials,
                                                 (float*)out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  banded_node_sum_kernel<<<blocks_for(n_nodes), kThreads, 0, st>>>(
-      c, (const int*)inc_rel, nodes_per_block, degree, nullptr,
-      rows_per_block * k, (int)(rows_per_block * k), n_nodes, nullptr,
-      (float4*)grad);
   return (int)cudaGetLastError();
 }
 

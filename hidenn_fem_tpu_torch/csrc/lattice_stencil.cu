@@ -19,30 +19,42 @@
 // energy and to every gradient, as the JAX package's t * e does for the
 // finite e that the det guard ensures.
 //
-// What bounds it on the H100: arithmetic and latency, not bytes.  The
-// node table is 16 B a node (7.4 MB at 462,241 nodes, inside the 50 MB
-// L2); K7 reads it about once and K6 reads it and writes the 16 B
-// gradient, ~15 MB in all, against ~100 flops per triangle evaluation.
-// The TPU kernels packed the table into a channel-major [4, R, ceil128(ny)]
+// What bounds it on the H100: bytes and latency more than arithmetic.
+// The node table is 16 B a node (7.4 MB at 462,241 nodes, inside the 50 MB
+// L2); K6 reads it about once and writes the 16 B gradient, ~15 MB in all
+// (~20 MB with the sel/t1/t2 masks), against ~100 flops for a triangle's
+// energy and ~150 more for its cotangents.  The element algebra is scalar
+// and per triangle: there is no matrix product for the tensor cores.  The
+// TPU kernels packed the table into a channel-major [4, R, ceil128(ny)]
 // slab, cut it into 8-row-aligned windows with halo rows and double-
-// buffered their DMA; those were lane and VMEM layouts.  Here each thread
-// reads its corners as float4 rows straight from the node table (threads
-// of a warp on neighbouring j, so the loads coalesce), and no padded row
-// or column exists, so nothing needs the TPU kernel's wrap masks.
+// buffered their DMA; those were lane and VMEM layouts, not reproduced.
 //
-// K6 is one thread per node.  It visits the (up to four) quads that hold
-// the node and adds, in a fixed order, the cotangent of that corner for
-// each present triangle that has the node as a vertex: a gather, not a
-// scatter, so it needs no atomics and gives the same bits on every run.
-// A triangle is evaluated once for each of its three corners (the TPU
-// kernel recomputed halo rows instead).  The TPU kernel got its gradient
-// from jax.grad inside the kernel; here it is the hand-derived cotangent
-// of p1_triangle.cuh, and it is written straight into node layout.
+// K6 is a shared-memory tile.  A CTA of 256 threads owns a 7 x 31 node
+// tile; thread (ty, tx) of its 8 x 32 quad tile takes quad
+// (i0 - 1 + ty, j0 - 1 + tx), so the tile's quads and its one-quad halo
+// are one quad per thread (warps run along j, so every load coalesces).
+// The CTA copies the 9 x 33 node rows those quads touch into shared
+// memory with cp.async (16 B a row; rows off the lattice are zero-filled
+// and unused), while each thread loads its quad's sel/t1/t2.  Each thread
+// then evaluates its quad once: the strain of each present triangle, its
+// energy, and the cotangents of its three corners, which go to shared
+// memory (6 float4 a quad) beside the quad's weights and diagonal.  After
+// a barrier, thread (ty, tx) with ty, tx >= 1 writes the gradient of node
+// (i0 - 1 + ty, j0 - 1 + tx): t * d over its <= 4 quads in a fixed order,
+// (i-1, j-1) as corner n11, (i-1, j) as n10, (i, j-1) as n01, (i, j) as
+// n00, T1 before T2 in each: a gather, so no atomics and the same bits on
+// every run.  Each present triangle is evaluated 256 / 217 = 1.18 times
+// per owned triangle (the halo), where the one-thread-per-node design
+// before it evaluated each three times, once per corner, and reloaded
+// every corner of four quads per node.
 //
-// Energy: thread (i, j) of either kernel adds the energy of quad (i, j)
-// (if it exists) to a per-block partial, and the one-block kernel of
-// p1_triangle.cuh sums the partials in double in a fixed order.  K6 and
-// K7 use the same threads and blocks, so they give the same energy bits.
+// Energy: thread (ty, tx) with ty, tx >= 1 adds the energy of the quad it
+// owns (the quad whose n00 is its node) to the CTA's partial, and the
+// one-block kernel of p1_triangle.cuh sums the partials in double in a
+// fixed order.  K7 uses the same tiles and the same thread of each quad
+// (loading its corners straight from the table: it needs no cotangents),
+// so K6 and K7 give the same energy bits.  Tiles mask the ragged edges
+// themselves: any nx, ny >= 2.
 //
 // Built by hidenn_fem_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -65,7 +77,15 @@ using hdnn::strain;
 using hdnn::sum_partials_kernel;
 using hdnn::tri_energy;
 
-constexpr int kThreads = 256;
+// the quad tile (one quad a thread) and the node tile it owns
+constexpr int kQuadRows = 8;
+constexpr int kQuadCols = 32;
+constexpr int kThreads = kQuadRows * kQuadCols;
+constexpr int kTileRows = kQuadRows - 1;
+constexpr int kTileCols = kQuadCols - 1;
+// node rows staged: the quad tile's corners
+constexpr int kNodeRows = kQuadRows + 1;
+constexpr int kNodeCols = kQuadCols + 1;
 
 // how each quad picks its diagonal
 enum Diag : int { kUp = 0, kDown = 1, kSelMask = 2, kParity = 3 };
@@ -86,24 +106,6 @@ struct Quad {
   bool up;
   float t1, t2;
 };
-
-template <int kDiag, bool kMasked>
-__device__ __forceinline__ Quad load_quad(const Lattice& L, int i, int j) {
-  const long long b = (long long)i * L.ny + j;
-  const long long q = (long long)i * (L.ny - 1) + j;
-  Quad Q;
-  Q.n00 = __ldg(L.node + b);
-  Q.n01 = __ldg(L.node + b + 1);
-  Q.n10 = __ldg(L.node + b + L.ny);
-  Q.n11 = __ldg(L.node + b + L.ny + 1);
-  if (kDiag == kUp) Q.up = true;
-  else if (kDiag == kDown) Q.up = false;
-  else if (kDiag == kSelMask) Q.up = __ldg(L.sel + q) > 0.f;
-  else Q.up = ((i + j + L.phase) & 1) == 0;
-  Q.t1 = kMasked ? __ldg(L.t1 + q) : 1.f;
-  Q.t2 = kMasked ? __ldg(L.t2 + q) : 1.f;
-  return Q;
-}
 
 __device__ __forceinline__ Corners tri1(const Quad& Q) {
   return Q.up ? Corners{Q.n00, Q.n10, Q.n11} : Corners{Q.n00, Q.n10, Q.n01};
@@ -138,74 +140,169 @@ __device__ __forceinline__ int slot2(bool up) {
   return 2;  // kR01
 }
 
-// g += t * d E(c) / d(vertex `slot`)
-__device__ __forceinline__ void add_corner(const Corners& c, int slot,
-                                           float t, const Material& m,
-                                           float4* g) {
-  float4 c0, c1;
-  corner_cotangents(strain(c, m), m, &c0, &c1);
-  const float4 d =
-      slot == 0 ? c0
-      : slot == 1 ? c1
-                  : make_float4(-(c0.x + c1.x), -(c0.y + c1.y),
-                                -(c0.z + c1.z), -(c0.w + c1.w));
+// The tile of CTA `blockIdx.x`: its first owned node (i0, j0).
+__device__ __forceinline__ void tile_origin(const Lattice& L, int* i0,
+                                            int* j0) {
+  const int tiles_j = (L.ny + kTileCols - 1) / kTileCols;
+  *i0 = (int)(blockIdx.x / tiles_j) * kTileRows;
+  *j0 = (int)(blockIdx.x % tiles_j) * kTileCols;
+}
+
+__device__ __forceinline__ bool quad_exists(const Lattice& L, int qi,
+                                            int qj) {
+  return qi >= 0 && qj >= 0 && qi < L.nx - 1 && qj < L.ny - 1;
+}
+
+// diagonal and presence weights of quad (qi, qj), which exists
+template <int kDiag, bool kMasked>
+__device__ __forceinline__ void quad_flags(const Lattice& L, int qi, int qj,
+                                           Quad* Q) {
+  const long long q = (long long)qi * (L.ny - 1) + qj;
+  if (kDiag == kUp) Q->up = true;
+  else if (kDiag == kDown) Q->up = false;
+  else if (kDiag == kSelMask) Q->up = __ldg(L.sel + q) > 0.f;
+  else Q->up = ((qi + qj + L.phase) & 1) == 0;
+  Q->t1 = kMasked ? __ldg(L.t1 + q) : 1.f;
+  Q->t2 = kMasked ? __ldg(L.t2 + q) : 1.f;
+}
+
+template <int kDiag, bool kMasked>
+__device__ __forceinline__ Quad load_quad(const Lattice& L, int i, int j) {
+  const long long b = (long long)i * L.ny + j;
+  Quad Q;
+  Q.n00 = __ldg(L.node + b);
+  Q.n01 = __ldg(L.node + b + 1);
+  Q.n10 = __ldg(L.node + b + L.ny);
+  Q.n11 = __ldg(L.node + b + L.ny + 1);
+  quad_flags<kDiag, kMasked>(L, i, j, &Q);
+  return Q;
+}
+
+// 16 B from global to shared memory, asynchronously; zero-filled when
+// `valid` is false (src is then not read).
+__device__ __forceinline__ void copy16_async(float4* dst, const float4* src,
+                                             bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const size_t g = __cvta_generic_to_global(src);
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(g), "r"(bytes));
+}
+
+__device__ __forceinline__ void corner_terms(const Corners& c,
+                                             const Material& m, float4* d0,
+                                             float4* d1, float4* d2,
+                                             float* energy) {
+  const hdnn::Strain s = strain(c, m);
+  *energy = tri_energy(s, m);
+  corner_cotangents(s, m, d0, d1);
+  *d2 = make_float4(-(d0->x + d1->x), -(d0->y + d1->y), -(d0->z + d1->z),
+                    -(d0->w + d1->w));
+}
+
+// g += t * d
+__device__ __forceinline__ void add_scaled(float4* g, float t,
+                                           const float4& d) {
   g->x += t * d.x;
   g->y += t * d.y;
   g->z += t * d.z;
   g->w += t * d.w;
 }
 
+struct Tile {
+  float4 node[kNodeRows * kNodeCols];
+  float4 cot[6][kThreads];  // T1 corners 0..2, T2 corners 0..2, by quad
+  float t1[kThreads], t2[kThreads];
+  bool up[kThreads];
+};
+
+// node corner kRole of quad slot `q` of the tile: its terms in T1, T2
 template <int kRole>
-__device__ __forceinline__ void add_quad(const Quad& Q, const Material& m,
-                                         float4* g) {
-  const int s1 = slot1<kRole>(Q.up);
-  if (s1 >= 0 && Q.t1 != 0.f) add_corner(tri1(Q), s1, Q.t1, m, g);
-  const int s2 = slot2<kRole>(Q.up);
-  if (s2 >= 0 && Q.t2 != 0.f) add_corner(tri2(Q), s2, Q.t2, m, g);
+__device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
+  const bool up = T.up[q];
+  const int s1 = slot1<kRole>(up);
+  if (s1 >= 0 && T.t1[q] != 0.f) add_scaled(g, T.t1[q], T.cot[s1][q]);
+  const int s2 = slot2<kRole>(up);
+  if (s2 >= 0 && T.t2[q] != 0.f) add_scaled(g, T.t2[q], T.cot[3 + s2][q]);
 }
 
-// K7: thread n = i*ny + j adds the energy of quad (i, j).
+// K7: thread (ty, tx) >= (1, 1) of the tile adds the energy of the quad
+// whose n00 is its node.
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 stencil_fwd_kernel(Lattice L, Material m, float* __restrict__ partials) {
-  const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
+  int i0, j0;
+  tile_origin(L, &i0, &j0);
+  const int ty = threadIdx.x / kQuadCols, tx = threadIdx.x % kQuadCols;
+  const int qi = i0 - 1 + ty, qj = j0 - 1 + tx;
   float acc = 0.f;
-  if (n < (long long)L.nx * L.ny) {
-    const int i = (int)(n / L.ny);
-    const int j = (int)(n - (long long)i * L.ny);
-    if (i < L.nx - 1 && j < L.ny - 1)
-      acc = quad_energy(load_quad<kDiag, kMasked>(L, i, j), m);
-  }
+  if (ty >= 1 && tx >= 1 && quad_exists(L, qi, qj))
+    acc = quad_energy(load_quad<kDiag, kMasked>(L, qi, qj), m);
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-// K6: thread n = i*ny + j adds the energy of quad (i, j) and writes the
-// gradient of node (i, j), summed over its quads in a fixed order.
+// K6: the tile's quads evaluated once each into shared memory, then the
+// gradient of each owned node gathered from its <= 4 quads.
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
                   float* __restrict__ partials) {
-  const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
-  float acc = 0.f;
-  if (n < (long long)L.nx * L.ny) {
-    const int i = (int)(n / L.ny);
-    const int j = (int)(n - (long long)i * L.ny);
-    const bool lo_i = i > 0, lo_j = j > 0;
-    const bool hi_i = i < L.nx - 1, hi_j = j < L.ny - 1;
+  __shared__ Tile T;
+  int i0, j0;
+  tile_origin(L, &i0, &j0);
+  // stage the node rows (i0 - 1 .. i0 + 7) x (j0 - 1 .. j0 + 31)
+  for (int k = threadIdx.x; k < kNodeRows * kNodeCols; k += kThreads) {
+    const int i = i0 - 1 + k / kNodeCols, j = j0 - 1 + k % kNodeCols;
+    const bool valid = i >= 0 && j >= 0 && i < L.nx && j < L.ny;
+    copy16_async(&T.node[k],
+                 L.node + (valid ? (long long)i * L.ny + j : 0LL), valid);
+  }
+  const int ty = threadIdx.x / kQuadCols, tx = threadIdx.x % kQuadCols;
+  const int qi = i0 - 1 + ty, qj = j0 - 1 + tx;
+  // A quad off the lattice reads quad (0, 0)'s flags and adds nothing.
+  // Unmasked weights stay the constant 1, so that the energy below folds
+  // t * E to E and compiles to the same arithmetic as K7's quad_energy
+  // (a runtime weight of 1 would round t * E before adding it, where
+  // K7's fused multiply-add does not).
+  const bool exists = quad_exists(L, qi, qj);
+  Quad Q;
+  quad_flags<kDiag, kMasked>(L, exists ? qi : 0, exists ? qj : 0, &Q);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // this thread's quad, once
+  const int b = ty * kNodeCols + tx;
+  Q.n00 = T.node[b];
+  Q.n01 = T.node[b + 1];
+  Q.n10 = T.node[b + kNodeCols];
+  Q.n11 = T.node[b + kNodeCols + 1];
+  const int q = threadIdx.x;
+  float e = 0.f, et;
+  if (exists && Q.t1 != 0.f) {
+    corner_terms(tri1(Q), m, &T.cot[0][q], &T.cot[1][q], &T.cot[2][q], &et);
+    e += Q.t1 * et;
+  }
+  if (exists && Q.t2 != 0.f) {
+    corner_terms(tri2(Q), m, &T.cot[3][q], &T.cot[4][q], &T.cot[5][q], &et);
+    e += Q.t2 * et;
+  }
+  T.t1[q] = exists ? Q.t1 : 0.f;
+  T.t2[q] = exists ? Q.t2 : 0.f;
+  T.up[q] = Q.up;
+  const bool owner = ty >= 1 && tx >= 1;
+  const float acc = owner ? e : 0.f;
+  __syncthreads();
+
+  // node (qi, qj): corner n11 of quad q - 33, n10 of q - 32, n01 of
+  // q - 1, n00 of q
+  if (owner && qi < L.nx && qj < L.ny) {
     float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (lo_i && lo_j)
-      add_quad<kR11>(load_quad<kDiag, kMasked>(L, i - 1, j - 1), m, &g);
-    if (lo_i && hi_j)
-      add_quad<kR10>(load_quad<kDiag, kMasked>(L, i - 1, j), m, &g);
-    if (hi_i && lo_j)
-      add_quad<kR01>(load_quad<kDiag, kMasked>(L, i, j - 1), m, &g);
-    if (hi_i && hi_j) {
-      const Quad Q = load_quad<kDiag, kMasked>(L, i, j);
-      acc = quad_energy(Q, m);
-      add_quad<kR00>(Q, m, &g);
-    }
-    grad[n] = g;
+    add_quad<kR11>(T, q - kQuadCols - 1, &g);
+    add_quad<kR10>(T, q - kQuadCols, &g);
+    add_quad<kR01>(T, q - 1, &g);
+    add_quad<kR00>(T, q, &g);
+    grad[(long long)qi * L.ny + qj] = g;
   }
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -270,13 +367,17 @@ int run(int device, bool vg, const void* node, int nx, int ny, int diag,
 
 extern "C" {
 
-int hdnn_lattice_threads_per_block() { return kThreads; }
+// the number of tiles (CTAs, energy partials) of an nx-by-ny lattice
+int hdnn_lattice_partials(int nx, int ny) {
+  return ((nx + kTileRows - 1) / kTileRows) *
+         ((ny + kTileCols - 1) / kTileCols);
+}
 
 // K7: the energy of the lattice into *out (device float).  diag: 0 up,
 // 1 down, 2 per-quad sel mask, 3 zigzag parity with `phase`; t1 == NULL
 // means every triangle is present.  partials must hold
-// ceil(nx * ny / kThreads) floats.  Returns cudaGetLastError() after the
-// launches.
+// hdnn_lattice_partials(nx, ny) floats.  Returns cudaGetLastError() after
+// the launches.
 int hdnn_lattice_stencil_fwd(int device, const void* node, int nx, int ny,
                              int diag, int phase, const void* sel,
                              const void* t1, const void* t2, float f,

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["BandedAssembly", "build_banded_assembly",
            "build_paired_assembly", "build_striped_assembly",
            "pair_connectivity", "strip_connectivity", "rcm_node_order",
@@ -106,10 +108,11 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
                           incidence: np.ndarray,
                           window_limit: int = WINDOW_LIMIT, device=None
                           ) -> Optional[BandedAssembly]:
-    """A BandedAssembly (tensors on ``device``), or None if no candidate
-    block count keeps every node window under ``window_limit``.  (The JAX
-    package's ``block_multiple``, for element-sharded runs, comes with
-    the sharded banded route.)"""
+    """A BandedAssembly (tensors on ``device``, the card unless given), or
+    None if no candidate block count keeps every node window under
+    ``window_limit``.  (The JAX package's ``block_multiple``, for
+    element-sharded runs, comes with the sharded banded route.)"""
+    device = resolve_device(device)
     conn = np.asarray(connectivity, dtype=np.int64)
     ne = conn.shape[0]
     k = conn.shape[1] if conn.ndim == 2 else 3

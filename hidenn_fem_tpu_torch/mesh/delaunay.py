@@ -190,6 +190,7 @@ def generate_mesh_delaunay(
     sort before the tables are built: the raw order (boundary samples
     first, then the interior) scatters each element block's node window
     across the whole table.  Disable only to inspect the raw ordering.
+    The tensors go to ``device``, the card unless given.
     """
     if boundaries is None:
         boundaries = {"up": 0, "down": 0, "right": 2, "left": 1}

@@ -39,8 +39,9 @@ def assemble_gmsh_mesh(node_tags, points, tri_tags, boundary_node_tags,
                        device=None) -> TriMesh:
     """Post-gmsh assembly (no gmsh API): tag remap, geometric boundary +
     radial hole safety net, coordinate-tolerance BC masks, Neumann-edge
-    extraction; the TriMesh's tensors go to ``device``.  Testable without
-    gmsh (a fake gmsh module drives the API shell).
+    extraction; the TriMesh's tensors go to ``device`` (the card unless
+    given).  Testable without gmsh (a fake gmsh module drives the API
+    shell).
 
     Args:
       node_tags: [N] gmsh node tags (arbitrary positive ints, any order).
@@ -129,7 +130,8 @@ def generate_mesh_gmsh(
 
     ``reorder`` (default True) applies the RCM node permutation before the
     tables are built (see ``assemble_gmsh_mesh``); node and element
-    indexing then differ from raw gmsh output.
+    indexing then differ from raw gmsh output.  The tensors go to
+    ``device``, the card unless given.
     """
     try:
         import gmsh

@@ -34,6 +34,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .delaunay import _lc_fn, _walk_circle
 from .lattice import LatticeRoute
 from .types import TriMesh, build_incidence_table
@@ -92,7 +93,7 @@ def generate_mesh_hybrid(
     device=None,
 ) -> TriMesh:
     """Rectangle-with-circular-holes mesh with a hybrid route (tensors on
-    ``device``).
+    ``device``, the card unless given).
 
     The arguments of :func:`generate_mesh_delaunay` (the reference's
     geometry and BC conventions); ``variant`` picks the lattice diagonal
@@ -101,6 +102,7 @@ def generate_mesh_hybrid(
     collar points).  Raises if an inflated hole reaches the boundary quad
     ring (use :func:`generate_mesh_delaunay` for such geometry).
     """
+    device = resolve_device(device)
     if boundaries is None:
         boundaries = {"up": 0, "down": 0, "right": 2, "left": 1}
     if variant not in ("up", "down", "zigzag"):

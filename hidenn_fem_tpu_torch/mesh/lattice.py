@@ -26,6 +26,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["LatticeRoute", "detect_lattice"]
 
 
@@ -80,8 +82,9 @@ class LatticeRoute:
 def detect_lattice(coords: np.ndarray, connectivity: np.ndarray,
                    neumann_edges: np.ndarray, device=None
                    ) -> Optional[LatticeRoute]:
-    """Recover the lattice structure (tensors on ``device``), or None if
-    the mesh isn't one."""
+    """Recover the lattice structure (tensors on ``device``, the card
+    unless given), or None if the mesh isn't one."""
+    device = resolve_device(device)
     coords = np.asarray(coords)
     conn = np.asarray(connectivity, dtype=np.int64)
     edges = np.asarray(neumann_edges, dtype=np.int64)

@@ -106,6 +106,7 @@ def generate_mesh(
     ``keep_dead_nodes=True`` keeps hole-interior nodes (pinned Dirichlet
     and frozen, referenced by no triangle) instead of renumbering; such
     nodes have all -1 incidence rows and get exactly zero gradients.
+    The tensors go to ``device``, the card unless given.
     """
     if boundaries is None:
         boundaries = {"up": 0, "down": 0, "right": 2, "left": 1}
@@ -185,7 +186,8 @@ def proxy_plate_mesh(nx: int = 81, ny: int = 41, length: float = 2.0,
                      height: float = 1.0, variant: str = "up",
                      dtype=torch.float32, device=None) -> TriMesh:
     """The hole-free benchmark plate: left edge Dirichlet, right edge
-    Neumann; nx=81, ny=41 gives 6,400 elements / 3,321 nodes."""
+    Neumann; nx=81, ny=41 gives 6,400 elements / 3,321 nodes (on
+    ``device``, the card unless given)."""
     return generate_mesh(length=length, height=height, holes=(),
                          boundaries={"up": 0, "down": 0, "right": 2,
                                      "left": 1},

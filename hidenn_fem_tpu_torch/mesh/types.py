@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .banded import (build_banded_assembly, build_paired_assembly,
                      build_striped_assembly)
 from .lattice import detect_lattice
@@ -118,8 +119,8 @@ class TriMesh:
                     neumann_edges=None, dtype=torch.float32,
                     device=None, build_banded="auto", build_lattice=True,
                     build_fused=True) -> "TriMesh":
-        """Normalize host arrays into a TriMesh on ``device`` (CPU by
-        default), building the incidence and fused edge tables.
+        """Normalize host arrays into a TriMesh on ``device`` (the card
+        unless given), building the incidence and fused edge tables.
 
         build_banded: "auto" builds the banded tables when a gather table
         would pass 250,000 rows (``max(N, 3 Ne)``, the JAX package's
@@ -132,6 +133,7 @@ class TriMesh:
         to ``dtype``, as the JAX package does), so that lattice-topology
         meshes take the gather-free energy route.
         build_fused: build the fused domain + edge tables."""
+        device = resolve_device(device)
         coords_t = torch.tensor(np.asarray(coords), dtype=dtype)
         n = coords_t.shape[0]
 

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.lattice_energy import face_work, lattice_face
 from ..ops.lattice_slab import (lattice_stencil_fwd_plain,
                                 structured_domain_slab, structured_stencil)
@@ -120,7 +121,9 @@ def generate_structured_grid(
     maps face -> {0: none, 1: Dirichlet, 2: traction}; traction segments
     next to punched quads are masked out.  ``u_dirichlet`` optionally
     prescribes nodal values (scalar or [nx, ny, 2]) on Dirichlet nodes.
+    Tensors go to ``device``, the card unless given.
     """
+    device = resolve_device(device)
     if split not in ("up", "down", "zigzag"):
         raise ValueError(f"unknown split {split!r}")
     if boundaries is None:
@@ -276,11 +279,11 @@ class StructuredGridP1:
 
     # ---------------------------------------------------------------- init
     def init(self, generator, grid: StructuredGrid, device=None) -> dict:
-        """Initial parameters on ``device`` (the grid's by default):
+        """Initial parameters on ``device`` (the card unless given):
         coords at the grid positions and ``init_scale`` * N(0, 1) nodal
         values drawn from ``generator``, a ``torch.Generator`` or a numpy
         ``Generator``."""
-        device = grid.device if device is None else device
+        device = resolve_device(device)
         shape = (grid.nx, grid.ny, 2)
         if isinstance(generator, np.random.Generator):
             u0 = torch.tensor(self.init_scale
@@ -360,8 +363,8 @@ class StructuredGridP1:
     # --------------------------------------------------------- conversion
     def to_trimesh(self, grid: StructuredGrid, device=None):
         """The equivalent unstructured TriMesh (active triangles only, the
-        same nodes flattened i*ny + j), on ``device`` (the grid's by
-        default)."""
+        same nodes flattened i*ny + j), on ``device`` (the card unless
+        given)."""
         from ..mesh.types import TriMesh
 
         nx, ny = grid.nx, grid.ny
@@ -413,5 +416,5 @@ class StructuredGridP1:
             dirichlet_mask=grid.dirichlet_mask.cpu().numpy().ravel(),
             neumann_mask=mn_mask,
             neumann_edges=np.sort(edges, axis=1),
-            device=grid.device if device is None else device,
+            device=device,
         )

@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..mesh.types import TriMesh
 from ..ops.assembly import flat_gather
 
@@ -45,9 +46,10 @@ class TriangleP1:
     # ---------------------------------------------------------------- init
     def init(self, generator: torch.Generator, mesh: TriMesh,
              device=None) -> dict:
-        """Initial parameters: coords at the mesh positions and
-        ``init_scale`` * N(0, 1) nodal values drawn from ``generator``."""
-        device = mesh.device if device is None else device
+        """Initial parameters on ``device`` (the card unless given):
+        coords at the mesh positions and ``init_scale`` * N(0, 1) nodal
+        values drawn from ``generator``."""
+        device = resolve_device(device)
         u0 = self.init_scale * torch.randn(
             (mesh.n_nodes, self.dim_u), generator=generator,
             dtype=self.dtype, device=generator.device)

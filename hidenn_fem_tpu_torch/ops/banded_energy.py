@@ -9,8 +9,9 @@ when the recompute tables carry ownership intervals, computed the value
 and the gradient in that one node-block scan (K4).  On the card the three
 are the CUDA kernels of ``hidenn_fem_tpu_torch/csrc/banded_energy.cu``:
 one thread per table row reads its node rows straight from the [N, 4]
-table (the source's header says what bounds them and how they are laid
-out).  The TPU's lane-major [k*4, 2048] blocks, transposes and zero
+table, and K4 recomputes each node's gradient from its incidence slots in
+the same launch (the source's header says what bounds them and how they
+are laid out).  The TPU's lane-major [k*4, 2048] blocks, transposes and zero
 padding are not reproduced.
 
 In this module:
@@ -157,7 +158,7 @@ def _library() -> ctypes.CDLL:
         vp, i, vp, vp]
     lib.hdnn_banded_fwd.restype = i
     lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
-        vp, vp, i, vp, vp, ll, i, ll, vp, vp]
+        vp, i, vp, vp, ll, i, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
     lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, ll, i] + mat + [
         vp, vp, ll, i, vp, i, ll, vp, vp, vp]
@@ -165,7 +166,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(node: torch.Tensor, ba, *tables) -> None:
+def _check(node: torch.Tensor, ba, rel, *tables) -> None:
     if not node.is_cuda:
         raise ValueError("the banded kernels take CUDA tensors")
     if node.dtype != torch.float32 or node.dim() != 2 \
@@ -176,12 +177,15 @@ def _check(node: torch.Tensor, ba, *tables) -> None:
         raise ValueError("node rows must be 16-byte aligned (float4)")
     if ba.k not in _TRIS:
         raise ValueError(f"no banded kernel for k={ba.k}")
-    for t in tables:
+    for t in (rel,) + tables:
         if t is None or t.device != node.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError("the banded tables must be contiguous int32 "
                              "tensors on the node table's device (move the "
                              "mesh with TriMesh.to)")
+    if rel.data_ptr() % (16 if ba.k == 4 else 8):
+        raise ValueError("the row table must be aligned for its vector "
+                         "loads (16 B for k=4, 8 B otherwise)")
 
 
 def _head(node, ba, starts, rel, E, nu, w_sum):
@@ -194,7 +198,7 @@ def _head(node, ba, starts, rel, E, nu, w_sum):
 def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
     """K3 on the card: the energy (0-dim float32 tensor) of the forward
     tables ``ba.starts``/``ba.conn_rel`` over the node table."""
-    _check(node, ba, ba.starts, ba.conn_rel)
+    _check(node, ba, ba.conn_rel, ba.starts)
     lib = _library()
     n_rows = ba.conn_rel.shape[0] * ba.conn_rel.shape[1]
     n_part = -(-n_rows // lib.hdnn_banded_threads_per_block())
@@ -211,15 +215,17 @@ def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
 
 def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 on the card: (energy of the owned rows of the recompute windows,
-    node gradient [N, 4]).  Needs the recompute tables with ownership."""
-    _check(node, ba, ba.re_nstarts, ba.re_conn_rel, ba.re_own_lo,
+    node gradient [N, 4]) in one launch and the partial sum, with no
+    cotangent buffer.  Needs the recompute tables with ownership."""
+    _check(node, ba, ba.re_conn_rel, ba.re_nstarts, ba.re_own_lo,
            ba.re_own_hi, ba.re_inc_rel)
     lib = _library()
     rel = ba.re_conn_rel
     n_rows = rel.shape[0] * rel.shape[1]
-    n_part = -(-n_rows // lib.hdnn_banded_threads_per_block())
+    # one thread per recompute row (its energy) and per node (its gradient)
+    n_part = -(-max(n_rows, node.shape[0])
+               // lib.hdnn_banded_threads_per_block())
     dev = node.device
-    cot = torch.empty((n_rows * ba.k, 4), dtype=torch.float32, device=dev)
     partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     grad = torch.empty_like(node)
@@ -228,7 +234,7 @@ def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
     head = _head(node, ba, ba.re_nstarts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_vg(
         *head[:4], ba.re_own_lo.data_ptr(), ba.re_own_hi.data_ptr(),
-        *head[4:], cot.data_ptr(), partials.data_ptr(), n_part,
+        *head[4:], partials.data_ptr(), n_part,
         out.data_ptr(), inc.data_ptr(), inc.shape[1], inc.shape[2],
         node.shape[0], grad.data_ptr(), stream)
     raise_on(lib, err, "banded_vg")
@@ -247,7 +253,7 @@ def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
     else:
         starts, rel, inc = ba.starts, ba.conn_rel, ba.inc_rel
         block_starts, sentinel = ba.ct_starts, ba.wct
-    _check(node, ba, starts, rel, inc,
+    _check(node, ba, rel, starts, inc,
            *(() if block_starts is None else (block_starts,)))
     ct = ct.reshape(()).to(dtype=torch.float32).contiguous()
     if ct.device != node.device:

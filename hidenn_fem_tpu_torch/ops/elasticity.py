@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
+
 __all__ = [
     "plane_stress_C",
     "strain_voigt_from_grad",
@@ -16,12 +18,13 @@ __all__ = [
 
 def plane_stress_C(E: float, nu: float, dtype=torch.float32,
                    device=None) -> torch.Tensor:
-    """Plane-stress constitutive matrix C [3, 3]."""
+    """Plane-stress constitutive matrix C [3, 3] (on the card unless
+    ``device`` says otherwise)."""
     f = E / (1.0 - nu ** 2)
     return torch.tensor([[f, f * nu, 0.0],
                          [f * nu, f, 0.0],
                          [0.0, 0.0, f * (1.0 - nu) / 2.0]],
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=resolve_device(device))
 
 
 def strain_voigt_from_grad(grad_u: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,10 @@ inside the kernel.  Its layouts were the TPU's: a channel-major
 the scoped VMEM, and manual double-buffered DMA of the windows, plus the
 roll-wrap masks that the padding needed.  The port reproduces none of
 them: the CUDA kernels of ``hidenn_fem_tpu_torch/csrc/lattice_stencil.cu``
-read float4 node rows straight from the [N, 4] table and write the
-gradient straight into node layout, with a gradient derived by hand (the
-source's header says what bounds them on the H100 and how).
+work on node tiles staged in shared memory, evaluate each quad of a tile
+once, and write the gradient straight into node layout, with a gradient
+derived by hand (the source's header says what bounds them on the H100
+and how).
 
 In this module:
 
@@ -168,8 +169,8 @@ def lattice_stencil_vg_plain(node, nx, ny, E, nu, w_sum, diag=UP,
 def _library() -> ctypes.CDLL:
     lib = library("lattice_stencil")
     vp, fl, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.hdnn_lattice_threads_per_block.argtypes = []
-    lib.hdnn_lattice_threads_per_block.restype = i
+    lib.hdnn_lattice_partials.argtypes = [i, i]
+    lib.hdnn_lattice_partials.restype = i
     head = [i, vp, i, i, i, i, vp, vp, vp, fl, fl, fl, fl]
     lib.hdnn_lattice_stencil_fwd.argtypes = head + [vp, i, vp, vp]
     lib.hdnn_lattice_stencil_fwd.restype = i
@@ -212,7 +213,7 @@ def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2):
     _check(node, nx, ny, diag, sel, t1, t2)
     lib = _library()
     f, shear = _constants(E, nu)
-    n_part = -(-nx * ny // lib.hdnn_lattice_threads_per_block())
+    n_part = lib.hdnn_lattice_partials(nx, ny)
     dev = node.device
     partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)

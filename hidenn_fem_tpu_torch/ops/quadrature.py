@@ -7,6 +7,8 @@ the JAX package and cast once, so both packages hold bit-equal tables.
 * ``interval_gauss_points_m11(order)``: the raw [-1, 1] rule (quirk E3).
 * ``triangle_gauss_points(order)``: symmetric rules on the unit reference
   triangle, weights scaled by its area 1/2.
+
+Each goes to the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 __all__ = [
     "interval_gauss_points",
@@ -34,7 +38,8 @@ def _leggauss(order: int):
 
 
 def _tensor(a, dtype, device):
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(a), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def interval_gauss_points(order: int = 1, dtype=torch.float32, device=None):

@@ -30,7 +30,8 @@ from hidenn_fem_tpu_torch.ops import assembly as pasm
 from hidenn_fem_tpu_torch.ops import banded_energy as pbe
 from hidenn_fem_tpu_torch.ops import window_gather as pwg
 
-from torch_port_common import assert_close, random_params, to_jax, to_torch
+from torch_port_common import CPU, assert_close, random_params, to_jax, \
+    to_torch
 
 WINDOW = 300
 TABLES = ("starts", "conn_rel", "ct_starts", "inc_rel", "re_nstarts",
@@ -53,12 +54,13 @@ def _tables(pkg, mesh, k):
     """(package's) banded tables of layout k at window_limit 300."""
     conn = np.asarray(mesh.connectivity)
     n = mesh.n_nodes
+    kw = {"device": CPU} if pkg is pb else {}
     if k == 3:
         return pkg.build_banded_assembly(conn, n, np.asarray(mesh.incidence),
-                                         window_limit=WINDOW)
+                                         window_limit=WINDOW, **kw)
     build = (pkg.build_paired_assembly if k == 4
              else pkg.build_striped_assembly)
-    return build(conn, n, window_limit=WINDOW)
+    return build(conn, n, window_limit=WINDOW, **kw)
 
 
 def assert_tables_equal(port, jax_tables):
@@ -90,8 +92,8 @@ def _mesh_pair(mesh_j, k, change=None, dtype=torch.float32):
         else:
             jp, pp = (dataclasses.replace(jp, **change),
                       dataclasses.replace(pp, **change))
-    mesh_t = pt.mesh_from_numpy(mesh_j, dtype=dtype, build_lattice=False,
-                                build_banded=False)
+    mesh_t = pt.mesh_from_numpy(mesh_j, device=CPU, dtype=dtype,
+                                build_lattice=False, build_banded=False)
     return (dataclasses.replace(mesh_j, banded=jt, banded_paired=jp),
             dataclasses.replace(mesh_t, banded=pt3, banded_paired=pp))
 
@@ -137,7 +139,8 @@ def test_ownership_intervals_equal_jax(estarts, ew, ne):
 
 def test_reorder_mesh_equal_jax():
     mesh_j = ht.generate_mesh(nx=25, ny=13, holes=((1.0, 0.5, 0.2),))
-    mesh_t = pt.generate_mesh(nx=25, ny=13, holes=((1.0, 0.5, 0.2),))
+    mesh_t = pt.generate_mesh(nx=25, ny=13, holes=((1.0, 0.5, 0.2),),
+                              device=CPU)
     conn = np.asarray(mesh_j.connectivity)
     np.testing.assert_array_equal(pb.rcm_node_order(conn, mesh_j.n_nodes),
                                   jb.rcm_node_order(conn, mesh_j.n_nodes))
@@ -169,7 +172,7 @@ def test_from_arrays_builds_the_jax_tables(monkeypatch, meshes, build, env):
     mj = ht.TriMesh.from_arrays(*arrays, build_banded=build,
                                 build_lattice=False)
     mt = pt.TriMesh.from_arrays(*arrays, build_banded=build,
-                                build_lattice=False)
+                                build_lattice=False, device=CPU)
     assert_tables_equal(mt.banded, mj.banded)
     assert_tables_equal(mt.banded_paired, mj.banded_paired)
     if build is True and not env:
@@ -350,7 +353,8 @@ def test_banded_kernels_raise_on_cpu_tensors(meshes):
         with pytest.raises(ValueError):
             call()
     kernel = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
-    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), mesh_t)
+    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), mesh_t,
+                             device=CPU)
     with pytest.raises(ValueError):
         kernel.total(p, mesh_t)
 

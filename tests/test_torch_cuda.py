@@ -9,6 +9,8 @@ runs on a machine without them:
 Tolerances: rtol 1e-4 on energies (f32 sums in another order); rtol 5e-4
 with atol 1e-5 x max|grad| on cotangents and gradients (coordinate
 gradients are sums of cancelling terms; see tests/test_torch_losses.py).
+Where two kernels must add the same terms in the same order (K5 and the
+fused K4, K6 and K7, two launches of one kernel) the check is bit for bit.
 """
 
 import dataclasses
@@ -159,13 +161,16 @@ def _lattice_node(nx, ny, seed, dev):
     return torch.tensor(node, dtype=torch.float32, device=dev), rng
 
 
+@pytest.mark.parametrize("shape", [(300, 37), (2, 2), (37, 53), (129, 65)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("diag", [ls.UP, ls.DOWN, ls.SEL_MASK, ls.PARITY])
 @pytest.mark.parametrize("masked", [False, True])
-def test_lattice_stencil_kernels_match_plain(dev, diag, masked):
+def test_lattice_stencil_kernels_match_plain(dev, shape, diag, masked):
     """K7 and K6 against their plain versions for every diagonal mode,
-    with and without presence weights (a lattice of 300 rows: several
-    blocks, ragged last block)."""
-    nx, ny = 300, 37
+    with and without presence weights, on lattices that are no multiple of
+    the tile (down to a single quad); K6's energy equal to K7's bit for
+    bit, and two launches of each bit-equal."""
+    nx, ny = shape
     node, rng = _lattice_node(nx, ny, 7, dev)
     q = (nx - 1, ny - 1)
     kw = dict(diag=diag, phase=1 if diag == ls.PARITY else 0)
@@ -179,13 +184,17 @@ def test_lattice_stencil_kernels_match_plain(dev, diag, masked):
     before = dict(ls.launch_counts)
     e7 = ls.lattice_stencil_fwd(node, nx, ny, E, NU, W_SUM, **kw)
     e6, g6 = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
+    e7b = ls.lattice_stencil_fwd(node, nx, ny, E, NU, W_SUM, **kw)
+    e6b, g6b = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
     torch.cuda.synchronize()
     assert ls.launch_counts["lattice_stencil_fwd"] == \
-        before["lattice_stencil_fwd"] + 1
+        before["lattice_stencil_fwd"] + 2
     assert ls.launch_counts["lattice_stencil_vg"] == \
-        before["lattice_stencil_vg"] + 1
+        before["lattice_stencil_vg"] + 2
     ep, gp = ls.lattice_stencil_vg_plain(node, nx, ny, E, NU, W_SUM, **kw)
-    assert float(e6) == float(e7)      # same threads, same blocks
+    assert float(e6) == float(e7)      # same tiles, same threads
+    assert float(e7b) == float(e7) and float(e6b) == float(e6)
+    assert torch.equal(g6b, g6)
     _close(e7, ep, rtol=1e-4, atol_scale=0.0)
     _close(g6, gp)
 
@@ -233,7 +242,7 @@ def test_structured_kernel_path_matches_plain_path(dev, split):
     out = {}
     for backend in ("kernel", "plain"):
         model = StructuredGridP1(backend=backend)
-        p = model.init(np.random.default_rng(4), grid)
+        p = model.init(np.random.default_rng(4), grid, device=dev)
         p["u"] = p["u"] * 10.0
         for v in p.values():
             v.requires_grad_(True)
@@ -256,20 +265,21 @@ def test_lattice_kernels_refuse_what_they_do_not_take(dev):
     renumbered = pt.generate_mesh(nx=33, ny=17, device=dev)
     assert not renumbered.lattice.identity
     kernel = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
-    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), renumbered)
+    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), renumbered,
+                             device=dev)
     with pytest.raises(ValueError):
         kernel.total(p, renumbered)
 
 
-def _banded_tables(mesh, k):
+def _banded_tables(mesh, k, device):
     """Banded tables of one layout at window_limit 300 (several blocks)."""
     conn = mesh.connectivity.cpu().numpy()
     n = mesh.n_nodes
     if k == 3:
         return mb.build_banded_assembly(conn, n, mesh.incidence.cpu().numpy(),
-                                        window_limit=300)
+                                        window_limit=300, device=device)
     build = mb.build_paired_assembly if k == 4 else mb.build_striped_assembly
-    return build(conn, n, window_limit=300)
+    return build(conn, n, window_limit=300, device=device)
 
 
 def _banded_node(mesh, dev, seed=5):
@@ -284,18 +294,20 @@ def _banded_node(mesh, dev, seed=5):
 @pytest.mark.parametrize("k", [3, 4, 6])
 @pytest.mark.parametrize("which", ["plate", "delaunay"])
 def test_banded_kernels_match_plain(dev, k, which):
-    """K3, K4 and K5 (both fallbacks) against their plain versions."""
-    mesh = (pt.proxy_plate_mesh(nx=33, ny=17) if which == "plate"
-            else pt.generate_mesh_delaunay(lc=0.09))
-    ba = _banded_tables(mesh, k)
+    """K3, K4 and K5 (both fallbacks) against their plain versions; the
+    fused K4's gradient equal to K5's over the recompute windows (ct x K4)
+    bit for bit, and two launches of K4 bit-equal."""
+    mesh = (pt.proxy_plate_mesh(nx=33, ny=17, device=dev) if which == "plate"
+            else pt.generate_mesh_delaunay(lc=0.09, device=dev))
+    ba = _banded_tables(mesh, k, dev)
     assert ba is not None and ba.re_own_lo is not None
     assert ba.n_element_blocks > 1
-    ba = ba.to(dev)
     node = _banded_node(mesh, dev)
     ct = torch.tensor(0.75, device=dev)
     before = dict(be.launch_counts)
     e3 = be.banded_fwd(node, ba, E, NU, W_SUM)
     e4, g4 = be.banded_vg(node, ba, E, NU, W_SUM)
+    e4b, g4b = be.banded_vg(node, ba, E, NU, W_SUM)
     g5 = be.banded_bwd(node, ba, ct, E, NU, W_SUM)
     no_re = dataclasses.replace(ba, re_nstarts=None, re_estarts=None,
                                 re_conn_rel=None, re_inc_rel=None,
@@ -303,7 +315,7 @@ def test_banded_kernels_match_plain(dev, k, which):
     g5b = be.banded_bwd(node, no_re, ct, E, NU, W_SUM)
     torch.cuda.synchronize()
     assert {k2: be.launch_counts[k2] - before[k2] for k2 in before} == \
-        {"banded_fwd": 1, "banded_vg": 1, "banded_bwd": 2}
+        {"banded_fwd": 1, "banded_vg": 2, "banded_bwd": 2}
     p3 = be.banded_fwd_plain(node, ba, E, NU, W_SUM)
     p4, pg4 = be.banded_vg_plain(node, ba, E, NU, W_SUM)
     _close(e3, p3, rtol=1e-4, atol_scale=0.0)
@@ -312,15 +324,16 @@ def test_banded_kernels_match_plain(dev, k, which):
     _close(g4, pg4)
     _close(g5, be.banded_bwd_plain(node, ba, ct, E, NU, W_SUM))
     _close(g5b, be.banded_bwd_plain(node, no_re, ct, E, NU, W_SUM))
-    _close(g5, 0.75 * g4)
+    assert torch.equal(g5, ct * g4)
+    assert float(e4b) == float(e4) and torch.equal(g4b, g4)
 
 
 def test_banded_route_kernel_path_matches_plain_path(dev):
     """PlaneStressEnergy on a banded Delaunay mesh: the banded kernels
     (K4 with a gradient, K3 under no_grad) against the plain route."""
-    mesh = pt.generate_mesh_delaunay(lc=0.09)
-    mesh = dataclasses.replace(mesh, banded=_banded_tables(mesh, 3),
-                               banded_paired=_banded_tables(mesh, 4)).to(dev)
+    mesh = pt.generate_mesh_delaunay(lc=0.09, device=dev)
+    mesh = dataclasses.replace(mesh, banded=_banded_tables(mesh, 3, dev),
+                               banded_paired=_banded_tables(mesh, 4, dev))
     params_np = {"coords": mesh.coords.cpu().numpy(),
                  "u": 1e-4 * np.random.default_rng(6).standard_normal(
                      (mesh.n_nodes, 2))}
@@ -352,9 +365,9 @@ def test_banded_route_kernel_path_matches_plain_path(dev):
 @pytest.mark.parametrize("eb", [64, 128])
 def test_window_sq_matches_plain(dev, eb):
     """K8 against its plain version and the flat-gather sum."""
-    mesh = mb.reorder_mesh(pt.generate_mesh(nx=81, ny=41, holes=()),
-                           build_banded=False)
-    conn = mesh.connectivity.numpy()
+    mesh = mb.reorder_mesh(pt.generate_mesh(nx=81, ny=41, holes=(),
+                                            device=dev), build_banded=False)
+    conn = mesh.connectivity.cpu().numpy()
     relT, wblk, wp, npad, _ = wg.build_subblocks(conn, mesh.n_nodes, eb)
     node = torch.tensor(np.random.default_rng(8).standard_normal(
         (mesh.n_nodes, 4)), dtype=torch.float32, device=dev)
@@ -372,8 +385,8 @@ def test_window_sq_matches_plain(dev, eb):
 
 
 def test_banded_kernels_refuse_what_they_do_not_take(dev):
-    mesh = pt.proxy_plate_mesh(nx=33, ny=17)
-    ba = _banded_tables(mesh, 4)
+    mesh = pt.proxy_plate_mesh(nx=33, ny=17, device=dev)
+    ba = _banded_tables(mesh, 4, torch.device("cpu"))
     node = _banded_node(mesh, dev)
     with pytest.raises(ValueError):        # tables left on the host
         be.banded_fwd(node, ba, E, NU, W_SUM)
@@ -385,3 +398,4 @@ def test_banded_kernels_refuse_what_they_do_not_take(dev):
                      W_SUM)
     with pytest.raises(ValueError):
         be.banded_fwd(node.cpu(), ba, E, NU, W_SUM)
+

@@ -31,7 +31,8 @@ from hidenn_fem_tpu_torch.mesh import delaunay as pd
 from hidenn_fem_tpu_torch.mesh import gmsh_backend as pg
 
 from test_gmsh_backend import _FakeGmsh, _toy_mesh
-from torch_port_common import assert_close, random_params, to_jax, to_torch
+from torch_port_common import CPU, assert_close, random_params, to_jax, \
+    to_torch
 
 HOLES = ((0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1))
 FIELDS = ("coords", "connectivity", "geom_boundary_mask", "dirichlet_mask",
@@ -63,7 +64,7 @@ def _graded(p):
          boundaries={"up": 2, "down": 1, "left": 0, "right": 0})],
     ids=["holes", "no_holes", "graded", "raw_order", "boundaries"])
 def test_delaunay_mesh_equal_jax(kw):
-    assert_mesh_equal(pd.generate_mesh_delaunay(**kw),
+    assert_mesh_equal(pd.generate_mesh_delaunay(device=CPU, **kw),
                       jd.generate_mesh_delaunay(**kw))
 
 
@@ -75,7 +76,8 @@ def test_assemble_gmsh_mesh_equal_jax(reorder):
               holes=((1.0, 0.5, 0.25),),
               boundaries={"up": 0, "down": 0, "right": 2, "left": 1},
               length=2.0, height=1.0, reorder=reorder)
-    assert_mesh_equal(pg.assemble_gmsh_mesh(**kw), jg.assemble_gmsh_mesh(**kw))
+    assert_mesh_equal(pg.assemble_gmsh_mesh(device=CPU, **kw),
+                      jg.assemble_gmsh_mesh(**kw))
 
 
 @pytest.fixture
@@ -90,7 +92,8 @@ def test_generate_mesh_gmsh_equal_jax(fake_gmsh):
               boundaries={"up": 0, "down": 0, "right": 2, "left": 1},
               lc=0.25)
     assert pg.have_gmsh() and jg.have_gmsh()
-    assert_mesh_equal(pg.generate_mesh_gmsh(**kw), jg.generate_mesh_gmsh(**kw))
+    assert_mesh_equal(pg.generate_mesh_gmsh(device=CPU, **kw),
+                      jg.generate_mesh_gmsh(**kw))
     assert [c[0] for c in fake_gmsh.calls].count("initialize") == 2
 
 
@@ -98,7 +101,7 @@ def test_generate_mesh_gmsh_needs_gmsh(monkeypatch):
     monkeypatch.setitem(sys.modules, "gmsh", None)     # import fails
     assert not pg.have_gmsh() and not jg.have_gmsh()
     with pytest.raises(ImportError):
-        pg.generate_mesh_gmsh(lc=0.25)
+        pg.generate_mesh_gmsh(lc=0.25, device=CPU)
 
 
 @pytest.mark.parametrize("kw", [
@@ -110,7 +113,7 @@ def test_generate_mesh_gmsh_needs_gmsh(monkeypatch):
 def test_unstructured_dispatch_equal_jax(kw):
     """No gmsh: hybrid when the geometry qualifies, else Delaunay, in both
     packages."""
-    got = pd.generate_mesh_unstructured(**kw)
+    got = pd.generate_mesh_unstructured(device=CPU, **kw)
     want = jd.generate_mesh_unstructured(**kw)
     assert_mesh_equal(got, want)
     assert (got.hybrid is not None) == (kw.get("prefer_hybrid", True)
@@ -122,11 +125,12 @@ def test_unstructured_dispatch_prefers_hybrid_over_gmsh(fake_gmsh):
     kw = dict(length=2.0, height=1.0, holes=(),
               boundaries={"up": 0, "down": 0, "right": 2, "left": 1},
               lc=0.25)
-    got = pd.generate_mesh_unstructured(**kw)
+    got = pd.generate_mesh_unstructured(device=CPU, **kw)
     assert got.hybrid is not None                        # no gmsh call
     assert_mesh_equal(got, jd.generate_mesh_unstructured(**kw))
     assert not fake_gmsh.calls
-    got = pd.generate_mesh_unstructured(prefer_hybrid=False, **kw)
+    got = pd.generate_mesh_unstructured(prefer_hybrid=False, device=CPU,
+                                        **kw)
     assert_mesh_equal(got, jd.generate_mesh_unstructured(
         prefer_hybrid=False, **kw))
     assert got.hybrid is None and fake_gmsh.calls       # through gmsh
@@ -139,7 +143,7 @@ def banded_delaunay():
     mj = jd.generate_mesh_delaunay(holes=HOLES, lc=0.08)
     conn, n = np.asarray(mj.connectivity), mj.n_nodes
     inc = np.asarray(mj.incidence)
-    mt = pt.mesh_from_numpy(mj, build_banded=False)
+    mt = pt.mesh_from_numpy(mj, device=CPU, build_banded=False)
     assert mt.lattice is None and mj.lattice is None
     return (dataclasses.replace(
                 mj, banded=jb.build_banded_assembly(conn, n, inc,
@@ -148,9 +152,11 @@ def banded_delaunay():
                                                        window_limit=300)),
             dataclasses.replace(
                 mt, banded=pb.build_banded_assembly(conn, n, inc,
-                                                    window_limit=300),
+                                                    window_limit=300,
+                                                    device=CPU),
                 banded_paired=pb.build_paired_assembly(conn, n,
-                                                       window_limit=300)))
+                                                       window_limit=300,
+                                                       device=CPU)))
 
 
 def test_delaunay_total_matches_jax(banded_delaunay):
@@ -201,11 +207,12 @@ def test_delaunay_lbfgs_matches_jax(banded_delaunay, f64):
         lj = np.asarray(lj)
     if f64:
         mt = dataclasses.replace(pt.mesh_from_numpy(
-            mj, dtype=tdt, build_banded=False), banded=mt.banded,
+            mj, device=CPU, dtype=tdt, build_banded=False), banded=mt.banded,
             banded_paired=mt.banded_paired)
     te = pt.PlaneStressEnergy(model=pt.TriangleP1(dtype=tdt))
     _, lt = pt.run_lbfgs(te.total, pt.params_from_numpy(
-        {"coords": mt.coords.numpy(), "u": u0}, dtype=tdt), num_steps=10,
+        {"coords": mt.coords.numpy(), "u": u0}, device=CPU, dtype=tdt),
+        num_steps=10,
         loss_args=(mt,))
     lt = lt.numpy()
     assert np.all(np.isfinite(lt)) and lt[-1] < lt[0]

@@ -36,7 +36,7 @@ from hidenn_fem_tpu_torch.mesh import hybrid as th
 from hidenn_fem_tpu_torch.ops import lattice_energy as tle
 
 from test_torch_delaunay import assert_mesh_equal
-from torch_port_common import (assert_close, assert_route_equal,
+from torch_port_common import (CPU, assert_close, assert_route_equal,
                                random_params, to_jax, to_torch)
 
 E, NU, W_SUM = 10e9, 0.3, 0.5
@@ -56,7 +56,7 @@ HYBRID_FIELDS = ("extra_conn", "stair_ids", "extra_conn_rel",
 def _meshes(name, dtype=torch.float32):
     kw = MESHES[name]
     return jh.generate_mesh_hybrid(**kw), th.generate_mesh_hybrid(
-        dtype=dtype, **kw)
+        dtype=dtype, device=CPU, **kw)
 
 
 def _assert_grad(got, want, f64=False):
@@ -88,7 +88,7 @@ def test_hybrid_rejects_like_jax(kw):
     with pytest.raises(ValueError):
         jh.generate_mesh_hybrid(**kw)
     with pytest.raises(ValueError):
-        th.generate_mesh_hybrid(**kw)
+        th.generate_mesh_hybrid(device=CPU, **kw)
 
 
 def test_mesh_to_moves_the_hybrid_route():
@@ -251,7 +251,7 @@ def test_hybrid_lbfgs_matches_jax():
                          num_steps=10, loss_args=(jm,))
     te = pt.PlaneStressEnergy(model=pt.TriangleP1())
     _, lt = pt.run_lbfgs(te.total, pt.params_from_numpy(
-        {"coords": tm.coords.numpy(), "u": u0}), num_steps=10,
+        {"coords": tm.coords.numpy(), "u": u0}, device=CPU), num_steps=10,
         loss_args=(tm,))
     lt = lt.numpy()
     assert np.all(np.isfinite(lt)) and lt[-1] < lt[0]

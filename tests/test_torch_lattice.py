@@ -35,7 +35,7 @@ from hidenn_fem_tpu_torch.mesh.lattice import detect_lattice as tdetect
 from hidenn_fem_tpu_torch.ops import lattice_energy as tle
 from hidenn_fem_tpu_torch.ops import lattice_slab as tls
 
-from torch_port_common import assert_close, assert_route_equal
+from torch_port_common import CPU, assert_close, assert_route_equal
 
 E, NU, W_SUM, T_X = 10e9, 0.3, 0.5, 100e3
 HOLES2 = ((0.6, 0.4, 0.15), (1.4, 0.6, 0.2))
@@ -57,7 +57,7 @@ MESHES = {
 def _meshes(name, nx=33, ny=17):
     kw = MESHES[name]
     return ht.generate_mesh(nx=nx, ny=ny, **kw), \
-        pt.generate_mesh(nx=nx, ny=ny, **kw)
+        pt.generate_mesh(nx=nx, ny=ny, device=CPU, **kw)
 
 
 def _node(mesh_j, seed, dtype=np.float32):
@@ -82,7 +82,8 @@ def test_detect_lattice_matches_jax(name):
     assert tm.lattice is not None
     assert_route_equal(tm.lattice, jm.lattice)
     # the same detection from the arrays of the JAX mesh
-    assert_route_equal(pt.mesh_from_numpy(jm).lattice, jm.lattice)
+    assert_route_equal(pt.mesh_from_numpy(jm, device=CPU).lattice,
+                       jm.lattice)
 
 
 def _rejected_cases():
@@ -110,11 +111,12 @@ def _rejected_cases():
 def test_detect_lattice_rejects_like_jax(case):
     coords, conn, edges = _rejected_cases()[case]
     assert jdetect(coords, conn, edges) is None
-    assert tdetect(coords, conn, edges) is None
+    assert tdetect(coords, conn, edges, device=CPU) is None
 
 
 def test_mesh_to_moves_the_route():
-    tm = pt.generate_mesh(nx=17, ny=9, holes=((1.0, 0.5, 0.25),))
+    tm = pt.generate_mesh(nx=17, ny=9, holes=((1.0, 0.5, 0.25),),
+                          device=CPU)
     moved = tm.to("meta")
     route = moved.lattice
     for t in (route.sel, route.t1, route.t2, route.inv_map, route.fwd_map,
@@ -122,7 +124,8 @@ def test_mesh_to_moves_the_route():
         assert t.device.type == "meta"
     assert (route.nx, route.ny, route.identity) == \
         (tm.lattice.nx, tm.lattice.ny, tm.lattice.identity)
-    assert pt.generate_mesh(nx=17, ny=9).to("cpu").lattice is not None
+    assert pt.generate_mesh(nx=17, ny=9,
+                            device=CPU).to("cpu").lattice is not None
 
 
 # ------------------------------------------------------ lattice_total
@@ -234,14 +237,15 @@ def test_stencil_plain_gradient_is_autograd_of_plain_energy_f64(diag):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    tm = pt.proxy_plate_mesh(nx=9, ny=5)
+    tm = pt.proxy_plate_mesh(nx=9, ny=5, device=CPU)
     node = torch.zeros((45, 4))
     with pytest.raises(ValueError):
         tls.lattice_stencil_fwd(node, 9, 5, E, NU, W_SUM)
     with pytest.raises(ValueError):
         tls.lattice_stencil_vg(node, 9, 5, E, NU, W_SUM)
     kernel = pt.PlaneStressEnergy(model=pt.TriangleP1(), backend="kernel")
-    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), tm)
+    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), tm,
+                             device=CPU)
     with pytest.raises(ValueError):
         kernel.total(p, tm)
 
@@ -283,7 +287,7 @@ def test_total_takes_the_jax_route(config, name):
     node = _node(jm, seed=4)
     params_np = {"coords": node[:, :2], "u": node[:, 2:]}
     pj = {k: jnp.asarray(v) for k, v in params_np.items()}
-    ptt = pt.params_from_numpy(params_np)
+    ptt = pt.params_from_numpy(params_np, device=CPU)
     assert je._lattice_total(pj, jm) is not None
     assert te._lattice_total(ptt, tm) is not None
     vj, gj = jax.value_and_grad(lambda p: je.total(p, jm))(pj)
@@ -301,7 +305,8 @@ def test_route_opt_outs_match_jax():
     mesh without a route never takes it."""
     jm, tm = _meshes("up", nx=17, ny=9)
     pj = ht.TriangleP1().init(jax.random.PRNGKey(0), jm)
-    ptt = pt.TriangleP1().init(torch.Generator().manual_seed(0), tm)
+    ptt = pt.TriangleP1().init(torch.Generator().manual_seed(0), tm,
+                               device=CPU)
     je = ht.PlaneStressEnergy(model=ht.TriangleP1(compat="reference"),
                               compat="reference")
     te = pt.PlaneStressEnergy(model=pt.TriangleP1(compat="reference"),
@@ -321,7 +326,7 @@ def test_lbfgs_on_lattice_route_reaches_jax_plateau():
     in both packages, from one numpy init: the same plateau (rtol 1e-4,
     the bound ``tests/test_lattice_route.py`` holds the JAX route to)."""
     jm = ht.proxy_plate_mesh(nx=33, ny=17)
-    tm = pt.proxy_plate_mesh(nx=33, ny=17)
+    tm = pt.proxy_plate_mesh(nx=33, ny=17, device=CPU)
     assert jm.lattice is not None and tm.lattice is not None
     u0 = 1e-5 * np.random.default_rng(0).standard_normal((jm.n_nodes, 2))
     coords = np.asarray(jm.coords)
@@ -331,6 +336,7 @@ def test_lbfgs_on_lattice_route_reaches_jax_plateau():
                                     "u": jnp.asarray(u0, jnp.float32)},
                          num_steps=120, loss_args=(jm,))
     _, lt = pt.run_lbfgs(te.total, pt.params_from_numpy(
-        {"coords": coords, "u": u0}), num_steps=120, loss_args=(tm,))
+        {"coords": coords, "u": u0}, device=CPU), num_steps=120,
+        loss_args=(tm,))
     assert np.isfinite(float(lt[-1])) and float(lt[-1]) < float(lt[0])
     assert np.isclose(float(lt[-1]), float(np.asarray(lj)[-1]), rtol=1e-4)

@@ -26,7 +26,7 @@ from hidenn_fem_tpu.ops.losses import mesh_quality_penalty as jpenalty
 from hidenn_fem_tpu_torch import postproc as tpost
 from hidenn_fem_tpu_torch.ops.losses import mesh_quality_penalty as tpenalty
 
-from torch_port_common import (assert_close, jax_mesh, port_mesh,
+from torch_port_common import (CPU, assert_close, jax_mesh, port_mesh,
                                random_params, to_jax, to_torch)
 
 MESHES = {
@@ -216,8 +216,9 @@ def test_von_mises_and_displacement_match_jax_postproc():
 
 
 def test_backend_resolution():
-    mesh_t = pt.proxy_plate_mesh(nx=5, ny=3)
-    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), mesh_t)
+    mesh_t = pt.proxy_plate_mesh(nx=5, ny=3, device=CPU)
+    p = pt.TriangleP1().init(torch.Generator().manual_seed(0), mesh_t,
+                             device=CPU)
     node = pt.TriangleP1().packed_nodes(p, mesh_t)
     auto = pt.PlaneStressEnergy(model=pt.TriangleP1())
     assert auto._resolve_backend(node) == "plain"

@@ -14,13 +14,14 @@ from hidenn_fem_tpu.ops import quadrature as jq
 from hidenn_fem_tpu_torch.mesh import structured as ps
 from hidenn_fem_tpu_torch.ops import quadrature as pq
 
-from torch_port_common import assert_route_equal
+from torch_port_common import CPU, assert_route_equal
 
 
 @pytest.mark.parametrize("order", [1, 3, 4, 6, 7])
 def test_triangle_rules_bit_equal(order):
     jp, jw = jq.triangle_gauss_points(order, dtype=jnp.float32)
-    tp, tw = pq.triangle_gauss_points(order, dtype=torch.float32)
+    tp, tw = pq.triangle_gauss_points(order, dtype=torch.float32,
+                                      device=CPU)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     assert pq.triangle_weight_sum(order) == jq.triangle_weight_sum(order)
@@ -32,7 +33,7 @@ def test_interval_rules_bit_equal(order):
                      (jq.interval_gauss_points_m11,
                       pq.interval_gauss_points_m11)):
         jx, jw = jfn(order)
-        tx, tw = tfn(order)
+        tx, tw = tfn(order, device=CPU)
         np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
 
@@ -72,7 +73,7 @@ MESH_CASES = {
 def test_generate_mesh_equal(case):
     kw = MESH_CASES[case]
     jm = ht.generate_mesh(**kw)
-    tm = pt.generate_mesh(**kw)
+    tm = pt.generate_mesh(device=CPU, **kw)
     for name in ("coords", "connectivity", "geom_boundary_mask",
                  "dirichlet_mask", "neumann_mask", "neumann_edges",
                  "fused_connectivity"):
@@ -102,10 +103,11 @@ def test_generate_mesh_equal(case):
 def test_from_arrays_rejects_out_of_range_indices():
     coords = np.zeros((4, 2))
     with pytest.raises(ValueError):
-        pt.TriMesh.from_arrays(coords, np.asarray([[0, 1, 4]]))
+        pt.TriMesh.from_arrays(coords, np.asarray([[0, 1, 4]]), device=CPU)
     with pytest.raises(ValueError):
         pt.TriMesh.from_arrays(coords, np.asarray([[0, 1, 2]]),
-                               neumann_edges=np.asarray([[-1, 2]]))
+                               neumann_edges=np.asarray([[-1, 2]]),
+                               device=CPU)
 
 
 def test_incidence_table_semantics():
@@ -120,8 +122,8 @@ def test_incidence_table_semantics():
 
 def test_proxy_plate_and_convert_roundtrip():
     jm = ht.proxy_plate_mesh(nx=9, ny=5)
-    tm = pt.proxy_plate_mesh(nx=9, ny=5)
-    cm = pt.mesh_from_numpy(jm)
+    tm = pt.proxy_plate_mesh(nx=9, ny=5, device=CPU)
+    cm = pt.mesh_from_numpy(jm, device=CPU)
     for name in ("coords", "connectivity", "dirichlet_mask",
                  "neumann_edges", "fused_connectivity"):
         np.testing.assert_array_equal(getattr(tm, name).numpy(),
@@ -129,5 +131,33 @@ def test_proxy_plate_and_convert_roundtrip():
     moved = tm.to("cpu")
     assert moved.device == torch.device("cpu")
     assert moved.n_elements == 64 and moved.n_neumann_edges == 4
-    p = pt.params_from_numpy({"u": np.ones((3, 2))}, dtype=torch.float64)
+    p = pt.params_from_numpy({"u": np.ones((3, 2))}, device=CPU,
+                             dtype=torch.float64)
     assert p["u"].dtype == torch.float64
+
+
+_SQUARE = (np.asarray([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]]),
+           np.asarray([[0, 1, 2], [0, 2, 3]]))
+NO_DEVICE_CALLS = {
+    "generate_mesh": lambda: pt.generate_mesh(),
+    "from_arrays": lambda: pt.TriMesh.from_arrays(*_SQUARE),
+    "params_from_numpy": lambda: pt.params_from_numpy(
+        {"u": np.ones((3, 2))}),
+    "generate_structured_grid": lambda: pt.generate_structured_grid(
+        nx=5, ny=3),
+    "init": lambda: pt.TriangleP1().init(
+        torch.Generator().manual_seed(0),
+        pt.proxy_plate_mesh(nx=5, ny=3, device=CPU)),
+    "triangle_gauss_points": lambda: pq.triangle_gauss_points(1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(name):
+    """Called without a device, an entry point puts its tensors on the
+    card: where there is none it raises torch's own error and returns no
+    CPU tensors (nothing falls back to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would run there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        NO_DEVICE_CALLS[name]()

@@ -27,7 +27,7 @@ from hidenn_fem_tpu.solve.optimizers import scale_by_compact_lbfgs as jlbfgs
 from hidenn_fem_tpu_torch import postproc as tpost
 from hidenn_fem_tpu_torch.solve import optimizers as topt
 
-from torch_port_common import assert_close, jax_mesh, port_mesh
+from torch_port_common import CPU, assert_close, jax_mesh, port_mesh
 
 
 def _quadratic_sequence(p, steps, seed):
@@ -72,7 +72,7 @@ def test_ravel_order_matches_ravel_pytree():
     params = {"u": np.arange(6.0).reshape(3, 2),
               "coords": 10 + np.arange(6.0).reshape(3, 2)}
     flat_j, _ = ravel_pytree({k: jnp.asarray(v) for k, v in params.items()})
-    tp = pt.params_from_numpy(params, dtype=torch.float64)
+    tp = pt.params_from_numpy(params, device=CPU, dtype=torch.float64)
     flat_t = topt.ravel_params(tp)
     np.testing.assert_array_equal(flat_t.numpy(), np.asarray(flat_j))
     back = topt.unravel_params(flat_t, tp)
@@ -108,7 +108,7 @@ def test_whole_slice_f64_matches_jax():
     energy_t = pt.PlaneStressEnergy(model=model_t)
     ptt, lt = pt.run_lbfgs(energy_t.total,
                            pt.params_from_numpy({"coords": coords0,
-                                                 "u": u0},
+                                                 "u": u0}, device=CPU,
                                                 dtype=torch.float64),
                            num_steps=steps, loss_args=(mesh_t,))
     vm_t = tpost.von_mises_per_element(model_t, ptt, mesh_t, 10e9, 0.3)
@@ -124,10 +124,10 @@ def test_whole_slice_f64_matches_jax():
 
 
 def test_run_lbfgs_tol_pads_history():
-    mesh = pt.proxy_plate_mesh(nx=9, ny=5)
+    mesh = pt.proxy_plate_mesh(nx=9, ny=5, device=CPU)
     model = pt.TriangleP1()
     energy = pt.PlaneStressEnergy(model=model)
-    p0 = model.init(torch.Generator().manual_seed(0), mesh)
+    p0 = model.init(torch.Generator().manual_seed(0), mesh, device=CPU)
     _, losses = pt.run_lbfgs(energy.total, p0, num_steps=30,
                              loss_args=(mesh,), tol=1e30)
     # converged at the first step: the history repeats its value
@@ -139,12 +139,12 @@ def test_reference_compat_plateau_f32():
     """The measured reference baseline: 81x41 "up" plate, 6,400
     elements, reference numerics (E3/E7/E9), 600 fixed-step L-BFGS
     iterations -> energy plateau -10.392."""
-    mesh = pt.proxy_plate_mesh()
+    mesh = pt.proxy_plate_mesh(device=CPU)
     model = pt.TriangleP1(compat="reference")
     rng = np.random.default_rng(0)
     params = pt.params_from_numpy(
         {"coords": mesh.coords.numpy(),
-         "u": 1e-5 * rng.standard_normal((mesh.n_nodes, 2))})
+         "u": 1e-5 * rng.standard_normal((mesh.n_nodes, 2))}, device=CPU)
     energy = pt.PlaneStressEnergy(model=model, E=10e9, nu=0.3,
                                   compat="reference")
     _, losses = pt.run_lbfgs(energy.total, params, num_steps=600,

@@ -24,7 +24,7 @@ from hidenn_fem_tpu.ops.lattice_slab import \
 from hidenn_fem_tpu_torch.models import structured_grid as tsg
 from hidenn_fem_tpu_torch.ops import lattice_slab as tls
 
-from torch_port_common import assert_close, assert_route_equal
+from torch_port_common import CPU, assert_close, assert_route_equal
 
 HOLE = ((1.0, 0.5, 0.3),)
 
@@ -33,7 +33,7 @@ def _grids(nx=17, ny=9, holes=HOLE, split="up", **kw):
     g_j = jsg.generate_structured_grid(nx=nx, ny=ny, holes=holes,
                                        split=split, **kw)
     g_t = tsg.generate_structured_grid(nx=nx, ny=ny, holes=holes,
-                                       split=split, **kw)
+                                       split=split, device=CPU, **kw)
     return g_j, g_t
 
 
@@ -69,7 +69,8 @@ def _value_and_grads(m_j, m_t, g_j, g_t, params_np, f64=False):
         vj, gj = jax.value_and_grad(lambda p: m_j.total(p, g_j))(pj)
         vj, gj = float(vj), {k: np.asarray(v) for k, v in gj.items()}
     ptt = pt.params_from_numpy(
-        params_np, dtype=torch.float64 if f64 else torch.float32)
+        params_np, device=CPU,
+        dtype=torch.float64 if f64 else torch.float32)
     for v in ptt.values():
         v.requires_grad_(True)
     vt = m_t.total(ptt, g_t)
@@ -103,7 +104,7 @@ GRID_CASES = {
 def test_generate_structured_grid_equal(case):
     g_j, g_t = _grids(**GRID_CASES[case])
     _assert_grid_equal(g_t, g_j)
-    _assert_grid_equal(pt.grid_from_numpy(g_j), g_j)
+    _assert_grid_equal(pt.grid_from_numpy(g_j, device=CPU), g_j)
     with pytest.raises(ValueError):
         tsg.generate_structured_grid(nx=5, ny=3, split="diagonal")
 
@@ -161,7 +162,8 @@ def test_pad_lattice_and_zigzag_phase_match_jax():
     params_np = _params(g_j, seed=3)
     g2_j, p2_j = jsg.pad_lattice(g_j, {k: jnp.asarray(v) for k, v in
                                        params_np.items()}, 4)
-    g2_t, p2_t = tsg.pad_lattice(g_t, pt.params_from_numpy(params_np), 4)
+    g2_t, p2_t = tsg.pad_lattice(g_t, pt.params_from_numpy(params_np,
+                                                           device=CPU), 4)
     assert g2_t.nx == 16 and g2_t.zigzag_phase == 1
     assert tsg.pad_lattice_side(g_t) == jsg.pad_lattice_side(g_j)
     _assert_grid_equal(g2_t, g2_j)
@@ -170,8 +172,8 @@ def test_pad_lattice_and_zigzag_phase_match_jax():
     m_t, m_j = tsg.StructuredGridP1(), jsg.StructuredGridP1()
     v2 = float(m_t.total(p2_t, g2_t))
     assert np.isclose(v2, float(m_j.total(p2_j, g2_j)), rtol=1e-5)
-    assert np.isclose(v2, float(m_t.total(pt.params_from_numpy(params_np),
-                                          g_t)), rtol=1e-6)
+    assert np.isclose(v2, float(m_t.total(
+        pt.params_from_numpy(params_np, device=CPU), g_t)), rtol=1e-6)
     # a left-face traction pads by appending, keeping the phase
     g3_j, g3_t = _grids(nx=15, ny=9, split="zigzag",
                         boundaries={"up": 0, "down": 0, "right": 1,
@@ -188,7 +190,7 @@ def test_to_trimesh_equal(split):
     gather-free energy equals the TriMesh energy."""
     g_j, g_t = _grids(nx=17, ny=9, split=split)
     m_j, m_t = jsg.StructuredGridP1(), tsg.StructuredGridP1()
-    tm_j, tm_t = m_j.to_trimesh(g_j), m_t.to_trimesh(g_t)
+    tm_j, tm_t = m_j.to_trimesh(g_j), m_t.to_trimesh(g_t, device=CPU)
     for name in ("coords", "connectivity", "geom_boundary_mask",
                  "dirichlet_mask", "neumann_mask", "neumann_edges"):
         np.testing.assert_array_equal(getattr(tm_t, name).numpy(),
@@ -196,9 +198,10 @@ def test_to_trimesh_equal(split):
                                       err_msg=name)
     assert_route_equal(tm_t.lattice, tm_j.lattice)
     params_np = _params(g_j, seed=4)
-    v_grid = float(m_t.total(pt.params_from_numpy(params_np), g_t))
+    v_grid = float(m_t.total(pt.params_from_numpy(params_np, device=CPU),
+                             g_t))
     flat = pt.params_from_numpy({k: v.reshape(-1, 2)
-                                 for k, v in params_np.items()})
+                                 for k, v in params_np.items()}, device=CPU)
     v_mesh = float(pt.PlaneStressEnergy(model=pt.TriangleP1()).total(
         flat, tm_t))
     assert np.isclose(v_grid, v_mesh, rtol=1e-5), (v_grid, v_mesh)
@@ -207,8 +210,8 @@ def test_to_trimesh_equal(split):
 def test_init_backend_and_device():
     _, g_t = _grids(nx=9, ny=5)
     model = tsg.StructuredGridP1()
-    a = model.init(np.random.default_rng(0), g_t)
-    b = model.init(np.random.default_rng(0), g_t)
+    a = model.init(np.random.default_rng(0), g_t, device=CPU)
+    b = model.init(np.random.default_rng(0), g_t, device=CPU)
     assert a["u"].shape == (9, 5, 2) and torch.equal(a["u"], b["u"])
     np.testing.assert_allclose(
         a["u"].numpy(),
@@ -239,8 +242,8 @@ def test_lbfgs_matches_jax_plateau():
                                      "u": jnp.asarray(u0, jnp.float32)},
                          num_steps=150, memory_size=10, loss_args=(g_j,))
     _, lt = pt.run_lbfgs(m_t.total, pt.params_from_numpy(
-        {"coords": coords, "u": u0}), num_steps=150, memory_size=10,
-        loss_args=(g_t,))
+        {"coords": coords, "u": u0}, device=CPU), num_steps=150,
+        memory_size=10, loss_args=(g_t,))
     assert float(lt[-1]) < float(lt[0])
     assert np.isclose(float(lt[-1]), float(np.asarray(lj)[-1]), rtol=1e-4)
 
@@ -249,7 +252,8 @@ def test_example6_small():
     """The example's whole path at a toy size on the CPU: the energy falls
     and the von Mises stress is finite and positive."""
     from examples.example6_structured_torch import main
-    params, losses, vm, final = main(nx=41, ny=21, lbfgs_steps=40)
+    params, losses, vm, final = main(nx=41, ny=21, lbfgs_steps=40,
+                                     device=CPU)
     assert params["u"].shape == (41, 21, 2)
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert np.isfinite(final) and final < losses[0]

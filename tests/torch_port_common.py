@@ -1,6 +1,10 @@
 """Shared inputs for the port's tests (``tests/test_torch_*.py``): one
 numpy mesh and one set of numpy params feed both packages, since the JAX
-and torch generators give different numbers from the same seed."""
+and torch generators give different numbers from the same seed.
+
+The port's entry points put their tensors on the card unless told
+otherwise; these tests run on the CPU and ask for it at every call
+(``device=CPU``)."""
 
 import dataclasses
 
@@ -10,6 +14,8 @@ import torch
 
 import hidenn_fem_tpu as ht
 import hidenn_fem_tpu_torch as pt
+
+CPU = torch.device("cpu")
 
 
 def jax_mesh(*, holes=(), nx=17, ny=9, variant="zigzag",
@@ -28,7 +34,7 @@ def jax_mesh(*, holes=(), nx=17, ny=9, variant="zigzag",
 def port_mesh(mesh_jax, dtype=torch.float32):
     """The port's mesh of the same arrays, with a lattice route exactly
     when the JAX mesh has one, so both packages take the same route."""
-    return pt.mesh_from_numpy(mesh_jax, dtype=dtype,
+    return pt.mesh_from_numpy(mesh_jax, device=CPU, dtype=dtype,
                               build_lattice=mesh_jax.lattice is not None)
 
 
@@ -66,7 +72,7 @@ def to_jax(params_np, dtype=jnp.float32):
 
 
 def to_torch(params_np, dtype=torch.float32, requires_grad=False):
-    p = pt.params_from_numpy(params_np, dtype=dtype)
+    p = pt.params_from_numpy(params_np, device=CPU, dtype=dtype)
     if requires_grad:
         for v in p.values():
             v.requires_grad_(True)

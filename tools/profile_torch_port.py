@@ -10,8 +10,17 @@ the 922K-class plate on the lattice route; example 6's 1000x500
 value-and-grad) and, banded tables stripped, on the flat gather route
 (K1, K2, incidence_sum).  For each window it prints the wall time per
 call, the device-busy time per call (the union of kernel intervals), the
-idle share, and the top operators by device and by host time.  Chrome
-traces go to the ``--out`` directory.
+idle share, each kernel's device µs per call by name (``key_averages()``),
+and the top operators by device and by host time.  Chrome traces go to
+the ``--out`` directory.
+
+With ``--kernels`` it profiles the redesigned kernels alone instead, at
+full size: K4 (and K3, K5) on the 898K Delaunay plate's paired tables,
+K6 and K7 on the 922K-class zigzag plate and on the hole-free 961x481
+"up" grid, 20 calls each, and prints each kernel's device µs per call by
+name.  It passes every device explicitly, so it also drives an older
+checkout of the package (``PYTHONPATH=<checkout>``) for an A/B in one
+call.
 
 Run from the repository root:  ``python -m tools.profile_torch_port``
 """
@@ -19,6 +28,7 @@ Run from the repository root:  ``python -m tools.profile_torch_port``
 import argparse
 import dataclasses
 import os
+import re
 import time
 
 import numpy as np
@@ -46,6 +56,19 @@ def _busy_ms(prof):
     return busy / 1e3
 
 
+def kernel_us(prof, calls):
+    """Device µs per call of each kernel in the profile, by short name
+    (from ``key_averages()``), largest first."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void\s+|\(anonymous namespace\)::|hdnn::", "",
+                      evt.key).split("(")[0].strip()
+        out[name] = out.get(name, 0.0) + evt.self_device_time_total / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def _window(name, fn, calls, out_dir, card):
     fn()
     torch.cuda.synchronize()
@@ -59,6 +82,8 @@ def _window(name, fn, calls, out_dir, card):
     busy = _busy_ms(prof) / calls
     print(f"== {name}: {wall:.4f} ms/call wall, {busy:.4f} ms/call device "
           f"busy, idle share {1 - busy / wall:.3f} [{card}]")
+    for kernel, us in kernel_us(prof, calls).items():
+        print(f"   device {us:9.2f} us/call  {kernel}")
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=15))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
@@ -90,19 +115,81 @@ def _example6(dev):
         holes=((0.5, 0.7, 0.12), (1.0, 0.3, 0.15), (1.4, 0.6, 0.1)),
         nx=1000, ny=500, device=dev)
     model = ht.StructuredGridP1()
-    return _case(model.total, model.init(np.random.default_rng(0), grid),
+    return _case(model.total,
+                 model.init(np.random.default_rng(0), grid, device=dev),
                  grid, memory_size=10)
+
+
+def _node(coords, seed):
+    """[N, 4] node table: the coordinates and u ~ 1e-4 N(0, 1)."""
+    xy = coords.reshape(-1, 2).float()
+    u = 1e-4 * np.random.default_rng(seed).standard_normal(xy.shape)
+    return torch.cat([xy, torch.tensor(u, dtype=torch.float32,
+                                       device=xy.device)], 1).contiguous()
+
+
+def _kernel_cases(dev):
+    from hidenn_fem_tpu_torch.ops import banded_energy as be
+    from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+
+    E, nu, w = 10e9, 0.3, 0.5
+    plate = ht.generate_mesh(nx=961, ny=481, keep_dead_nodes=True,
+                             device=dev)
+    node = _node(plate.coords, 0)
+    kw = ls.route_stencil(plate.lattice)
+    grid = ht.generate_structured_grid(nx=961, ny=481, split="up",
+                                       device=dev)
+    gnode = _node(grid.coords, 1)
+    gkw = dict(diag=ls.UP, t1=grid.quad_mask, t2=grid.quad_mask)
+    mesh = ht.generate_mesh_delaunay(lc=0.00218, device=dev)
+    bnode = _node(mesh.coords, 2)
+    ba = mesh.banded_paired
+    ba5 = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    ct = torch.tensor(0.75, device=dev)
+    return {
+        "922k_zigzag_K6": lambda: ls.lattice_stencil_vg(
+            node, 961, 481, E, nu, w, **kw),
+        "922k_zigzag_K7": lambda: ls.lattice_stencil_fwd(
+            node, 961, 481, E, nu, w, **kw),
+        "961x481_up_K6": lambda: ls.lattice_stencil_vg(
+            gnode, 961, 481, E, nu, w, **gkw),
+        "961x481_up_K7": lambda: ls.lattice_stencil_fwd(
+            gnode, 961, 481, E, nu, w, **gkw),
+        "898k_paired_K4": lambda: be.banded_vg(bnode, ba, E, nu, w),
+        "898k_paired_K3": lambda: be.banded_fwd(bnode, ba, E, nu, w),
+        "898k_paired_K5": lambda: be.banded_bwd(bnode, ba5, ct, E, nu, w),
+    }
+
+
+def _kernels(dev, card, calls=20):
+    for name, fn in _kernel_cases(dev).items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = kernel_us(prof, calls)
+        print(f"== {name}: {sum(per.values()):.2f} us/call device [{card}]")
+        for kernel, us in per.items():
+            print(f"   device {us:9.2f} us/call  {kernel}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--kernels", action="store_true",
+                    help="profile the redesigned kernels alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: needs a CUDA device")
-    os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
+    if args.kernels:
+        _kernels(dev, card)
+        return
+    os.makedirs(args.out, exist_ok=True)
     ex4 = ht.generate_mesh(nx=200, ny=100, keep_dead_nodes=True,
                            device=dev)
     delaunay = []                     # built once, by the first window
