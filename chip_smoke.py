@@ -26,9 +26,11 @@ Phases (each raises on failure, and the script then exits non-zero):
       ``quad_mask`` as presence): K6 and K7 against their plain versions;
    d. the banded route on the 898K Delaunay plate
       (``generate_mesh_delaunay(lc=0.00218)``, three reference holes:
-      898,032 elements): K3, K4 and K5 (recompute windows and two-pass
-      windows, the two fallbacks) against their plain versions on the
-      paired (k=4), triangle (k=3) and strip (k=6) tables; then the
+      898,032 elements): K3, K4 and K5 (over the recompute windows and
+      over the two-pass windows, the two fallbacks; one launch each)
+      against their plain versions on the paired (k=4), triangle (k=3)
+      and strip (k=6) tables, with the registers and CTAs per SM of K4
+      and K5; then the
       banded-route energy with both gradient groups against the flat
       gather route (banded stripped: K1, K2, ``incidence_sum``) on the
       same mesh, timed in turns;
@@ -39,10 +41,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    Each kernel is also profiled (``torch.profiler``, 20 calls): its device
    µs per call by kernel name, beside its bound (``bound``: bytes over
    3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and, for the
-   node sums, one ``index_add_`` of the same cotangents.  The fused K4 is
-   held bit for bit to itself over two launches and to K5 over the
-   recompute windows (K5 = ct x K4), and its energy to K3's; K6's energy
-   to K7's.
+   node sums, one ``index_add_`` of the same cotangents (beside K5, of
+   the forward rows' cotangents).  K4 is held bit for bit to itself over
+   two launches and to K5 over the recompute windows (K5 = ct x K4), K5
+   over the two-pass windows to K5 over the recompute windows, and K4's
+   energy to K3's; K6's energy to K7's.
 4. Example 4 on its default route, the lattice route: 600 ``run_lbfgs``
    steps from u0 = 1e-5 N(0,1) (``np.random.default_rng(0)``), K6 on
    every step; the final energy against the JAX package's lattice-route
@@ -61,8 +64,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    50 ``run_lbfgs`` steps from u0 = 1e-5 N(0,1), K4 on every step and K3
    for the energy under ``torch.no_grad()``; the energy at init and at
    step 25 against the JAX package's; von Mises.  Then 5 steps on each
-   fallback (no ownership intervals: K3 + K5 over the recompute windows;
-   no recompute tables: K3 + K5 over the two-pass windows).
+   fallback, each a path of its own (no ownership intervals: K3 + K5 over
+   the recompute windows; no recompute tables: K3 + K5 over the two-pass
+   windows).
 9. Hybrid at scale: ``generate_mesh_hybrid(lc=0.00209)`` (847,261
    elements): the hybrid-route energy and both gradient groups against
    the same mesh with the route stripped (gather route, K1/K2), then 10
@@ -312,19 +316,11 @@ def bound(bytes_, flops):
 
 def device_us(fn, calls=20):
     """(device µs per call, {kernel: µs per call}) of fn() from
-    torch.profiler's key_averages(), after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler's key_averages(), after one warm-up call (windows that
+    lost kernel events are profiled again)."""
+    from tools.profile_torch_port import kernel_profile
 
-    from tools.profile_torch_port import kernel_us
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per = kernel_us(prof, calls)
+    per = kernel_profile(fn, calls)
     if not per or sum(per.values()) <= 0.0:
         raise AssertionError("the profiler recorded no device time")
     return sum(per.values()), per
@@ -652,21 +648,13 @@ def delaunay_898k(ht, mb, dev):
     return mesh
 
 
-def without_recompute(ba, keep_tables):
-    """The tables with the ownership intervals (and, unless keep_tables,
-    every recompute table) removed: the two fallbacks of the banded
-    gradient."""
-    drop = dict(re_own_lo=None, re_own_hi=None)
-    if not keep_tables:
-        drop.update(re_nstarts=None, re_estarts=None, re_conn_rel=None,
-                    re_inc_rel=None)
-    return dataclasses.replace(ba, **drop)
-
-
 def banded_layout(be, tag, node, ba, ct, card, timed, ne):
-    """K3, K4 and K5 (both fallbacks) against their plain versions on one
-    table layout of a mesh of ``ne`` elements; returns their kernel
-    entries when timed."""
+    """K3, K4 and K5 (both fallbacks: the recompute and the two-pass
+    windows) against their plain versions on one table layout of a mesh of
+    ``ne`` elements; K5 = ct x K4 and K5 over the two kinds of window bit
+    for bit; returns their kernel entries when timed."""
+    from tools.profile_torch_port import without_recompute
+
     E, nu, w_sum = 10e9, 0.3, 0.5
     args = (E, nu, w_sum)
     k3 = be.banded_fwd(node, ba, *args)
@@ -689,50 +677,58 @@ def banded_layout(be, tag, node, ba, ct, card, timed, ne):
     (auto,) = torch.autograd.grad(be.banded_fwd_plain(na, ba, *args), na)
     check_close(f"{tag} K4 node gradient vs autograd(plain K3)", g4, auto,
                 GRAD_RTOL, GRAD_ATOL)
-    fallbacks = {}
-    for name, keep in (("recompute windows", True),
+    kinds = {}
+    for kind, keep in (("recompute windows", True),
                        ("two-pass windows", False)):
         fb = without_recompute(ba, keep)
         g5 = be.banded_bwd(node, fb, ct, *args)
-        fallbacks[name] = (fb, check_close(
-            f"{tag} K5 ({name}) vs plain", g5,
+        kinds[kind] = (fb, g5, check_close(
+            f"{tag} K5 ({kind}) vs plain", g5,
             be.banded_bwd_plain(node, fb, ct, *args), GRAD_RTOL, GRAD_ATOL))
-        check_close(f"{tag} K5 ({name}) vs ct x K4 node gradient", g5,
+        check_close(f"{tag} K5 ({kind}) vs ct x K4 node gradient", g5,
                     ct * g4, GRAD_RTOL, GRAD_ATOL)
-        if name == "recompute windows":
-            # the fused K4 adds exactly the cotangents K5's buffer holds
-            if not torch.equal(g5, ct * g4):
-                raise AssertionError(f"{tag} K5 over the recompute windows "
-                                     "is not ct x K4 bit for bit")
-            log(f"  {tag} K5 (recompute windows) equals ct x K4 bit for bit")
+    # K4 and both kinds of K5 add the same cotangents in the same order
+    re5, two5 = (kinds[k][1] for k in kinds)
+    if not torch.equal(re5, ct * g4):
+        raise AssertionError(f"{tag} K5 over the recompute windows is not "
+                             "ct x K4 bit for bit")
+    if not torch.equal(two5, re5):
+        raise AssertionError(f"{tag} K5 over the two-pass windows differs "
+                             "from K5 over the recompute windows")
+    log(f"  {tag} K5 (recompute windows) equals ct x K4, and K5 (two-pass "
+        "windows) equals K5 (recompute windows), bit for bit")
+    for which in ("vg", "grad", "grad_two_pass"):
+        regs, ctas = be.kernel_occupancy(which, ba.k, node.device)
+        log(f"  {tag} {which} kernel: {regs} registers a thread, {ctas} "
+            "CTAs of 256 threads an SM")
     torch.cuda.synchronize()
     if not timed:
         return None
-    fb, err5 = fallbacks["recompute windows"]
     ms3, pms3 = ab_ms(lambda: be.banded_fwd(node, ba, *args),
                       lambda: be.banded_fwd_plain(node, ba, *args))
     ms4, pms4 = ab_ms(lambda: be.banded_vg(node, ba, *args),
                       lambda: be.banded_vg_plain(node, ba, *args))
-    ms5, pms5 = ab_ms(lambda: be.banded_bwd(node, fb, ct, *args),
-                      lambda: be.banded_bwd_plain(node, fb, ct, *args))
-    two, _ = fallbacks["two-pass windows"]
-    ms5b, pms5b = ab_ms(lambda: be.banded_bwd(node, two, ct, *args),
-                        lambda: be.banded_bwd_plain(node, two, ct, *args))
+    ms5 = {}
+    for kind, (fb, _, _) in kinds.items():
+        ms5[kind] = ab_ms(lambda: be.banded_bwd(node, fb, ct, *args),
+                          lambda: be.banded_bwd_plain(node, fb, ct, *args))
     rows = ba.conn_rel.shape[0] * ba.conn_rel.shape[1]
     re_rows = ba.re_conn_rel.shape[0] * ba.re_conn_rel.shape[1]
     log(f"  {tag} K3 fwd over {rows} rows: kernel {ms3:.4f} ms, plain "
         f"{pms3:.4f} ms [{card}]")
     log(f"  {tag} K4 vg over {re_rows} recompute rows: kernel {ms4:.4f} ms, "
         f"plain {pms4:.4f} ms [{card}]")
-    log(f"  {tag} K5 bwd over the recompute windows: kernel {ms5:.4f} ms, "
-        f"plain {pms5:.4f} ms; over the two-pass windows: kernel "
-        f"{ms5b:.4f} ms, plain {pms5b:.4f} ms [{card}]")
+    for kind, (kms, pms) in ms5.items():
+        log(f"  {tag} K5 bwd over the {kind}: kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms [{card}]")
     n = node.shape[0]
     nodes_b = 16 * n
     fwd_b = 4 * ba.starts.numel() + 4 * ba.conn_rel.numel()
     re_b = 4 * ba.re_nstarts.numel() + 4 * ba.re_conn_rel.numel()
     inc_b = 4 * ba.re_inc_rel.numel()
     own_b = 4 * (ba.re_own_lo.numel() + ba.re_own_hi.numel())
+    two_b = 4 * ba.inc_rel.numel() + 4 * ba.ct_starts.numel()
+    grad_flops = ne * (TRI_E + TRI_C + 3 * ADD4) + 4 * n
     src = "hidenn_fem_tpu_torch/csrc/banded_energy.cu"
     line = "hidenn_fem_tpu/ops/banded_energy.py:"
     entries = [
@@ -744,24 +740,25 @@ def banded_layout(be, tag, node, ba, ct, card, timed, ne):
                      2 * nodes_b + re_b + own_b + inc_b + 4,
                      ne * (TRI_E + 1 + TRI_C + 3 * ADD4),
                      device_us(lambda: be.banded_vg(node, ba, *args)),
-                     card, tag=f"{tag} "),
-        kernel_entry("banded_bwd", src, line + "159", err5, ms5, pms5,
-                     2 * nodes_b + re_b + inc_b + 4,
-                     ne * (TRI_E + TRI_C + 3 * ADD4) + 4 * n,
-                     device_us(lambda: be.banded_bwd(node, fb, ct, *args)),
                      card, tag=f"{tag} ")]
-    # K5's node sum alone (banded_node_sum_kernel), against its bound and
-    # one index_add_ of the forward rows' cotangents (each element once)
-    us = entries[2]["device_kernels"].get("banded_node_sum_kernel", 0.0)
-    sum_ms, sum_by = bound(16 * ba.re_conn_rel.numel() + inc_b + nodes_b,
-                           3 * ne * ADD4)
+    for name, kind, bytes_ in (
+            ("banded_bwd", "recompute windows", 2 * nodes_b + re_b + inc_b
+             + 4),
+            ("banded_bwd_two_pass", "two-pass windows", 2 * nodes_b + fwd_b
+             + two_b + 4)):
+        fb, _, err5 = kinds[kind]
+        entries.append(kernel_entry(
+            name, src, line + "159", err5, *ms5[kind], bytes_, grad_flops,
+            device_us(lambda: be.banded_bwd(node, fb, ct, *args)), card,
+            tag=f"{tag} "))
+    # the library yardstick beside K5: one index_add_ of the forward rows'
+    # cotangents (each element once), which K5 recomputes instead
     fwd_cot = be._row_cotangents(be._rows(node, ba.starts, ba.conn_rel),
                                  *args)
     fwd_idx = ba.starts.long()[:, None, None] + ba.conn_rel.long()
     lib = index_add_ms(fwd_cot, fwd_idx, n)
-    log(f"  {tag} banded_node_sum (in K5): {us:.2f} us of device time per "
-        f"call; bound {1e3 * sum_ms:.2f} us by {sum_by}; index_add_ of the "
-        f"forward rows' cotangents {lib:.4f} ms [{card}]")
+    log(f"  {tag} beside K5: index_add_ of the forward rows' cotangents "
+        f"{lib:.4f} ms [{card}]")
     return entries
 
 
@@ -955,20 +952,23 @@ def phase_delaunay_solve(ht, be, mesh, dev, card, steps=50):
     return losses
 
 
-def phase_banded_fallbacks(ht, mesh, dev, card, main_losses, steps=5):
-    """The two fallbacks of the banded gradient, each for a few steps."""
+def phase_banded_fallback(ht, mesh, dev, card, main_losses, name, keep,
+                          steps=5):
+    """One fallback of the banded gradient for a few steps: ``keep`` the
+    recompute tables (no ownership intervals: K3 + K5 over the recompute
+    windows) or not (K3 + K5 over the two-pass windows)."""
+    from tools.profile_torch_port import without_recompute
+
     energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
-    for name, keep in (("no ownership intervals", True),
-                       ("no recompute tables", False)):
-        m = dataclasses.replace(mesh, banded_paired=without_recompute(
-            mesh.banded_paired, keep))
-        _, losses, seconds = lbfgs_from_rest(ht, energy, m, dev, steps)
-        rel = np.abs(losses[:2] - main_losses[:2]) / np.abs(main_losses[:2])
-        log(f"  fallback ({name}): {steps} steps, {1e3 * seconds / steps:.4f}"
-            f" ms/iter, losses[:2] rel {rel.max():.3e} to the main path "
-            f"[{card}]")
-        if rel.max() > INIT_RTOL:
-            raise AssertionError(f"fallback ({name}) off the main path")
+    m = dataclasses.replace(mesh, banded_paired=without_recompute(
+        mesh.banded_paired, keep))
+    _, losses, seconds = lbfgs_from_rest(ht, energy, m, dev, steps)
+    rel = np.abs(losses[:2] - main_losses[:2]) / np.abs(main_losses[:2])
+    log(f"  fallback ({name}): {steps} steps, {1e3 * seconds / steps:.4f}"
+        f" ms/iter, losses[:2] rel {rel.max():.3e} to the main path "
+        f"[{card}]")
+    if rel.max() > INIT_RTOL:
+        raise AssertionError(f"fallback ({name}) off the main path")
 
 
 def phase_hybrid(ht, ee, dev, card):
@@ -1231,10 +1231,14 @@ def main():
     main_losses, delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
-    _, fallback_launches = run_path(
-        counts, "898K Delaunay banded fallbacks",
-        ("banded_fwd", "banded_bwd"),
-        lambda: phase_banded_fallbacks(ht, mesh898, dev, card, main_losses))
+    fallback_launches = {}
+    for name, keep in (("no ownership intervals", True),
+                       ("no recompute tables", False)):
+        _, fallback_launches[keep] = run_path(
+            counts, f"898K Delaunay banded fallback ({name})",
+            ("banded_fwd", "banded_bwd"),
+            lambda: phase_banded_fallback(ht, mesh898, dev, card,
+                                          main_losses, name, keep))
     del mesh898
 
     log("[9/9] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
@@ -1243,19 +1247,22 @@ def main():
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
+    # each entry's launches: (the path's counts, the wrapper's counter)
     path_launches = {
-        "lattice_stencil_vg": lattice_launches,
-        "lattice_stencil_fwd": lattice_launches,
-        "element_energy_fwd": gather_launches,
-        "element_energy_bwd": gather_launches,
-        "incidence_sum": gather_launches,
-        "banded_fwd": delaunay_launches,
-        "banded_vg": delaunay_launches,
-        "banded_bwd": fallback_launches,
+        "lattice_stencil_vg": (lattice_launches, "lattice_stencil_vg"),
+        "lattice_stencil_fwd": (lattice_launches, "lattice_stencil_fwd"),
+        "element_energy_fwd": (gather_launches, "element_energy_fwd"),
+        "element_energy_bwd": (gather_launches, "element_energy_bwd"),
+        "incidence_sum": (gather_launches, "incidence_sum"),
+        "banded_fwd": (delaunay_launches, "banded_fwd"),
+        "banded_vg": (delaunay_launches, "banded_vg"),
+        "banded_bwd": (fallback_launches[True], "banded_bwd"),
+        "banded_bwd_two_pass": (fallback_launches[False], "banded_bwd"),
     }
     for k in kernels:
         if k["launches"] is None:
-            k["launches"] = path_launches[k["name"]][k["name"]]
+            launches, counter = path_launches[k["name"]]
+            k["launches"] = launches[counter]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

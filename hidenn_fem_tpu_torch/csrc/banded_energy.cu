@@ -6,9 +6,10 @@
 //   K4  _pallas_vg  (pallas_call at banded_energy.py:133): the energy of
 //       the owned rows and the cotangents of all rows, in one pass
 //   K5  _pallas_bwd (pallas_call at banded_energy.py:159): the cotangents
-//       of all rows
+//       of all rows (driven by _recompute_bwd :232 and _two_pass_bwd :300)
 // together with the incidence gathers around them that the JAX package
-// left to XLA (_recompute_vg, _recompute_bwd, _two_pass_bwd).
+// left to XLA (_recompute_vg, _recompute_bwd, _two_pass_bwd): K4 and K5
+// return node gradients.
 //
 // A table row holds k node slots, and node index = start[block] + rel:
 //   k = 3  one triangle (0, 1, 2)
@@ -34,30 +35,43 @@
 // more for the cotangents).  The element algebra is scalar and per
 // triangle: there is no matrix product for the tensor cores to take.
 //
-// Value and gradient (K4, "vg"): one launch over the recompute windows,
-// no cotangent buffer.  Thread t < n_rows adds the energy of row t to its
-// block's partial when the row's node block owns it ([own_lo, own_hi): the
-// ownership intervals partition the elements, so each element counts once
-// though halo rows lie in two windows).  Thread t < n_nodes recomputes the
-// gradient of node t: node block b = t / NB holds nodes [b*NB, (b+1)*NB)
-// (the rows are placed at 0), and for each slot r of its re_inc_rel row,
-// in slot order and skipping the sentinel k*EW, it loads row b*EW + r/k
-// (its k indices and k node rows) and adds the cotangent of vertex r%k:
-// the corner terms of the row's triangles that hold the vertex, added in
-// triangle order to zero exactly as row_cotangents adds them.  So every
-// term is the float the cotangent buffer of the two-launch design held,
-// summed in the same order: the gradient keeps its bits, and K5 (which
-// keeps the two launches, for the fallbacks) gives ct x K4 exactly.
-// Each triangle is evaluated once per vertex (about 3x the flops of one
-// row pass) in exchange for the ~30 MB a call that the buffer cost in
-// device-memory writes and reads at 898K elements; the node and row tables
-// (~15 MB) stay in the 50 MB L2, and RCM order keeps neighbouring threads
-// on shared rows.  The TPU kernel's per-block scratch had no counterpart
-// to keep.
+// The node gradient (K4's second half, and K5): one thread per node, no
+// cotangent buffer.  Thread n lies in node block b = n / NB, which holds
+// nodes [b*NB, (b+1)*NB) (the rows are placed at 0).  The thread walks
+// the degree slots of its incidence row in slot order, skips the
+// sentinel, decodes each slot r to a table row and a vertex, loads the
+// row (its k indices and k node rows) and adds the vertex's cotangent: the
+// corner terms of the row's triangles that hold the vertex, added in
+// triangle order to zero.  The decode depends on the windows:
+//   recompute windows (K4; K5 when the tables have them): row b*EW + r/k,
+//     vertex r%k, node window re_nstarts[b], sentinel k*EW;
+//   two-pass windows (K5 without recompute tables): c = ct_starts[b] + r
+//     is the flat cotangent row global_row*k + vertex of the JAX
+//     package's _two_pass_bwd, so row c/k, vertex c%k, forward block
+//     row/EB, node window starts[row/EB], sentinel wct.
+// Both name the elements of the node's incidence row in its order, and
+// the same global nodes, so every term is the float that a [rows*k, 4]
+// cotangent buffer would hold, summed in slot order: K5 gives the same
+// bits on both kinds, and K5 = ct x K4 exactly (the multiply by *ct comes
+// after the sum, as autograd's ct x K4 does).  Each triangle is evaluated
+// once per vertex (about 3x the flops of one row pass) in exchange for the
+// ~60 MB a call that the buffer cost in device-memory writes and reads at
+// 898K elements; the node and row tables (~15 MB) stay in the 50 MB L2
+// (read through __ldg), and RCM order keeps neighbouring threads on shared
+// rows.  The TPU kernel's per-block scratch had no counterpart to keep.
+// The slots are read by their own thread: a node's row is degree
+// contiguous int32, so a warp's first slot load brings its 32 rows
+// (32 x degree x 4 B) into L1 and its later slot loads hit there.  Staging
+// the rows in shared memory first (per CTA or per warp, with coalesced
+// 16 B loads) measured slower in both kernels on the 898K paired and
+// triangle tables, so the kernels do not stage them.
 //
-// K5 evaluates every row's cotangents into a [B, EB, k] buffer, then gives
-// each node the sum of its incidence slots' cotangent rows in slot order,
-// skipping the sentinel slot (the TPU path appended a zero row for it).
+// Value and gradient (K4, "vg"): one launch over the recompute windows.
+// Thread t < n_rows adds the energy of row t to its block's partial when
+// the row's node block owns it ([own_lo, own_hi): the ownership intervals
+// partition the elements, so each element counts once though halo rows
+// lie in two windows); thread t < n_nodes writes the gradient of node t.
+// K5 ("grad") is the gradient alone, times *ct.
 //
 // Determinism: per-block partials reduced in a fixed tree order, then a
 // one-block double sum in a fixed order; each node's slots are summed in
@@ -160,27 +174,6 @@ __device__ __forceinline__ void add4(float4* acc, const float4& x) {
   acc->w += x.w;
 }
 
-// Cotangents of the row's energy sum with respect to its k slots.
-template <int K>
-__device__ __forceinline__ void row_cotangents(const float4* v,
-                                               const Material& m,
-                                               float4* cot) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) cot[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int t = 0; t < n_tris<K>(); ++t) {
-    int a, b, c;
-    tri_slots<K>(t, &a, &b, &c);
-    const Strain s = strain(Corners{v[a], v[b], v[c]}, m);
-    float4 c0, c1;
-    corner_cotangents(s, m, &c0, &c1);
-    add4(&cot[a], c0);
-    add4(&cot[b], c1);
-    add4(&cot[c], make_float4(-(c0.x + c1.x), -(c0.y + c1.y),
-                              -(c0.z + c1.z), -(c0.w + c1.w)));
-  }
-}
-
 // K3: one thread per table row (n_blocks x rows_per_block rows); one
 // partial energy per thread block.
 template <int K>
@@ -201,8 +194,9 @@ banded_fwd_kernel(const float4* __restrict__ node,
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-// The cotangent of slot s of a row with respect to its energy: what
-// row_cotangents leaves in cot[s], the same terms added in the same order.
+// The cotangent of slot s of a row with respect to its energy: the corner
+// terms of the row's triangles that hold s, added to zero in triangle
+// order (the terms, and the order, of the plain _row_cotangents).
 template <int K>
 __device__ __forceinline__ float4 slot_cotangent(const float4* v, int s,
                                                  const Material& m) {
@@ -226,9 +220,41 @@ __device__ __forceinline__ float4 slot_cotangent(const float4* v, int s,
   return acc;
 }
 
+// The unscaled gradient of node block b's node whose degree incidence
+// slots are `slots`: the cotangents the slots name, summed in slot order
+// (the source's header says how a slot decodes on each kind of window).
+// `starts`/`rel` are the window tables the slots index: re_nstarts and
+// re_conn_rel [Br, EW, k] for the recompute windows, starts and conn_rel
+// [B, EB, k] with ct_starts for the two-pass windows (TwoPass).  The
+// decode runs in 32 bits (every flat cotangent row of the int32 tables
+// fits): a division by 3 or 6 costs more in 64.
+template <int K, bool TwoPass>
+__device__ __forceinline__ float4 node_gradient(
+    const float4* __restrict__ node, const int* __restrict__ starts,
+    const int* __restrict__ rel, long long rows_per_block,
+    const int* __restrict__ slots, int degree, long long b,
+    const int* __restrict__ ct_starts, int sentinel, const Material& m) {
+  // the flat cotangent row that slot value 0 names: ct_starts[b] in the
+  // whole [B*EB*k] array (two-pass), 0 in the block's window (recompute)
+  const int base = TwoPass ? __ldg(ct_starts + b) : 0;
+  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int d = 0; d < degree; ++d) {
+    const int r = __ldg(slots + d);
+    if (r == sentinel) continue;
+    const unsigned c = (unsigned)(base + r);
+    const unsigned q = c / K;
+    const long long row = TwoPass ? (long long)q : b * rows_per_block + q;
+    const long long blk =
+        TwoPass ? (long long)(q / (unsigned)rows_per_block) : b;
+    float4 v[K];
+    load_row<K>(node, starts, rel, blk, row, v);
+    add4(&g, slot_cotangent<K>(v, (int)(c - q * K), m));
+  }
+  return g;
+}
+
 // K4: thread i adds the energy of recompute row i (when its block owns
-// it) to the block's partial, and writes the gradient of node i,
-// recomputed per incidence slot (the source's header says how).
+// it) to the block's partial, and writes the gradient of node i.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 banded_vg_kernel(const float4* __restrict__ node,
@@ -251,74 +277,74 @@ banded_vg_kernel(const float4* __restrict__ node,
       acc = row_energy<K>(v, m);
     }
   }
-  if (i < n_nodes) {
-    const long long b = i / nodes_per_block;
-    const int sentinel = (int)(rows_per_block * K);
-    const int* slots = inc_rel + i * degree;
-    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int d = 0; d < degree; ++d) {
-      const int r = __ldg(slots + d);
-      if (r == sentinel) continue;
-      float4 v[K];
-      load_row<K>(node, starts, rel, b, b * rows_per_block + r / K, v);
-      add4(&g, slot_cotangent<K>(v, r % K, m));
-    }
-    grad[i] = g;
-  }
+  if (i < n_nodes)
+    grad[i] = node_gradient<K, false>(
+        node, starts, rel, rows_per_block, inc_rel + i * degree, degree,
+        i / nodes_per_block, nullptr, (int)(rows_per_block * K), m);
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-// K5: every row's cotangents cot[row * K + slot].
-template <int K>
+// K5: grad[n] = *scale x the gradient of node n, over the recompute
+// windows or (TwoPass) the two-pass windows.
+template <int K, bool TwoPass>
 __global__ void __launch_bounds__(kThreads)
-banded_bwd_kernel(const float4* __restrict__ node,
-                  const int* __restrict__ starts,
-                  const int* __restrict__ rel, long long rows_per_block,
-                  long long n_rows, Material m, float4* __restrict__ cot) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_rows) return;
-  float4 v[K];
-  load_row<K>(node, starts, rel, i / rows_per_block, i, v);
-  float4 c[K];
-  row_cotangents<K>(v, m, c);
-#pragma unroll
-  for (int s = 0; s < K; ++s) cot[i * K + s] = c[s];
-}
-
-// Node gradients: grad[n] = scale * sum over the slots d of node n's
-// incidence row (block b = n / nodes_per_block) of cot[base_b + rel],
-// slots equal to `sentinel` skipped.  base_b = block_starts[b] when given
-// (the two-pass windows), else b * block_stride (the recompute windows).
-__global__ void __launch_bounds__(kThreads)
-banded_node_sum_kernel(const float4* __restrict__ cot,
-                       const int* __restrict__ inc_rel,
-                       long long nodes_per_block, int degree,
-                       const int* __restrict__ block_starts,
-                       long long block_stride, int sentinel,
-                       long long n_nodes, const float* __restrict__ scale,
-                       float4* __restrict__ grad) {
+banded_grad_kernel(const float4* __restrict__ node,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ rel, long long rows_per_block,
+                   const int* __restrict__ inc_rel,
+                   long long nodes_per_block, int degree,
+                   const int* __restrict__ ct_starts, int sentinel,
+                   long long n_nodes, Material m,
+                   const float* __restrict__ scale,
+                   float4* __restrict__ grad) {
   const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (n >= n_nodes) return;
-  const long long b = n / nodes_per_block;
-  const long long base =
-      block_starts != nullptr ? (long long)__ldg(block_starts + b)
-                              : b * block_stride;
-  const int* row = inc_rel + n * degree;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int d = 0; d < degree; ++d) {
-    const int r = __ldg(row + d);
-    if (r != sentinel) add4(&acc, __ldg(cot + base + r));
-  }
-  if (scale != nullptr) {
-    const float k = __ldg(scale);
-    acc = make_float4(acc.x * k, acc.y * k, acc.z * k, acc.w * k);
-  }
-  grad[n] = acc;
+  const float4 g = node_gradient<K, TwoPass>(
+      node, starts, rel, rows_per_block, inc_rel + n * degree, degree,
+      n / nodes_per_block, ct_starts, sentinel, m);
+  const float s = __ldg(scale);
+  grad[n] = make_float4(g.x * s, g.y * s, g.z * s, g.w * s);
 }
 
 unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <int K, bool TwoPass>
+void launch_grad(cudaStream_t st, const float4* node, const int* starts,
+                 const int* rel, long long rows_per_block, const int* inc,
+                 long long nodes_per_block, int degree, const int* ct_starts,
+                 int sentinel, long long n_nodes, const Material& m,
+                 const float* scale, float4* grad) {
+  banded_grad_kernel<K, TwoPass><<<blocks_for(n_nodes), kThreads, 0, st>>>(
+      node, starts, rel, rows_per_block, inc, nodes_per_block, degree,
+      ct_starts, sentinel, n_nodes, m, scale, grad);
+}
+
+// Registers per thread and resident CTAs per SM of one kernel.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int* regs, int* ctas) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kThreads,
+                                                       0);
+}
+
+template <int K>
+cudaError_t occupancy_of(int which, int* regs, int* ctas) {
+  switch (which) {
+    case 0:
+      return occupancy(banded_vg_kernel<K>, regs, ctas);
+    case 1:
+      return occupancy(banded_grad_kernel<K, false>, regs, ctas);
+    case 2:
+      return occupancy(banded_grad_kernel<K, true>, regs, ctas);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -416,18 +442,16 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   return (int)cudaGetLastError();
 }
 
-// K5: the node gradient [n_nodes, 4] times *scale into grad.  The row
-// cotangents of the table (starts, rel [B, rows_per_block, k]) go to cot
-// (n_rows * k float4), and node n sums the slots of inc_rel
-// [Bn, nodes_per_block, degree] relative to block_starts[b] (the two-pass
-// ct_starts) or, when block_starts is null, to b * rows_per_block * k (the
-// recompute windows); slots equal to `sentinel` are skipped.
+// K5: the node gradient [n_nodes, 4] times *scale into grad, in one
+// launch.  Node n sums the slots of inc_rel [Bn, nodes_per_block, degree]
+// that are not `sentinel`, over the window tables starts/rel
+// [B, rows_per_block, k]: the two-pass windows relative to ct_starts[b]
+// when ct_starts is given, else the recompute windows.
 int hdnn_banded_bwd(int device, const void* node, const void* starts,
-                    const void* rel, long long rows_per_block,
-                    long long n_rows, int k, float f, float nu, float shear,
-                    float w_sum, void* cot, const void* inc_rel,
-                    long long nodes_per_block, int degree,
-                    const void* block_starts, int sentinel,
+                    const void* rel, long long rows_per_block, int k,
+                    float f, float nu, float shear, float w_sum,
+                    const void* inc_rel, long long nodes_per_block,
+                    int degree, const void* ct_starts, int sentinel,
                     long long n_nodes, const void* scale, void* grad,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -437,31 +461,50 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
   const float4* nd = (const float4*)node;
   const int* s = (const int*)starts;
   const int* r = (const int*)rel;
-  float4* c = (float4*)cot;
-  const unsigned rb = blocks_for(n_rows);
+  const int* inc = (const int*)inc_rel;
+  const int* cs = (const int*)ct_starts;
+  const float* sc = (const float*)scale;
+  float4* g = (float4*)grad;
+  const bool two_pass = cs != nullptr;
   switch (k) {
     case 3:
-      banded_bwd_kernel<3><<<rb, kThreads, 0, st>>>(nd, s, r, rows_per_block,
-                                                    n_rows, m, c);
+      (two_pass ? launch_grad<3, true> : launch_grad<3, false>)(
+          st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
+          sentinel, n_nodes, m, sc, g);
       break;
     case 4:
-      banded_bwd_kernel<4><<<rb, kThreads, 0, st>>>(nd, s, r, rows_per_block,
-                                                    n_rows, m, c);
+      (two_pass ? launch_grad<4, true> : launch_grad<4, false>)(
+          st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
+          sentinel, n_nodes, m, sc, g);
       break;
     case 6:
-      banded_bwd_kernel<6><<<rb, kThreads, 0, st>>>(nd, s, r, rows_per_block,
-                                                    n_rows, m, c);
+      (two_pass ? launch_grad<6, true> : launch_grad<6, false>)(
+          st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
+          sentinel, n_nodes, m, sc, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  banded_node_sum_kernel<<<blocks_for(n_nodes), kThreads, 0, st>>>(
-      c, (const int*)inc_rel, nodes_per_block, degree,
-      (const int*)block_starts, rows_per_block * k, sentinel, n_nodes,
-      (const float*)scale, (float4*)grad);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread (*regs) and resident CTAs per SM (*ctas) of K4
+// (which 0), K5 over the recompute windows (1) or over the two-pass
+// windows (2), for rows of k slots.
+int hdnn_banded_occupancy(int device, int which, int k, int* regs,
+                          int* ctas) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (k) {
+    case 3:
+      return (int)occupancy_of<3>(which, regs, ctas);
+    case 4:
+      return (int)occupancy_of<4>(which, regs, ctas);
+    case 6:
+      return (int)occupancy_of<6>(which, regs, ctas);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* hdnn_error_string(int err) {

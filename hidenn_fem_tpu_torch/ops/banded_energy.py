@@ -4,14 +4,20 @@
 The JAX package evaluated the energy of a mesh with banded tables
 (``mesh/banded.py``) by scanning element blocks over node windows (the
 forward, Pallas kernel K3), and took its gradient by scanning node blocks
-over element windows that recompute their cotangents in-block (K5), or,
-when the recompute tables carry ownership intervals, computed the value
-and the gradient in that one node-block scan (K4).  On the card the three
-are the CUDA kernels of ``hidenn_fem_tpu_torch/csrc/banded_energy.cu``:
-one thread per table row reads its node rows straight from the [N, 4]
-table, and K4 recomputes each node's gradient from its incidence slots in
-the same launch (the source's header says what bounds them and how they
-are laid out).  The TPU's lane-major [k*4, 2048] blocks, transposes and zero
+over element windows that recompute their cotangents in-block (K5; or,
+without recompute tables, over windows of the element scan's flat
+cotangents), or, when the recompute tables carry ownership intervals,
+computed the value and the gradient in that one node-block scan (K4).  On
+the card the three are the CUDA kernels of
+``hidenn_fem_tpu_torch/csrc/banded_energy.cu``.  K3 runs one thread per
+table row, reading its node rows straight from the [N, 4] table.  K4 and
+K5 run one thread per node for the gradient: each node walks its
+incidence slots in slot order, decodes each slot to a table row and a
+vertex (on the recompute windows, or on the two-pass windows), and adds
+that vertex's corner cotangents recomputed from the row, in one launch
+with no cotangent buffer; K4 adds the owned rows' energy in the same
+launch.  The source's header says what bounds them and how a slot
+decodes.  The TPU's lane-major [k*4, 2048] blocks, transposes and zero
 padding are not reproduced.
 
 In this module:
@@ -20,6 +26,7 @@ In this module:
   wrappers (CUDA float32 tensors only; each launch adds one to
   ``launch_counts``).  ``banded_vg`` and ``banded_bwd`` return node
   gradients: their kernels include the incidence sum over the windows.
+  ``kernel_occupancy``: the registers and resident CTAs of K4 and K5.
 * ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
   same functions in plain torch, walking the same tables (window gather,
   the per-layout energy of ``element_energy_plain``'s algebra and the
@@ -51,7 +58,7 @@ from .element_energy import _abs_jax, _constants, _strain, \
 
 __all__ = ["banded_element_energy", "banded_fwd", "banded_vg", "banded_bwd",
            "banded_fwd_plain", "banded_vg_plain", "banded_bwd_plain",
-           "launch_counts", "reset_launch_counts"]
+           "kernel_occupancy", "launch_counts", "reset_launch_counts"]
 
 # the triangles (slot triples) of each row layout
 _TRIS = {3: ((0, 1, 2),),
@@ -160,9 +167,12 @@ def _library() -> ctypes.CDLL:
     lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
         vp, i, vp, vp, ll, i, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
-    lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, ll, i] + mat + [
-        vp, vp, ll, i, vp, i, ll, vp, vp, vp]
+    lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, i] + mat + [
+        vp, ll, i, vp, i, ll, vp, vp, vp]
     lib.hdnn_banded_bwd.restype = i
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.hdnn_banded_occupancy.argtypes = [i, i, i, pi, pi]
+    lib.hdnn_banded_occupancy.restype = i
     return lib
 
 
@@ -244,34 +254,49 @@ def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
     """K5 on the card: ``ct`` (a one-element float32 tensor on the card)
-    times the node gradient [N, 4], over the recompute windows when the
-    tables have them, else over the two-pass windows."""
-    recompute = ba.re_conn_rel is not None
-    if recompute:
+    times the node gradient [N, 4], in one launch with no cotangent
+    buffer, over the recompute windows when the tables have them, else
+    over the two-pass windows."""
+    if ba.re_conn_rel is not None:
         starts, rel, inc = ba.re_nstarts, ba.re_conn_rel, ba.re_inc_rel
-        block_starts, sentinel = None, ba.k * ba.re_ew
+        ct_starts, sentinel = None, ba.k * ba.re_ew
     else:
         starts, rel, inc = ba.starts, ba.conn_rel, ba.inc_rel
-        block_starts, sentinel = ba.ct_starts, ba.wct
+        ct_starts, sentinel = ba.ct_starts, ba.wct
     _check(node, ba, rel, starts, inc,
-           *(() if block_starts is None else (block_starts,)))
+           *(() if ct_starts is None else (ct_starts,)))
     ct = ct.reshape(()).to(dtype=torch.float32).contiguous()
     if ct.device != node.device:
         raise ValueError("ct must lie on the node table's device")
     lib = _library()
     dev = node.device
-    cot = torch.empty((rel.shape[0] * rel.shape[1] * ba.k, 4),
-                      dtype=torch.float32, device=dev)
     grad = torch.empty_like(node)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    head = _head(node, ba, starts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_bwd(
-        *_head(node, ba, starts, rel, E, nu, w_sum), cot.data_ptr(),
-        inc.data_ptr(), inc.shape[1], inc.shape[2],
-        None if block_starts is None else block_starts.data_ptr(),
-        sentinel, node.shape[0], ct.data_ptr(), grad.data_ptr(), stream)
+        *head[:5], *head[6:], inc.data_ptr(), inc.shape[1], inc.shape[2],
+        None if ct_starts is None else ct_starts.data_ptr(), sentinel,
+        node.shape[0], ct.data_ptr(), grad.data_ptr(), stream)
     raise_on(lib, err, "banded_bwd")
     launch_counts["banded_bwd"] += 1
     return grad
+
+
+def kernel_occupancy(which: str, k: int,
+                     device: torch.device) -> Tuple[int, int]:
+    """(registers per thread, resident CTAs per SM) of K4 (``"vg"``), K5
+    over the recompute windows (``"grad"``) or over the two-pass windows
+    (``"grad_two_pass"``) for rows of ``k`` slots, on the CUDA
+    ``device``."""
+    lib = _library()
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    index = device.index
+    err = lib.hdnn_banded_occupancy(
+        torch.cuda.current_device() if index is None else index,
+        ("vg", "grad", "grad_two_pass").index(which), k, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    raise_on(lib, err, "banded_occupancy")
+    return regs.value, ctas.value
 
 
 # ------------------------------------------------------- autograd wrapper

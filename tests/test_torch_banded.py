@@ -342,6 +342,105 @@ def test_body_force_on_banded_mesh_matches_jax(meshes, backend):
                      atol=1e-5 * np.abs(want).max(), what=name)
 
 
+def _slot_decode(ba, two_pass, n):
+    """What the gradient kernels (K4, K5: ``node_gradient`` in
+    ``csrc/banded_energy.cu``) decode from each slot d of node n < N, in
+    numpy: (valid [N, D], element [N, D], table row [N, D], vertex [N, D],
+    window block [N, D], the window tables (starts, rel))."""
+    k = ba.k
+    if two_pass:
+        inc, starts, rel = ba.inc_rel, ba.starts, ba.conn_rel
+        sentinel = ba.wct
+    else:
+        inc, starts, rel = ba.re_inc_rel, ba.re_nstarts, ba.re_conn_rel
+        sentinel = k * ba.re_ew
+    inc, starts, rel = inc.numpy(), starts.numpy(), rel.numpy()
+    slots = inc.reshape(-1, inc.shape[2])[:n].astype(np.int64)
+    b = (np.arange(n) // inc.shape[1])[:, None]     # rows placed at 0
+    valid = slots != sentinel
+    if two_pass:
+        c = ba.ct_starts.numpy()[b].astype(np.int64) + slots
+        row, vertex = c // k, c % k
+        blk = row // rel.shape[1]
+        element = row                  # padding rows lie past every element
+    else:
+        row, vertex = b * rel.shape[1] + slots // k, slots % k
+        blk = np.broadcast_to(b, slots.shape)
+        element = ba.re_estarts.numpy()[b].astype(np.int64) + slots // k
+    zero = np.zeros_like(slots)
+    return (valid, np.where(valid, element, -1), np.where(valid, row, zero),
+            np.where(valid, vertex, zero), np.where(valid, blk, zero),
+            (starts, rel))
+
+
+DECODE = [(w, k) for w in ("plate", "delaunay") for k in (3, 4, 6)]
+
+
+@pytest.mark.parametrize("which, k", DECODE)
+def test_slot_decode_names_the_node(meshes, which, k):
+    """On both kinds of window (window_limit 300: several blocks, and a
+    node count that is no multiple of the node block), every valid slot
+    of node n decodes to a table row whose vertex is n itself."""
+    ba = _tables(pb, meshes[which], k)
+    n = meshes[which].n_nodes
+    for two_pass in (False, True):
+        nb = (ba.inc_rel if two_pass else ba.re_inc_rel).shape[1]
+        assert n % nb and n > nb
+        valid, _, row, vertex, blk, (starts, rel) = _slot_decode(
+            ba, two_pass, n)
+        assert valid.any(axis=1).all()         # every node has an element
+        named = starts[blk] + rel.reshape(-1)[row * k + vertex]
+        owner = np.broadcast_to(np.arange(n)[:, None], valid.shape)
+        np.testing.assert_array_equal(named[valid], owner[valid])
+
+
+@pytest.mark.parametrize("which, k", DECODE)
+def test_slot_decodes_agree_across_kinds(meshes, which, k):
+    """The recompute and the two-pass decodes name the same elements and
+    vertices, slot by slot: the terms K5 adds, and their order, are the
+    same on both kinds, which is what makes them bit-equal on the card."""
+    ba = _tables(pb, meshes[which], k)
+    n = meshes[which].n_nodes
+    re = _slot_decode(ba, False, n)
+    two = _slot_decode(ba, True, n)
+    np.testing.assert_array_equal(re[0], two[0])           # valid slots
+    np.testing.assert_array_equal(re[1], two[1])           # elements
+    np.testing.assert_array_equal(re[3], two[3])           # vertices
+    assert (two[1][two[0]] < meshes[which].n_elements).all()
+
+
+@pytest.mark.parametrize("which, k", DECODE)
+def test_decoded_gradient_matches_plain_bwd(meshes, which, k):
+    """float64: the gradient built in plain torch by the kernels' decode
+    (the slots' ``_row_cotangents`` terms, summed in slot order, then
+    times ct) equals ``banded_bwd_plain`` (held to JAX's
+    ``banded_element_energy`` above) on both kinds of window."""
+    ba = _tables(pb, meshes[which], k)
+    n = meshes[which].n_nodes
+    rng = np.random.default_rng(9)
+    coords = np.asarray(meshes[which].coords, np.float64)
+    node = torch.tensor(np.concatenate(
+        [coords + 1e-3 * rng.standard_normal((n, 2)),
+         1e-4 * rng.standard_normal((n, 2))], 1))
+    ct = torch.tensor(-0.75, dtype=torch.float64)
+    args = (10e9, 0.3, 0.5)
+    for two_pass in (False, True):
+        valid, _, row, vertex, _, (starts, rel) = _slot_decode(
+            ba, two_pass, n)
+        cot = pbe._row_cotangents(pbe._rows(node, torch.tensor(starts),
+                                            torch.tensor(rel)), *args)
+        terms = cot[torch.tensor(row), torch.tensor(vertex)]  # [N, D, 4]
+        terms[torch.tensor(~valid)] = 0.0
+        grad = torch.zeros_like(node)
+        for d in range(terms.shape[1]):                       # slot order
+            grad = grad + terms[:, d]
+        kind = dataclasses.replace(ba, **NO_RECOMPUTE) if two_pass else ba
+        want = pbe.banded_bwd_plain(node, kind, ct, *args)
+        assert_close((grad * ct).numpy(), want.numpy(), rtol=1e-12,
+                     atol=1e-12 * float(want.abs().max()),
+                     what=f"two_pass={two_pass}")
+
+
 def test_banded_kernels_raise_on_cpu_tensors(meshes):
     _, mesh_t = _mesh_pair(meshes["plate"], 4)
     node = torch.zeros((mesh_t.n_nodes, 4))

@@ -10,7 +10,8 @@ Tolerances: rtol 1e-4 on energies (f32 sums in another order); rtol 5e-4
 with atol 1e-5 x max|grad| on cotangents and gradients (coordinate
 gradients are sums of cancelling terms; see tests/test_torch_losses.py).
 Where two kernels must add the same terms in the same order (K5 and the
-fused K4, K6 and K7, two launches of one kernel) the check is bit for bit.
+fused K4, K5 over its two kinds of window, K6 and K7, two launches of one
+kernel) the check is bit for bit.
 """
 
 import dataclasses
@@ -325,7 +326,53 @@ def test_banded_kernels_match_plain(dev, k, which):
     _close(g5, be.banded_bwd_plain(node, ba, ct, E, NU, W_SUM))
     _close(g5b, be.banded_bwd_plain(node, no_re, ct, E, NU, W_SUM))
     assert torch.equal(g5, ct * g4)
+    assert torch.equal(g5b, g5)
     assert float(e4b) == float(e4) and torch.equal(g4b, g4)
+
+
+@pytest.mark.parametrize("ct_value", [1.0, 0.75, -2.0])
+@pytest.mark.parametrize("k", [3, 4, 6])
+def test_banded_bwd_is_one_launch_on_both_kinds(dev, k, ct_value):
+    """K5 over the recompute windows and over the two-pass windows: one
+    launch of one kernel per call (the launch count and the profiler
+    agree), each against ``banded_bwd_plain``; over the recompute windows
+    equal to ct x K4 bit for bit, over the two-pass windows equal to the
+    recompute windows bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh = pt.generate_mesh_delaunay(lc=0.09, device=dev)
+    ba = _banded_tables(mesh, k, dev)
+    assert ba.re_conn_rel is not None and ba.n_element_blocks > 1
+    two_pass = dataclasses.replace(ba, re_nstarts=None, re_estarts=None,
+                                   re_conn_rel=None, re_inc_rel=None,
+                                   re_own_lo=None, re_own_hi=None)
+    node = _banded_node(mesh, dev)
+    ct = torch.tensor(ct_value, device=dev)
+    _, g4 = be.banded_vg(node, ba, E, NU, W_SUM)
+    torch.cuda.synchronize()
+    out = {}
+    calls = 3
+    for name, tables in (("recompute", ba), ("two-pass", two_pass)):
+        before = be.launch_counts["banded_bwd"]
+        g = be.banded_bwd(node, tables, ct, E, NU, W_SUM)
+        torch.cuda.synchronize()
+        assert be.launch_counts["banded_bwd"] == before + 1, name
+        for _ in range(3):       # the profiler can drop kernel events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    be.banded_bwd(node, tables, ct, E, NU, W_SUM)
+                torch.cuda.synchronize()
+            kernels = [(("banded_grad_kernel" in e.key), e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if sum(c for _, c in kernels) == calls:
+                break
+        assert kernels == [(True, calls)], name
+        _close(g, be.banded_bwd_plain(node, tables, ct, E, NU, W_SUM))
+        out[name] = g
+    assert torch.equal(out["recompute"], ct * g4)
+    assert torch.equal(out["two-pass"], out["recompute"])
 
 
 def test_banded_route_kernel_path_matches_plain_path(dev):

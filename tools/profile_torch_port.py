@@ -15,12 +15,19 @@ and the top operators by device and by host time.  Chrome traces go to
 the ``--out`` directory.
 
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
-full size: K4 (and K3, K5) on the 898K Delaunay plate's paired tables,
-K6 and K7 on the 922K-class zigzag plate and on the hole-free 961x481
-"up" grid, 20 calls each, and prints each kernel's device µs per call by
-name.  It passes every device explicitly, so it also drives an older
-checkout of the package (``PYTHONPATH=<checkout>``) for an A/B in one
-call.
+full size: K4, K3 and K5 (over the recompute windows, and over the
+two-pass windows) on the 898K Delaunay plate's paired tables, K4 and
+both kinds of K5 on its triangle tables, K6 and K7 on the 922K-class
+zigzag plate and on the hole-free 961x481 "up" grid, 20 calls each, and
+prints each kernel's device µs per call by name.  With
+``--grads DIR`` as well it saves K4's energy and gradient and K5's
+gradient on both kinds of window, for the 898K paired, triangle and strip
+tables, to ``DIR/banded_grads.pt``; ``--compare-grads A B`` then holds two
+such directories equal bit for bit (``torch.equal``).  It passes every
+device explicitly, so run as a script it also drives an older checkout of
+the package for an A/B in one call:
+
+    PYTHONPATH=<checkout> python tools/profile_torch_port.py --kernels
 
 Run from the repository root:  ``python -m tools.profile_torch_port``
 """
@@ -56,16 +63,47 @@ def _busy_ms(prof):
     return busy / 1e3
 
 
+def _kernel_events(prof):
+    """(short kernel name, event) of each CUDA kernel in the profile."""
+    return [(re.sub(r"^void\s+|\(anonymous namespace\)::|hdnn::", "",
+                    evt.key).split("(")[0].strip(), evt)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def kernel_us(prof, calls):
     """Device µs per call of each kernel in the profile, by short name
     (from ``key_averages()``), largest first."""
     out = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = re.sub(r"^void\s+|\(anonymous namespace\)::|hdnn::", "",
-                      evt.key).split("(")[0].strip()
+    for name, evt in _kernel_events(prof):
         out[name] = out.get(name, 0.0) + evt.self_device_time_total / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_profile(fn, calls=20, tries=3):
+    """Device µs per call of each kernel that ``fn()`` launches, by short
+    name, over ``calls`` calls after one warm-up call.  The profiler can
+    drop kernel events (it does on the H100), so a window in which some
+    kernel's event count is no whole multiple of ``calls`` is profiled
+    again, up to ``tries`` times; each kernel's time per call is its mean
+    time per recorded launch times its launches per call (its count over
+    ``calls``, rounded, at least 1), which a lost event does not bias."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        if events and all(e.count % calls == 0 for _, e in events):
+            break
+    out = {}
+    for name, evt in events:
+        per_call = max(1, round(evt.count / calls))
+        out[name] = (out.get(name, 0.0) + per_call
+                     * evt.self_device_time_total / max(evt.count, 1))
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -144,9 +182,11 @@ def _kernel_cases(dev):
     mesh = ht.generate_mesh_delaunay(lc=0.00218, device=dev)
     bnode = _node(mesh.coords, 2)
     ba = mesh.banded_paired
-    ba5 = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    ba5 = without_recompute(ba, keep_tables=True)
+    ba5b = without_recompute(ba, keep_tables=False)
+    tri = mesh.banded
     ct = torch.tensor(0.75, device=dev)
-    return {
+    cases = {
         "922k_zigzag_K6": lambda: ls.lattice_stencil_vg(
             node, 961, 481, E, nu, w, **kw),
         "922k_zigzag_K7": lambda: ls.lattice_stencil_fwd(
@@ -158,19 +198,72 @@ def _kernel_cases(dev):
         "898k_paired_K4": lambda: be.banded_vg(bnode, ba, E, nu, w),
         "898k_paired_K3": lambda: be.banded_fwd(bnode, ba, E, nu, w),
         "898k_paired_K5": lambda: be.banded_bwd(bnode, ba5, ct, E, nu, w),
+        "898k_paired_K5_two_pass": lambda: be.banded_bwd(bnode, ba5b, ct, E,
+                                                         nu, w),
+        "898k_triangle_K4": lambda: be.banded_vg(bnode, tri, E, nu, w),
+        "898k_triangle_K5": lambda: be.banded_bwd(
+            bnode, without_recompute(tri, True), ct, E, nu, w),
+        "898k_triangle_K5_two_pass": lambda: be.banded_bwd(
+            bnode, without_recompute(tri, False), ct, E, nu, w),
     }
+    return cases, mesh, bnode
 
 
-def _kernels(dev, card, calls=20):
-    for name, fn in _kernel_cases(dev).items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        per = kernel_us(prof, calls)
+def without_recompute(ba, keep_tables):
+    """The tables with the ownership intervals (and, unless keep_tables,
+    every recompute table) removed: K5's two kinds of window."""
+    drop = dict(re_own_lo=None, re_own_hi=None)
+    if not keep_tables:
+        drop.update(re_nstarts=None, re_estarts=None, re_conn_rel=None,
+                    re_inc_rel=None)
+    return dataclasses.replace(ba, **drop)
+
+
+def _banded_grads(mesh, node, dev, out_dir):
+    """K4's energy and gradient and K5's gradient (ct 0.75) on both kinds
+    of window, for the paired, triangle and strip tables, saved to
+    ``out_dir/banded_grads.pt``."""
+    from hidenn_fem_tpu_torch.mesh import banded as mb
+    from hidenn_fem_tpu_torch.ops import banded_energy as be
+
+    E, nu, w = 10e9, 0.3, 0.5
+    ct = torch.tensor(0.75, device=dev)
+    strip = mb.build_striped_assembly(mesh.connectivity.cpu().numpy(),
+                                      mesh.n_nodes, device=dev)
+    out = {}
+    for tag, ba in (("paired", mesh.banded_paired),
+                    ("triangle", mesh.banded), ("strip", strip)):
+        e4, g4 = be.banded_vg(node, ba, E, nu, w)
+        out[f"{tag}_K4_energy"] = e4
+        out[f"{tag}_K4_grad"] = g4
+        for kind, keep in (("recompute", True), ("two_pass", False)):
+            out[f"{tag}_K5_{kind}"] = be.banded_bwd(
+                node, without_recompute(ba, keep), ct, E, nu, w)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "banded_grads.pt")
+    torch.save({k: v.cpu() for k, v in out.items()}, path)
+    print(f"saved {len(out)} tensors to {path}")
+
+
+def _compare_grads(a, b):
+    """Holds two ``--grads`` directories equal bit for bit."""
+    ga = torch.load(os.path.join(a, "banded_grads.pt"))
+    gb = torch.load(os.path.join(b, "banded_grads.pt"))
+    if sorted(ga) != sorted(gb):
+        raise SystemExit(f"different tensors: {sorted(ga)} vs {sorted(gb)}")
+    differ = [k for k in sorted(ga) if not torch.equal(ga[k], gb[k])]
+    for k in sorted(ga):
+        print(f"   {k}: {'differs' if k in differ else 'equal bit for bit'}")
+    if differ:
+        raise SystemExit(f"{len(differ)} of {len(ga)} tensors differ")
+
+
+def _kernels(dev, card, grads_dir=None, calls=20):
+    cases, mesh, bnode = _kernel_cases(dev)
+    if grads_dir:
+        _banded_grads(mesh, bnode, dev, grads_dir)
+    for name, fn in cases.items():
+        per = kernel_profile(fn, calls)
         print(f"== {name}: {sum(per.values()):.2f} us/call device [{card}]")
         for kernel, us in per.items():
             print(f"   device {us:9.2f} us/call  {kernel}")
@@ -181,13 +274,20 @@ def main():
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--kernels", action="store_true",
                     help="profile the redesigned kernels alone")
+    ap.add_argument("--grads", metavar="DIR",
+                    help="with --kernels: save the banded gradients here")
+    ap.add_argument("--compare-grads", nargs=2, metavar=("A", "B"),
+                    help="hold two --grads directories equal bit for bit")
     args = ap.parse_args()
+    if args.compare_grads:
+        _compare_grads(*args.compare_grads)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: needs a CUDA device")
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     if args.kernels:
-        _kernels(dev, card)
+        _kernels(dev, card, args.grads)
         return
     os.makedirs(args.out, exist_ok=True)
     ex4 = ht.generate_mesh(nx=200, ny=100, keep_dead_nodes=True,
