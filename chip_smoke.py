@@ -38,6 +38,16 @@ Phases (each raises on failure, and the script then exits non-zero):
       961x481 plate (921,600 elements) at sub-blocks of 64 and 128:
       against its plain version and the flat-gather sum, and the same
       kernel over flat (absolute) index tables, all timed.
+   f. K6 and K7 over 2, 3 and 4 row windows (the ranks' split of
+      ``parallel/sharded_slab.py``) on the 922K-class plate and the 961x481
+      grid: each window's gradient rows equal the whole-lattice K6's bit
+      for bit, K6's window energy equals K7's, the window energies sum to
+      the whole within ROWS_SUM_RTOL, each window against its plain
+      versions;
+   g. K4 and K5 on each rank slice of the 898K plate's paired tables
+      rebanded for 4 ranks (``reband_for_shards``), launched in turn: the
+      rows placed at row_start equal the unsharded K4/K5 rows bit for bit,
+      the slice energies sum to the whole within ROWS_SUM_RTOL.
    Each kernel is also profiled (``torch.profiler``, 20 calls): its device
    µs per call by kernel name, beside its bound (``bound``: bytes over
    3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and, for the
@@ -72,9 +82,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    the same mesh with the route stripped (gather route, K1/K2), then 10
    L-BFGS steps against the JAX package's.
 
-Each path of phases 4-9 (and K8's timed A/B) runs with every launch
-count set to 0 just before it and read just after, and fails if a kernel
-of that path did not launch.  The last three lines of standard output
+10. The sharded paths (``hidenn_fem_tpu_torch/parallel``) as groups of
+    ranks sharing the one card (spawned processes, ``rank_main``): a world
+    of 1 on NCCL, then 2 and 4 ranks on gloo over ``cuda:0``, each running
+    SHARDED_PATHS (the slab kernels over row windows on the 922K-class
+    plate and the banded kernels with row_start on the rebanded 898K
+    plate, each with 10 L-BFGS steps; the banded fallback without
+    ownership intervals; the padded gather route and the lattice route on
+    example 4; the lattice route on the 847K hybrid plate): every rank's
+    values and history bit-equal across the ranks and within PERF.md
+    section 2's limits of the single-rank run; ms per value-and-grad and
+    per step printed as ranks sharing one card.
+
+Each path of phases 4-10 (and K8's timed A/B) runs with every launch
+count set to 0 just before it and read just after (in each rank for
+phase 10), and fails if a kernel of that path did not launch.  The last three lines of standard output
 are the kernels' JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, ...}``.
 """
@@ -195,6 +217,9 @@ F32_SPREAD_RTOL = 5e-3
 ENERGY_RTOL = 1e-4
 GRAD_RTOL = 5e-4
 GRAD_ATOL = 1e-5
+# the row windows' (and the rank slices') energies, each a sum of the same
+# quads' (rows') f32 energies in another grouping, against the whole
+ROWS_SUM_RTOL = 1e-6
 
 # The least time the card could take for a kernel's work (bound_ms) is the
 # larger of its bytes over the memory rate and its flops over the float32
@@ -251,7 +276,7 @@ def check_close(name, got, want, rtol, atol_scale):
     """|got - want| <= rtol |want| + atol_scale max|want|; returns the
     max abs error."""
     got = got.detach().double()
-    want = want.detach().double()
+    want = want.detach().double().to(got.device)
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite values")
     err = (got - want).abs()
@@ -320,7 +345,7 @@ def device_us(fn, calls=20):
     lost kernel events are profiled again)."""
     from tools.profile_torch_port import kernel_profile
 
-    per = kernel_profile(fn, calls)
+    per = kernel_profile(fn, calls, tries=6)
     if not per or sum(per.values()) <= 0.0:
         raise AssertionError("the profiler recorded no device time")
     return sum(per.values()), per
@@ -594,6 +619,9 @@ def phase_lattice(ht, ls, mesh, dev, card):
                      lambda: value_and_grads(ep, params, mesh))
     log(f"  value-and-grad {tag} at {mesh.n_elements} elements: kernel "
         f"path {kms:.4f} ms, plain path {pms:.4f} ms [{card}]")
+    res += phase_rows_lattice(ls, "922K zigzag+holes", node, route.nx,
+                              route.ny, 10e9, 0.3, ls.route_stencil(route),
+                              card, timed=True)
     return res
 
 
@@ -608,8 +636,96 @@ def phase_structured(ls, dev, card):
     params["u"] = params["u"] * 10.0
     node = model._node(params, grid).reshape(-1, 4).contiguous()
     qm = grid.quad_mask
+    kw = dict(diag=ls.UP, t1=qm, t2=qm)
     stencil_ab(ls, "961x481 structured up", node, grid.nx, grid.ny,
-               model.E, model.nu, 0.5, dict(diag=ls.UP, t1=qm, t2=qm), card)
+               model.E, model.nu, 0.5, kw, card)
+    phase_rows_lattice(ls, "961x481 structured up", node, grid.nx, grid.ny,
+                       model.E, model.nu, kw, card, timed=False)
+
+
+def phase_rows_lattice(ls, tag, node, nx, ny, E, nu, kw, card, timed):
+    """Phase 3f: K6 and K7 over 2, 3 and 4 row windows (the ranks' split
+    of ``parallel/sharded_slab.py``): each window's gradient rows equal the
+    whole-lattice K6's bit for bit (every other row 0), K6's window energy
+    equals K7's bit for bit, each window against its plain versions, the
+    window energies sum to the whole within ROWS_SUM_RTOL; when timed, the
+    kernel entries of window 1 of 4."""
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+
+    w_sum = 0.5
+    e_whole, g_whole = ls.lattice_stencil_vg(node, nx, ny, E, nu, w_sum,
+                                             **kw)
+    err6 = err7 = 0.0
+    for n_win in (2, 3, 4):
+        total = 0.0
+        for r in range(n_win):
+            lo, hi = row_window(nx, r, n_win)
+            if lo >= hi:
+                continue
+            args = (node, nx, ny, E, nu, w_sum, lo, hi)
+            e6, g6 = ls.lattice_stencil_vg_rows(*args, **kw)
+            e7 = ls.lattice_stencil_fwd_rows(*args, **kw)
+            rows = slice(lo * ny, hi * ny)
+            if not torch.equal(g6[rows], g_whole[rows]) or \
+                    g6[:lo * ny].any() or g6[hi * ny:].any():
+                raise AssertionError(f"{tag}: window [{lo}, {hi}) of "
+                                     f"{n_win}: K6 rows differ from the "
+                                     "whole lattice's")
+            if float(e6) != float(e7):
+                raise AssertionError(f"{tag}: window [{lo}, {hi}): K6 and "
+                                     "K7 energies differ")
+            pe, pg = ls.lattice_stencil_vg_rows_plain(*args, **kw)
+            err7 = max(err7, check_close(
+                f"{tag} rows [{lo}, {hi}) of {n_win} energy vs plain", e7,
+                pe, ENERGY_RTOL, 0.0))
+            err6 = max(err6, check_close(
+                f"{tag} rows [{lo}, {hi}) of {n_win} gradient vs plain", g6,
+                pg, GRAD_RTOL, GRAD_ATOL))
+            total += float(e6)
+        rel = abs(total - float(e_whole)) / abs(float(e_whole))
+        log(f"  {tag}: {n_win} row windows: rows bit-equal to the whole "
+            f"lattice's, K6 = K7 per window; energy sum {total!r} vs whole "
+            f"{float(e_whole)!r}: rel {rel:.3e} (limit {ROWS_SUM_RTOL})")
+        if rel > ROWS_SUM_RTOL:
+            raise AssertionError(f"{tag}: window energies off the whole")
+    torch.cuda.synchronize()
+    if not timed:
+        return None
+    lo, hi = row_window(nx, 1, 4)
+    args = (node, nx, ny, E, nu, w_sum, lo, hi)
+    ms6, pms6 = ab_ms(lambda: ls.lattice_stencil_vg_rows(*args, **kw),
+                      lambda: ls.lattice_stencil_vg_rows_plain(*args, **kw))
+    ms7, pms7 = ab_ms(lambda: ls.lattice_stencil_fwd_rows(*args, **kw),
+                      lambda: ls.lattice_stencil_fwd_rows_plain(*args, **kw))
+    log(f"  {tag} rows [{lo}, {hi}) of {nx}: K6 kernel {ms6:.4f} ms, plain "
+        f"{pms6:.4f} ms; K7 kernel {ms7:.4f} ms, plain {pms7:.4f} ms "
+        f"[{card}]")
+    # the window's work: its node rows and the one-row halo on each side
+    # read, the quad rows lo-1 .. hi-1 evaluated (their masks read), the
+    # placed [nx*ny, 4] gradient written (zeros outside the window)
+    q0, q1 = max(lo - 1, 0), min(hi, nx - 1)
+    quads = (q1 - q0) * (ny - 1)
+    masks = sum(4 * quads for k in ("sel", "t1", "t2")
+                if kw.get(k) is not None)
+    tris = (2 * quads if kw.get("t1") is None else
+            int((kw["t1"][q0:q1] != 0).sum())
+            + int((kw["t2"][q0:q1] != 0).sum()))
+    node_b = 16 * (min(hi + 1, nx) - q0) * ny
+    src = "hidenn_fem_tpu_torch/csrc/lattice_stencil.cu"
+    return [
+        kernel_entry(
+            "lattice_stencil_vg_rows", src,
+            "hidenn_fem_tpu/ops/lattice_slab.py:346", err6, ms6, pms6,
+            node_b + masks + 16 * nx * ny + 4,
+            tris * (TRI_E + 2 + TRI_C + 3 * (ADD4 + 4)),
+            device_us(lambda: ls.lattice_stencil_vg_rows(*args, **kw)),
+            card, tag=f"{tag} rows [{lo}, {hi}) "),
+        kernel_entry(
+            "lattice_stencil_fwd_rows", src,
+            "hidenn_fem_tpu/ops/lattice_slab.py:365", err7, ms7, pms7,
+            node_b + masks + 4, tris * (TRI_E + 2),
+            device_us(lambda: ls.lattice_stencil_fwd_rows(*args, **kw)),
+            card, tag=f"{tag} rows [{lo}, {hi}) ")]
 
 
 def delaunay_898k(ht, mb, dev):
@@ -800,6 +916,97 @@ def phase_banded(ht, be, mb, mesh, dev, card):
         f"(K4) {bms:.4f} ms, flat gather route (K1, K2, incidence_sum) "
         f"{fms:.4f} ms [{card}]")
     return res
+
+
+def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
+    """Phase 3g: K4 and K5 on each rank's slice of the 898K Delaunay plate's
+    tables rebanded for ``ranks`` (block_multiple), the slices launched in
+    turn: the rows placed at row_start equal the unsharded K4/K5 rows on
+    the same tables bit for bit (every other row 0), the slices' energies
+    sum to the whole within ROWS_SUM_RTOL, each slice against its plain
+    versions; returns (the rebanded mesh, the kernel entries of slice 1)."""
+    from hidenn_fem_tpu_torch.parallel.sharding import (rank_tables,
+                                                        reband_for_shards)
+
+    t0 = time.perf_counter()
+    tri = reband_for_shards(mesh, ranks)
+    ba = tri.banded_paired
+    log(f"  898K tables rebanded for {ranks} ranks in "
+        f"{time.perf_counter() - t0:.2f} s on the host (k={ba.k}): "
+        f"{ba.starts.shape[0]} element blocks, {ba.re_nstarts.shape[0]} "
+        f"node blocks")
+    if ba.re_own_lo is None:
+        raise AssertionError("the rebanded tables lack ownership intervals")
+    params = perturbed_params(ht, mesh, dev, coord_scale=2e-5)
+    node = ht.TriangleP1().packed_nodes(params, mesh).contiguous()
+    args = (10e9, 0.3, 0.5)
+    ct = torch.tensor(0.75, device=dev)
+    e4, g4 = be.banded_vg(node, ba, *args)
+    no_own = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    g5 = be.banded_bwd(node, no_own, ct, *args)
+    n = node.shape[0]
+    total, err4, err5, slices = 0.0, 0.0, 0.0, []
+    for r in range(ranks):
+        loc, rs = rank_tables(ba, r, ranks)
+        loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
+        e, g = be.banded_vg_rows(node, loc, *args, rs)
+        g5r = be.banded_bwd_rows(node, loc5, ct, *args, rs)
+        end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
+        for name, got, want in (("K4", g, g4), ("K5", g5r, g5)):
+            if not torch.equal(got[rs:end], want[rs:end]) or \
+                    got[:rs].any() or got[end:].any():
+                raise AssertionError(f"slice {r}: {name} rows at row_start "
+                                     "differ from the unsharded launch")
+        pe, pg = be.banded_vg_plain(node, loc, *args, rs)
+        check_close(f"slice {r} of {ranks} K4 energy vs plain", e, pe,
+                    ENERGY_RTOL, 0.0)
+        err4 = max(err4, check_close(f"slice {r} of {ranks} K4 rows vs "
+                                     "plain", g, pg, GRAD_RTOL, GRAD_ATOL))
+        err5 = max(err5, check_close(
+            f"slice {r} of {ranks} K5 rows vs plain", g5r,
+            be.banded_bwd_plain(node, loc5, ct, *args, rs), GRAD_RTOL,
+            GRAD_ATOL))
+        total += float(e)
+        slices.append((loc, loc5, rs))
+    rel = abs(total - float(e4)) / abs(float(e4))
+    log(f"  {ranks} slices: K4 and K5 rows at row_start bit-equal to the "
+        f"unsharded launches; energy sum {total!r} vs whole {float(e4)!r}: "
+        f"rel {rel:.3e} (limit {ROWS_SUM_RTOL})")
+    if rel > ROWS_SUM_RTOL:
+        raise AssertionError("slice energies off the whole")
+    loc, loc5, rs = slices[1]
+    ms4, pms4 = ab_ms(lambda: be.banded_vg_rows(node, loc, *args, rs),
+                      lambda: be.banded_vg_plain(node, loc, *args, rs))
+    ms5, pms5 = ab_ms(lambda: be.banded_bwd_rows(node, loc5, ct, *args, rs),
+                      lambda: be.banded_bwd_plain(node, loc5, ct, *args, rs))
+    log(f"  slice 1 of {ranks} (row_start {rs}): K4 kernel {ms4:.4f} ms, "
+        f"plain {pms4:.4f} ms; K5 kernel {ms5:.4f} ms, plain {pms5:.4f} ms "
+        f"[{card}]")
+    # the slice's work: the node rows its windows span read, its tables
+    # read, its share of the triangles recomputed, the placed [N, 4]
+    # gradient written (zeros outside its rows)
+    span = int(loc.re_nstarts.max() + ba.re_wnode - loc.re_nstarts.min())
+    re_b = 4 * (loc.re_nstarts.numel() + loc.re_conn_rel.numel()
+                + loc.re_inc_rel.numel())
+    own_b = 4 * 2 * loc.re_own_lo.numel()
+    share = loc.re_conn_rel.shape[0] / ba.re_conn_rel.shape[0]
+    tris = mesh.n_elements * share
+    src = "hidenn_fem_tpu_torch/csrc/banded_energy.cu"
+    line = "hidenn_fem_tpu/ops/banded_energy.py:"
+    entries = [
+        kernel_entry("banded_vg_rows", src, line + "133", err4, ms4, pms4,
+                     16 * span + re_b + own_b + 16 * n + 4,
+                     tris * (TRI_E + 1 + TRI_C + 3 * ADD4),
+                     device_us(lambda: be.banded_vg_rows(node, loc, *args,
+                                                         rs)),
+                     card, tag=f"slice 1 of {ranks} "),
+        kernel_entry("banded_bwd_rows", src, line + "159", err5, ms5, pms5,
+                     16 * span + re_b + 16 * n + 4,
+                     tris * (TRI_E + TRI_C + 3 * ADD4),
+                     device_us(lambda: be.banded_bwd_rows(node, loc5, ct,
+                                                          *args, rs)),
+                     card, tag=f"slice 1 of {ranks} ")]
+    return tri, entries
 
 
 def phase_window_gather(ht, wg, mb, counts, dev, card):
@@ -1016,7 +1223,45 @@ def phase_hybrid(ht, ee, dev, card):
                   JAX_HYBRID_F64_LAST)
         log(f"  hybrid L-BFGS at {mesh.n_elements} elements: "
             f"{1e3 * seconds / HYBRID_STEPS:.4f} ms/iter [{card}]")
-    return solve
+    return solve, mesh
+
+
+def rest_params(ht, mesh, dev):
+    """coords at the mesh, u0 = 1e-5 N(0,1) (np.random.default_rng(0))."""
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    return ht.params_from_numpy({"coords": mesh.coords.cpu().numpy(),
+                                 "u": u0}, device=dev)
+
+
+def sharded_inputs(ht, mesh922, tri898, mesh4, hybrid, dev):
+    """Each sharded path's mesh (the tables it does not use stripped, to
+    keep the ranks' file small), params ("vg": perturbed, "init": at
+    rest) and energy, keyed as SHARDED_PATHS names them."""
+    from hidenn_fem_tpu_torch.parallel import pad_mesh
+
+    def strip(m, **keep):
+        return dataclasses.replace(m, **{**dict(
+            incidence=None, banded=None, banded_paired=None,
+            fused_connectivity=None, fused_incidence=None), **keep})
+
+    def params(m, coord_scale=1e-3):
+        return {"vg": perturbed_params(ht, m, dev, coord_scale),
+                "init": rest_params(ht, m, dev)}
+
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+    ba = tri898.banded_paired
+    no_own = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    p898 = params(tri898, 2e-5)
+    return {
+        "plate922": (strip(mesh922), params(mesh922), energy),
+        "delaunay898": (strip(tri898, banded_paired=ba), p898, energy),
+        "delaunay898_no_own": (strip(tri898, banded_paired=no_own), p898,
+                               energy),
+        # padded for 4 ranks, which 1 and 2 divide too
+        "ex4_padded": (strip(pad_mesh(mesh4, 4)), params(mesh4), energy),
+        "ex4": (strip(mesh4), params(mesh4), energy),
+        "hybrid847": (strip(hybrid), params(hybrid, 2e-5), energy),
+    }
 
 
 def plate_energy(ht, cfg, model):
@@ -1157,6 +1402,225 @@ def phase_scale(ht, mesh, dev, card, steps=50):
         f"elements: {1e3 * seconds / steps:.4f} ms/iter [{card}]")
 
 
+# ---------------------------------------------- sharded paths on one card
+# (name, sharded function, mesh input, L-BFGS steps, energy under no_grad,
+#  kernels the path must launch on the card)
+SHARDED_PATHS = (
+    ("slab 922K", "shard_map_lattice_slab", "plate922", 10, True,
+     ("lattice_stencil_vg_rows", "lattice_stencil_fwd_rows")),
+    ("banded 898K", "shard_map_banded_energy", "delaunay898", 10, True,
+     ("banded_vg_rows", "banded_fwd")),
+    ("banded 898K, no ownership", "shard_map_banded_energy",
+     "delaunay898_no_own", 0, False, ("banded_fwd", "banded_bwd_rows")),
+    ("gather example 4", "shard_map_energy", "ex4_padded", 0, False,
+     ("element_energy_fwd", "element_energy_bwd")),
+    ("lattice example 4", "sharded_lattice_energy", "ex4", 0, False, ()),
+    ("lattice 847K hybrid", "sharded_lattice_energy", "hybrid847", 0, False,
+     ()),
+)
+SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+SHARDED_TIMEOUT_S = 600
+VG_REPS = 5
+
+
+def _sharded_run(loss_fn, params, mesh, steps, nograd, counts):
+    """One path on this rank: value-and-grad (timed), ``steps`` L-BFGS
+    steps (timed) and the energy under no_grad; launch counts of the
+    value-and-grad, the steps and the no_grad energy (counts set to 0
+    just before, read just after)."""
+    import hidenn_fem_tpu_torch as ht
+
+    def vg():
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params["vg"].items()}
+        v = loss_fn(p, mesh)
+        return (v.detach(),) + torch.autograd.grad(v, [p["coords"],
+                                                       p["u"]])
+
+    vg()
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    for _ in range(VG_REPS):
+        value, gc, gu = vg()
+    torch.cuda.synchronize()
+    out = {"vg_ms": 1e3 * (time.perf_counter() - t0) / VG_REPS,
+           "energy": value.cpu(), "g_coords": gc.cpu(), "g_u": gu.cpu()}
+    if steps:
+        ht.run_lbfgs(loss_fn, params["init"], num_steps=2, loss_args=(mesh,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = ht.run_lbfgs(loss_fn, params["init"], num_steps=steps,
+                                 loss_args=(mesh,))
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+        out["losses"] = losses.cpu()
+    if nograd:
+        with torch.no_grad():
+            out["nograd"] = loss_fn(params["vg"], mesh).cpu()
+    torch.cuda.synchronize()
+    out["launches"] = counts.read()
+    return out
+
+
+def rank_main(rank, world, port, backend, folder, queue):
+    """One rank of a sharded group on ``cuda:0``: join the group, load the
+    meshes and params the parent saved, run every path of SHARDED_PATHS and
+    save the results; reports "ok" or the error on ``queue``."""
+    import os
+
+    try:
+        from hidenn_fem_tpu_torch import parallel
+        from hidenn_fem_tpu_torch.ops import banded_energy as be
+        from hidenn_fem_tpu_torch.ops import element_energy as ee
+        from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        parallel.initialize_multihost(f"localhost:{port}", world, rank,
+                                      backend)
+        dmesh = parallel.device_mesh(device=dev)
+        inputs = torch.load(os.path.join(folder, "inputs.pt"),
+                            weights_only=False)
+        counts = Counts(ee, ls, be)
+        results = {}
+        for name, fn, key, steps, nograd, _ in SHARDED_PATHS:
+            mesh, params, energy = inputs[key]
+            mesh = mesh.to(dev)
+            params = {k: {n: t.to(dev) for n, t in p.items()}
+                      for k, p in params.items()}
+            loss_fn = getattr(parallel, fn)(energy, dmesh)
+            results[name] = _sharded_run(loss_fn, params, mesh, steps,
+                                         nograd, counts)
+        torch.save(results, os.path.join(folder, f"w{world}r{rank}.pt"))
+        queue.put((rank, "ok"))
+    except Exception as e:        # reported to the parent, which fails
+        import traceback
+        queue.put((rank, f"{e!r}\n{traceback.format_exc()}"))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_group(world, backend, folder):
+    """Start ``world`` ranks of rank_main and wait for them; raises if a
+    rank fails or does not end in time (every rank is then stopped)."""
+    import multiprocessing as mp
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, port, backend, folder, queue))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        reports = [queue.get(timeout=SHARDED_TIMEOUT_S) for _ in procs]
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [msg for _, msg in reports if msg != "ok"]
+    if bad or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a rank of the {world}-rank {backend} group "
+                             f"failed: {bad or [p.exitcode for p in procs]}")
+    log(f"  {world} rank(s), {backend}: {time.perf_counter() - t0:.1f} s "
+        "with start-up")
+    return [torch.load(os.path.join(folder, f"w{world}r{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def single_rank_references(ht, inputs):
+    """The unsharded energy's value-and-grad and L-BFGS history on each
+    path's mesh (this process, no group)."""
+    refs = {}
+    for name, fn, key, steps, _, _ in SHARDED_PATHS:
+        mesh, params, energy = inputs[key]
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params["vg"].items()}
+        v = energy.total(p, mesh)
+        gc, gu = torch.autograd.grad(v, [p["coords"], p["u"]])
+        refs[name] = {"energy": v.detach(), "g_coords": gc, "g_u": gu}
+        if steps:
+            _, losses = ht.run_lbfgs(energy.total, params["init"],
+                                     num_steps=steps, loss_args=(mesh,))
+            refs[name]["losses"] = losses
+    return refs
+
+
+def phase_sharded(ht, inputs, card):
+    """Phase 10: every sharded path as a group of ranks on the one card:
+    a world of 1 on NCCL, then 2 and 4 ranks on gloo.  Every rank's
+    values and loss history bit-equal across the ranks, and within PERF.md
+    section 2's limits of the single-rank run; returns the 4-rank group's
+    launch counts a path (summed over the ranks)."""
+    import os
+    import tempfile
+
+    refs = single_rank_references(ht, inputs)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        torch.save({k: (m.to("cpu"), {n: {q: t.cpu() for q, t in p.items()}
+                                      for n, p in params.items()}, e)
+                    for k, (m, params, e) in inputs.items()},
+                   os.path.join(folder, "inputs.pt"))
+        log(f"  meshes and params saved for the ranks in "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches = {}
+        for world, backend in SHARDED_WORLDS:
+            ranks = run_group(world, backend, folder)
+            for name, fn, key, steps, nograd, needs in SHARDED_PATHS:
+                r0 = ranks[0][name]
+                for r in ranks[1:]:
+                    for f in ("energy", "g_coords", "g_u", "losses",
+                              "nograd"):
+                        if f in r0 and not torch.equal(r[name][f], r0[f]):
+                            raise AssertionError(f"{name}: {f} differs "
+                                                 "across the ranks")
+                ref = refs[name]
+                tag = f"{name}, {world} rank(s)"
+                check_close(f"{tag} energy vs single rank", r0["energy"],
+                            ref["energy"], ENERGY_RTOL, 0.0)
+                for g in ("g_coords", "g_u"):
+                    check_close(f"{tag} {g} vs single rank", r0[g], ref[g],
+                                GRAD_RTOL, GRAD_ATOL)
+                total = {}
+                for r in ranks:
+                    for k, v in r[name]["launches"].items():
+                        total[k] = total.get(k, 0) + v
+                for k in needs:
+                    if total[k] == 0:
+                        raise AssertionError(f"{k} was not launched by the "
+                                             f"{tag} path")
+                line = (f"  {tag}: value-and-grad {r0['vg_ms']:.3f} ms "
+                        "(ranks sharing one card, not multi-GPU scaling)")
+                if steps:
+                    want = ref["losses"].cpu().double()
+                    rel = (r0["losses"].double() - want).abs() / want.abs()
+                    if rel[0] > INIT_RTOL or rel.max() > F32_SPREAD_RTOL:
+                        raise AssertionError(f"{tag}: loss history off the "
+                                             f"single rank's ({rel.max()})")
+                    line += (f", {r0['step_ms']:.3f} ms per L-BFGS step; "
+                             f"history rel {float(rel.max()):.3e} to the "
+                             "single rank")
+                launched = {k: v for k, v in total.items() if v}
+                log(line + f"; launches {launched} [{card}]")
+                if world == 4:
+                    launches[name] = total
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs "
@@ -1170,7 +1634,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/9] environment")
+    log("[1/10] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -1180,7 +1644,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/9] build")
+    log("[2/10] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -1190,7 +1654,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/9] kernel vs plain at full size")
+    log("[3/10] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -1199,10 +1663,12 @@ def main():
     mesh898 = delaunay_898k(ht, mb, dev)
     banded = phase_banded(ht, be, mb, mesh898, dev, card)
     kernels += banded
+    tri898, banded_rows = phase_rows_banded(ht, be, mesh898, dev, card)
+    kernels += banded_rows
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/9] example 4 on its default route (lattice), 600 steps")
+    log("[4/10] example 4 on its default route (lattice), 600 steps")
     _, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -1210,7 +1676,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/9] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/10] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -1218,16 +1684,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/9] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/10] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/9] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/10] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/9] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    log("[8/10] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     main_losses, delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -1241,11 +1707,15 @@ def main():
                                           main_losses, name, keep))
     del mesh898
 
-    log("[9/9] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
-    solve = phase_hybrid(ht, ee, dev, card)
+    log("[9/10] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
+
+    log("[10/10] the sharded paths as groups of ranks on the one card")
+    sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
+                                               hybrid, dev), card)
 
     # each entry's launches: (the path's counts, the wrapper's counter)
     path_launches = {
@@ -1258,6 +1728,13 @@ def main():
         "banded_vg": (delaunay_launches, "banded_vg"),
         "banded_bwd": (fallback_launches[True], "banded_bwd"),
         "banded_bwd_two_pass": (fallback_launches[False], "banded_bwd"),
+        "lattice_stencil_vg_rows": (sharded["slab 922K"],
+                                    "lattice_stencil_vg_rows"),
+        "lattice_stencil_fwd_rows": (sharded["slab 922K"],
+                                     "lattice_stencil_fwd_rows"),
+        "banded_vg_rows": (sharded["banded 898K"], "banded_vg_rows"),
+        "banded_bwd_rows": (sharded["banded 898K, no ownership"],
+                            "banded_bwd_rows"),
     }
     for k in kernels:
         if k["launches"] is None:

@@ -8,14 +8,18 @@ card unless ``device`` names another device (``device.resolve_device``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .mesh.banded import _TABLES, BandedAssembly
 from .mesh.types import TriMesh
 from .models.structured_grid import StructuredGrid
 
-__all__ = ["params_from_numpy", "mesh_from_numpy", "grid_from_numpy"]
+__all__ = ["params_from_numpy", "mesh_from_numpy", "grid_from_numpy",
+           "banded_from_numpy"]
 
 
 def params_from_numpy(params_np: dict, device=None,
@@ -28,16 +32,45 @@ def params_from_numpy(params_np: dict, device=None,
             for k, v in params_np.items()}
 
 
+def banded_from_numpy(ba, device=None) -> BandedAssembly:
+    """A ``BandedAssembly`` from the tables and window sizes of a banded
+    table object (for example the JAX package's, built with any
+    ``block_multiple``), its arrays taken as they are."""
+    device = resolve_device(device)
+    tables = {name: (None if getattr(ba, name) is None else torch.tensor(
+        np.asarray(getattr(ba, name), dtype=np.int32), device=device))
+        for name in _TABLES}
+    return BandedAssembly(**tables, wnode=int(ba.wnode), wct=int(ba.wct),
+                          re_wnode=int(ba.re_wnode), re_ew=int(ba.re_ew),
+                          k=int(ba.k))
+
+
 def mesh_from_numpy(mesh, device=None, dtype=torch.float32,
-                    build_lattice=True, build_banded="auto") -> TriMesh:
+                    build_lattice=True, build_banded="auto",
+                    build_incidence=True) -> TriMesh:
     """``TriMesh.from_arrays`` on the six arrays of a mesh object (for
-    example the JAX package's ``TriMesh``); ``build_banded`` as there."""
-    return TriMesh.from_arrays(
+    example the JAX package's ``TriMesh``, padded by ``pad_mesh`` or not);
+    ``build_banded`` and ``build_incidence`` as there.  Under
+    ``build_banded="auto"``, banded tables the mesh carries (``banded``,
+    ``banded_paired``; for example rebuilt by the JAX package's
+    ``reband_for_shards``) are carried across as they are, in place of
+    tables built anew."""
+    carried = {name: getattr(mesh, name, None)
+               for name in ("banded", "banded_paired")}
+    have = build_banded == "auto" and any(
+        t is not None for t in carried.values())
+    tri = TriMesh.from_arrays(
         np.asarray(mesh.coords), np.asarray(mesh.connectivity),
         np.asarray(mesh.geom_boundary_mask), np.asarray(mesh.dirichlet_mask),
         np.asarray(mesh.neumann_mask), np.asarray(mesh.neumann_edges),
         dtype=dtype, device=device, build_lattice=build_lattice,
-        build_banded=build_banded)
+        build_banded=False if have else build_banded,
+        build_incidence=build_incidence)
+    if not have:
+        return tri
+    return dataclasses.replace(tri, **{
+        name: None if t is None else banded_from_numpy(t, device=tri.device)
+        for name, t in carried.items()})
 
 
 def grid_from_numpy(grid, device=None) -> StructuredGrid:

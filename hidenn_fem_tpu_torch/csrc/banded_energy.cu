@@ -37,7 +37,15 @@
 //
 // The node gradient (K4's second half, and K5): one thread per node, no
 // cotangent buffer.  Thread n lies in node block b = n / NB, which holds
-// nodes [b*NB, (b+1)*NB) (the rows are placed at 0).  The thread walks
+// table rows [b*NB, (b+1)*NB), placed at global node rows row_start + n:
+// row_start is 0 for the whole tables, and for the contiguous slice of
+// node blocks that one rank of an element-sharded run walks
+// (hidenn_fem_tpu/parallel/sharding.py:211-280) it is the slice's first
+// table row, as in the TPU package's [N + R] buffer trimmed to N
+// (banded_energy.py:232-297).  The wrapper passes n_nodes, the rows that
+// land below N, so no thread writes past the node table.  A slice's
+// re_nstarts are global node rows, so its slots decode as in the whole
+// tables: each placed row gets the bits of the unsharded launch.  The thread walks
 // the degree slots of its incidence row in slot order, skips the
 // sentinel, decodes each slot r to a table row and a vertex, loads the
 // row (its k indices and k node rows) and adds the vertex's cotangent: the
@@ -254,7 +262,8 @@ __device__ __forceinline__ float4 node_gradient(
 }
 
 // K4: thread i adds the energy of recompute row i (when its block owns
-// it) to the block's partial, and writes the gradient of node i.
+// it) to the block's partial, and writes the gradient of node row i into
+// grad[row_start + i].
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 banded_vg_kernel(const float4* __restrict__ node,
@@ -264,8 +273,8 @@ banded_vg_kernel(const float4* __restrict__ node,
                  const int* __restrict__ own_hi, long long rows_per_block,
                  long long n_rows, const int* __restrict__ inc_rel,
                  long long nodes_per_block, int degree, long long n_nodes,
-                 Material m, float* __restrict__ partials,
-                 float4* __restrict__ grad) {
+                 long long row_start, Material m,
+                 float* __restrict__ partials, float4* __restrict__ grad) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   float acc = 0.f;
   if (i < n_rows) {
@@ -278,15 +287,15 @@ banded_vg_kernel(const float4* __restrict__ node,
     }
   }
   if (i < n_nodes)
-    grad[i] = node_gradient<K, false>(
+    grad[row_start + i] = node_gradient<K, false>(
         node, starts, rel, rows_per_block, inc_rel + i * degree, degree,
         i / nodes_per_block, nullptr, (int)(rows_per_block * K), m);
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-// K5: grad[n] = *scale x the gradient of node n, over the recompute
-// windows or (TwoPass) the two-pass windows.
+// K5: grad[row_start + n] = *scale x the gradient of node row n, over the
+// recompute windows or (TwoPass) the two-pass windows.
 template <int K, bool TwoPass>
 __global__ void __launch_bounds__(kThreads)
 banded_grad_kernel(const float4* __restrict__ node,
@@ -295,7 +304,7 @@ banded_grad_kernel(const float4* __restrict__ node,
                    const int* __restrict__ inc_rel,
                    long long nodes_per_block, int degree,
                    const int* __restrict__ ct_starts, int sentinel,
-                   long long n_nodes, Material m,
+                   long long n_nodes, long long row_start, Material m,
                    const float* __restrict__ scale,
                    float4* __restrict__ grad) {
   const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -304,7 +313,7 @@ banded_grad_kernel(const float4* __restrict__ node,
       node, starts, rel, rows_per_block, inc_rel + n * degree, degree,
       n / nodes_per_block, ct_starts, sentinel, m);
   const float s = __ldg(scale);
-  grad[n] = make_float4(g.x * s, g.y * s, g.z * s, g.w * s);
+  grad[row_start + n] = make_float4(g.x * s, g.y * s, g.z * s, g.w * s);
 }
 
 unsigned blocks_for(long long n) {
@@ -315,11 +324,11 @@ template <int K, bool TwoPass>
 void launch_grad(cudaStream_t st, const float4* node, const int* starts,
                  const int* rel, long long rows_per_block, const int* inc,
                  long long nodes_per_block, int degree, const int* ct_starts,
-                 int sentinel, long long n_nodes, const Material& m,
-                 const float* scale, float4* grad) {
+                 int sentinel, long long n_nodes, long long row_start,
+                 const Material& m, const float* scale, float4* grad) {
   banded_grad_kernel<K, TwoPass><<<blocks_for(n_nodes), kThreads, 0, st>>>(
       node, starts, rel, rows_per_block, inc, nodes_per_block, degree,
-      ct_starts, sentinel, n_nodes, m, scale, grad);
+      ct_starts, sentinel, n_nodes, row_start, m, scale, grad);
 }
 
 // Registers per thread and resident CTAs per SM of one kernel.
@@ -391,8 +400,9 @@ int hdnn_banded_fwd(int device, const void* node, const void* starts,
   return (int)cudaGetLastError();
 }
 
-// K4: the owned rows' energy into *out and the node gradient [n_nodes, 4]
-// into grad, from the recompute tables (starts = re_nstarts, rel =
+// K4: the owned rows' energy into *out and the gradient of the first
+// n_nodes node rows of the tables into grad rows [row_start, row_start +
+// n_nodes), from the recompute tables (starts = re_nstarts, rel =
 // re_conn_rel [Br, EW, k], own_lo/own_hi [Br], inc_rel = re_inc_rel
 // [Br, nodes_per_block, degree], sentinel k*EW), in one launch and the
 // partial sum; partials must hold ceil(max(n_rows, n_nodes) / kThreads)
@@ -403,7 +413,8 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
                    float f, float nu, float shear, float w_sum,
                    void* partials, int n_partials, void* out,
                    const void* inc_rel, long long nodes_per_block,
-                   int degree, long long n_nodes, void* grad, void* stream) {
+                   int degree, long long n_nodes, long long row_start,
+                   void* grad, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
@@ -420,17 +431,17 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
     case 3:
       banded_vg_kernel<3><<<n_partials, kThreads, 0, st>>>(
           nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, m, p, g);
+          degree, n_nodes, row_start, m, p, g);
       break;
     case 4:
       banded_vg_kernel<4><<<n_partials, kThreads, 0, st>>>(
           nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, m, p, g);
+          degree, n_nodes, row_start, m, p, g);
       break;
     case 6:
       banded_vg_kernel<6><<<n_partials, kThreads, 0, st>>>(
           nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, m, p, g);
+          degree, n_nodes, row_start, m, p, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -442,9 +453,10 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   return (int)cudaGetLastError();
 }
 
-// K5: the node gradient [n_nodes, 4] times *scale into grad, in one
-// launch.  Node n sums the slots of inc_rel [Bn, nodes_per_block, degree]
-// that are not `sentinel`, over the window tables starts/rel
+// K5: the gradient of the first n_nodes node rows of the tables times
+// *scale into grad rows [row_start, row_start + n_nodes), in one launch.
+// Node row n sums the slots of inc_rel [Bn, nodes_per_block, degree] that
+// are not `sentinel`, over the window tables starts/rel
 // [B, rows_per_block, k]: the two-pass windows relative to ct_starts[b]
 // when ct_starts is given, else the recompute windows.
 int hdnn_banded_bwd(int device, const void* node, const void* starts,
@@ -452,8 +464,8 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
                     float f, float nu, float shear, float w_sum,
                     const void* inc_rel, long long nodes_per_block,
                     int degree, const void* ct_starts, int sentinel,
-                    long long n_nodes, const void* scale, void* grad,
-                    void* stream) {
+                    long long n_nodes, long long row_start,
+                    const void* scale, void* grad, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
@@ -470,17 +482,17 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
     case 3:
       (two_pass ? launch_grad<3, true> : launch_grad<3, false>)(
           st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
-          sentinel, n_nodes, m, sc, g);
+          sentinel, n_nodes, row_start, m, sc, g);
       break;
     case 4:
       (two_pass ? launch_grad<4, true> : launch_grad<4, false>)(
           st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
-          sentinel, n_nodes, m, sc, g);
+          sentinel, n_nodes, row_start, m, sc, g);
       break;
     case 6:
       (two_pass ? launch_grad<6, true> : launch_grad<6, false>)(
           st, nd, s, r, rows_per_block, inc, nodes_per_block, degree, cs,
-          sentinel, n_nodes, m, sc, g);
+          sentinel, n_nodes, row_start, m, sc, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -56,6 +56,21 @@
 // so K6 and K7 give the same energy bits.  Tiles mask the ragged edges
 // themselves: any nx, ny >= 2.
 //
+// Row windows (the sharded lattice energy, hidenn_fem_tpu/parallel/
+// sharded_slab.py, where the TPU kernels took a `row0` SMEM scalar that
+// offset their window DMAs and ownership masks, lattice_slab.py:154-194,
+// 317-320): both kernels walk the node rows [row_lo, row_hi) of the whole
+// table.  The tiles start at row_lo, the grid covers only the window's
+// tiles (each stages its one-row halo above and below), node threads
+// write only rows inside the window, and a quad counts its energy when
+// its n00 row lies in the window.  Windows that partition [0, nx) thus
+// partition the quads, and each node of a window gathers the same <= 4
+// quads, evaluated by the same code in the same order, as in the
+// whole-lattice launch (row_lo = 0, row_hi = nx): its gradient has the
+// same bits.  The sel/t1/t2 masks are read by global quad row.  (The TPU
+// kernel owned a quad by its second row, lattice_slab.py:161-170; only
+// the sum over windows is held to it.)
+//
 // Built by hidenn_fem_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc
@@ -99,6 +114,7 @@ struct Lattice {
   const float* t1;     // [nx-1, ny-1] presence weights (masked kernels)
   const float* t2;
   int phase;           // kParity: quad (i, j) is up iff i + j + phase even
+  int row_lo, row_hi;  // the node rows walked (the whole lattice: 0, nx)
 };
 
 struct Quad {
@@ -140,11 +156,12 @@ __device__ __forceinline__ int slot2(bool up) {
   return 2;  // kR01
 }
 
-// The tile of CTA `blockIdx.x`: its first owned node (i0, j0).
+// The tile of CTA `blockIdx.x`: its first owned node (i0, j0), the tiles
+// laid from the window's first row.
 __device__ __forceinline__ void tile_origin(const Lattice& L, int* i0,
                                             int* j0) {
   const int tiles_j = (L.ny + kTileCols - 1) / kTileCols;
-  *i0 = (int)(blockIdx.x / tiles_j) * kTileRows;
+  *i0 = L.row_lo + (int)(blockIdx.x / tiles_j) * kTileRows;
   *j0 = (int)(blockIdx.x % tiles_j) * kTileCols;
 }
 
@@ -227,7 +244,7 @@ __device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
 }
 
 // K7: thread (ty, tx) >= (1, 1) of the tile adds the energy of the quad
-// whose n00 is its node.
+// whose n00 is its node, when that node's row lies in the window.
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 stencil_fwd_kernel(Lattice L, Material m, float* __restrict__ partials) {
@@ -236,7 +253,7 @@ stencil_fwd_kernel(Lattice L, Material m, float* __restrict__ partials) {
   const int ty = threadIdx.x / kQuadCols, tx = threadIdx.x % kQuadCols;
   const int qi = i0 - 1 + ty, qj = j0 - 1 + tx;
   float acc = 0.f;
-  if (ty >= 1 && tx >= 1 && quad_exists(L, qi, qj))
+  if (ty >= 1 && tx >= 1 && qi < L.row_hi && quad_exists(L, qi, qj))
     acc = quad_energy(load_quad<kDiag, kMasked>(L, qi, qj), m);
   const float total = block_sum<float, kThreads / 32>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -290,7 +307,8 @@ stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
   T.t1[q] = exists ? Q.t1 : 0.f;
   T.t2[q] = exists ? Q.t2 : 0.f;
   T.up[q] = Q.up;
-  const bool owner = ty >= 1 && tx >= 1;
+  // the node (qi, qj) of this thread, when it lies in the window
+  const bool owner = ty >= 1 && tx >= 1 && qi < L.row_hi;
   const float acc = owner ? e : 0.f;
   __syncthreads();
 
@@ -335,14 +353,17 @@ cudaError_t launch_masked(bool vg, const Lattice& L, const Material& m,
                               st);
 }
 
-int run(int device, bool vg, const void* node, int nx, int ny, int diag,
-        int phase, const void* sel, const void* t1, const void* t2, float f,
-        float nu, float shear, float w_sum, void* grad, void* partials,
-        int n_partials, void* out, void* stream) {
+int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
+        int row_hi, int diag, int phase, const void* sel, const void* t1,
+        const void* t2, float f, float nu, float shear, float w_sum,
+        void* grad, void* partials, int n_partials, void* out,
+        void* stream) {
+  if (row_lo < 0 || row_lo >= row_hi || row_hi > nx)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Lattice L{(const float4*)node, nx, ny, (const float*)sel,
-                  (const float*)t1, (const float*)t2, phase};
+                  (const float*)t1, (const float*)t2, phase, row_lo, row_hi};
   const Material m = material(f, nu, shear, w_sum);
   float4* g = (float4*)grad;
   float* p = (float*)partials;
@@ -367,7 +388,8 @@ int run(int device, bool vg, const void* node, int nx, int ny, int diag,
 
 extern "C" {
 
-// the number of tiles (CTAs, energy partials) of an nx-by-ny lattice
+// the number of tiles (CTAs, energy partials) of an nx-by-ny lattice, or
+// of a window of nx rows of a lattice ny wide
 int hdnn_lattice_partials(int nx, int ny) {
   return ((nx + kTileRows - 1) / kTileRows) *
          ((ny + kTileCols - 1) / kTileCols);
@@ -384,8 +406,8 @@ int hdnn_lattice_stencil_fwd(int device, const void* node, int nx, int ny,
                              float nu, float shear, float w_sum,
                              void* partials, int n_partials, void* out,
                              void* stream) {
-  return run(device, false, node, nx, ny, diag, phase, sel, t1, t2, f, nu,
-             shear, w_sum, nullptr, partials, n_partials, out, stream);
+  return run(device, false, node, nx, ny, 0, nx, diag, phase, sel, t1, t2,
+             f, nu, shear, w_sum, nullptr, partials, n_partials, out, stream);
 }
 
 // K6: as K7, and the node gradient [nx * ny, 4] (float4 rows) into grad.
@@ -395,8 +417,37 @@ int hdnn_lattice_stencil_vg(int device, const void* node, int nx, int ny,
                             float nu, float shear, float w_sum, void* grad,
                             void* partials, int n_partials, void* out,
                             void* stream) {
-  return run(device, true, node, nx, ny, diag, phase, sel, t1, t2, f, nu,
-             shear, w_sum, grad, partials, n_partials, out, stream);
+  return run(device, true, node, nx, ny, 0, nx, diag, phase, sel, t1, t2,
+             f, nu, shear, w_sum, grad, partials, n_partials, out, stream);
+}
+
+// K7 over the node rows [row_lo, row_hi) of the lattice (0 <= row_lo <
+// row_hi <= nx): the energy of the quads whose n00 row lies there.
+// partials must hold hdnn_lattice_partials(row_hi - row_lo, ny) floats.
+int hdnn_lattice_stencil_fwd_rows(int device, const void* node, int nx,
+                                  int ny, int row_lo, int row_hi, int diag,
+                                  int phase, const void* sel, const void* t1,
+                                  const void* t2, float f, float nu,
+                                  float shear, float w_sum, void* partials,
+                                  int n_partials, void* out, void* stream) {
+  return run(device, false, node, nx, ny, row_lo, row_hi, diag, phase, sel,
+             t1, t2, f, nu, shear, w_sum, nullptr, partials, n_partials, out,
+             stream);
+}
+
+// K6 over the node rows [row_lo, row_hi): that energy, and the gradient of
+// the window's nodes into their rows of grad [nx * ny, 4]; other rows of
+// grad are not written.
+int hdnn_lattice_stencil_vg_rows(int device, const void* node, int nx,
+                                 int ny, int row_lo, int row_hi, int diag,
+                                 int phase, const void* sel, const void* t1,
+                                 const void* t2, float f, float nu,
+                                 float shear, float w_sum, void* grad,
+                                 void* partials, int n_partials, void* out,
+                                 void* stream) {
+  return run(device, true, node, nx, ny, row_lo, row_hi, diag, phase, sel,
+             t1, t2, f, nu, shear, w_sum, grad, partials, n_partials, out,
+             stream);
 }
 
 const char* hdnn_error_string(int err) {

@@ -106,12 +106,16 @@ class BandedAssembly:
 
 def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
                           incidence: np.ndarray,
-                          window_limit: int = WINDOW_LIMIT, device=None
+                          window_limit: int = WINDOW_LIMIT,
+                          block_multiple: int = 1, device=None
                           ) -> Optional[BandedAssembly]:
     """A BandedAssembly (tensors on ``device``, the card unless given), or
     None if no candidate block count keeps every node window under
-    ``window_limit``.  (The JAX package's ``block_multiple``, for
-    element-sharded runs, comes with the sharded banded route.)"""
+    ``window_limit``.
+
+    ``block_multiple``: every block count is a multiple of it (the rank
+    count of an element-sharded run, where each rank walks a contiguous
+    slice of the blocks: ``parallel/sharding.py``)."""
     device = resolve_device(device)
     conn = np.asarray(connectivity, dtype=np.int64)
     ne = conn.shape[0]
@@ -122,6 +126,8 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
     # ---- forward tables: element blocks -> node windows
     fwd = None
     for b in _BLOCK_CANDIDATES:
+        if b % block_multiple:
+            continue
         eb = -(-ne // b)
         pad = b * eb - ne
         # pad with a degenerate row of the last element's first node: zero
@@ -147,6 +153,8 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
     n_ct_rows = ne * k
     bwd = None
     for bn in _BLOCK_CANDIDATES:
+        if bn % block_multiple:
+            continue
         nb = -(-n // bn)
         pad = bn * nb - n
         inc_p = np.concatenate(
@@ -176,7 +184,8 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
 
     starts, conn_rel, wnode = fwd
     ct_starts, inc_rel, wct = bwd
-    re = _build_recompute_tables(conn, inc, n_nodes, ne, window_limit)
+    re = _build_recompute_tables(conn, inc, n_nodes, ne, window_limit,
+                                 block_multiple)
     re_kwargs = {}
     if re is not None:
         nstarts, estarts, re_conn_rel, re_inc_rel, re_wnode, re_ew = re
@@ -192,16 +201,20 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
                           wnode=wnode, wct=wct, k=k, **re_kwargs)
 
 
-def _build_recompute_tables(conn, inc, n_nodes, ne, window_limit):
+def _build_recompute_tables(conn, inc, n_nodes, ne, window_limit,
+                            block_multiple=1):
     """Tables of the recompute backward (see the class docstring): the
-    smallest node-block count whose element windows keep both k*EW and the
-    node window under ``window_limit``, or None."""
+    smallest node-block count (a multiple of ``block_multiple``) whose
+    element windows keep both k*EW and the node window under
+    ``window_limit``, or None."""
     n = inc.shape[0]
     maxdeg = inc.shape[1]
     k = conn.shape[1]
     rmin = conn.min(axis=1)
     rmax = conn.max(axis=1)
     for br in _BLOCK_CANDIDATES:
+        if br % block_multiple:
+            continue
         nb = -(-n // br)
         pad = br * nb - n
         inc_p = np.concatenate(
@@ -397,17 +410,20 @@ def strip_connectivity(connectivity: np.ndarray):
 
 
 def build_striped_assembly(connectivity: np.ndarray, n_nodes: int,
-                           window_limit: int = WINDOW_LIMIT, device=None
+                           window_limit: int = WINDOW_LIMIT,
+                           block_multiple: int = 1, device=None
                            ) -> Optional[BandedAssembly]:
     """Strip-merged BandedAssembly (``k=6``), or None when the mesh does
-    not strip or band."""
+    not strip or band; ``block_multiple`` as in
+    ``build_banded_assembly``."""
     sk = strip_connectivity(connectivity)
     if sk is None:
         return None
     strips, keep = sk
     inc = _incidence_k(strips, n_nodes, keep=keep)
     return build_banded_assembly(strips, n_nodes, inc,
-                                 window_limit=window_limit, device=device)
+                                 window_limit=window_limit,
+                                 block_multiple=block_multiple, device=device)
 
 
 def _incidence_k(conn: np.ndarray, n_nodes: int,
@@ -438,16 +454,19 @@ def _incidence_k(conn: np.ndarray, n_nodes: int,
 
 
 def build_paired_assembly(connectivity: np.ndarray, n_nodes: int,
-                          window_limit: int = WINDOW_LIMIT, device=None
+                          window_limit: int = WINDOW_LIMIT,
+                          block_multiple: int = 1, device=None
                           ) -> Optional[BandedAssembly]:
     """Quad-paired BandedAssembly (``k=4``), or None when the mesh does
-    not pair or band."""
+    not pair or band; ``block_multiple`` as in
+    ``build_banded_assembly``."""
     paired = pair_connectivity(connectivity)
     if paired is None:
         return None
     inc = _incidence_k(paired, n_nodes)
     return build_banded_assembly(paired, n_nodes, inc,
-                                 window_limit=window_limit, device=device)
+                                 window_limit=window_limit,
+                                 block_multiple=block_multiple, device=device)
 
 
 def reorder_mesh(mesh, build_banded="auto"):

@@ -117,10 +117,15 @@ class TriMesh:
     def from_arrays(cls, coords, connectivity, geom_boundary_mask=None,
                     dirichlet_mask=None, neumann_mask=None,
                     neumann_edges=None, dtype=torch.float32,
-                    device=None, build_banded="auto", build_lattice=True,
-                    build_fused=True) -> "TriMesh":
+                    device=None, build_incidence=True, build_banded="auto",
+                    build_lattice=True, build_fused=True) -> "TriMesh":
         """Normalize host arrays into a TriMesh on ``device`` (the card
         unless given), building the incidence and fused edge tables.
+
+        build_incidence: False leaves ``incidence`` None, so that the
+        energy backward scatter-adds (element-sharded meshes need it), and
+        then builds neither the banded nor the fused tables, as in the JAX
+        package.
 
         build_banded: "auto" builds the banded tables when a gather table
         would pass 250,000 rows (``max(N, 3 Ne)``, the JAX package's
@@ -154,7 +159,8 @@ class TriMesh:
                             ("neumann_edges", edges_np)):
             if table.size and (table.min() < 0 or table.max() >= n):
                 raise ValueError(f"{name} indexes nodes outside [0, {n})")
-        inc_np = build_incidence_table(conn_np, n) if conn_np.size else None
+        inc_np = (build_incidence_table(conn_np, n)
+                  if build_incidence and conn_np.size else None)
 
         banded = banded_paired = None
         want_banded = (build_banded in (True, "nopair") or (
@@ -177,7 +183,8 @@ class TriMesh:
                                      device=device)
 
         fused_conn = fused_inc = None
-        if build_fused and conn_np.size and edges_np.size:
+        if build_fused and build_incidence and conn_np.size \
+                and edges_np.size:
             edge_tri = np.concatenate(
                 [edges_np, edges_np[:, 1:2]], axis=1)     # (n0, n1, n1)
             fused_conn = np.concatenate(
@@ -200,3 +207,9 @@ class TriMesh:
                              if fused_inc is not None else None),
             lattice=lattice,
         )
+
+    def astuple(self):
+        """The reference's 6-tuple contract: (coords, connectivity,
+        geom_boundary_mask, dirichlet_mask, neumann_mask, neumann_edges)."""
+        return (self.coords, self.connectivity, self.geom_boundary_mask,
+                self.dirichlet_mask, self.neumann_mask, self.neumann_edges)

@@ -65,6 +65,11 @@ class StructuredGrid:
     zigzag_phase: int = 0
 
     @property
+    def neumann_edge_mask(self) -> Optional[torch.Tensor]:
+        """The right face's segment mask (the JAX package's alias)."""
+        return self.neumann_edge_masks.get("right")
+
+    @property
     def nx(self) -> int:
         return self.coords.shape[0]
 

@@ -27,11 +27,16 @@ In this module:
   ``launch_counts``).  ``banded_vg`` and ``banded_bwd`` return node
   gradients: their kernels include the incidence sum over the windows.
   ``kernel_occupancy``: the registers and resident CTAs of K4 and K5.
+* ``banded_vg_rows`` (K4), ``banded_bwd_rows`` (K5): the same kernels on
+  one rank's contiguous slice of the recompute tables
+  (``parallel/sharding.py``), the gradient rows placed at global row
+  ``row_start`` of a zeroed [N, 4] table, as the TPU package's
+  ``_recompute_vg``/``_recompute_bwd`` place them.
 * ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
   same functions in plain torch, walking the same tables (window gather,
   the per-layout energy of ``element_energy_plain``'s algebra and the
   cotangents of ``element_cotangent_plain``, the ownership mask, the
-  block-relative incidence sum).
+  block-relative incidence sum), ``row_start`` included.
 * ``banded_element_energy``: node table -> energy as an autograd Function,
   as the JAX package's custom_vjp does: with a gradient wanted and
   ownership intervals present, the forward runs K4 and keeps its gradient;
@@ -57,6 +62,7 @@ from .element_energy import _abs_jax, _constants, _strain, \
     element_cotangent_plain
 
 __all__ = ["banded_element_energy", "banded_fwd", "banded_vg", "banded_bwd",
+           "banded_vg_rows", "banded_bwd_rows",
            "banded_fwd_plain", "banded_vg_plain", "banded_bwd_plain",
            "kernel_occupancy", "launch_counts", "reset_launch_counts"]
 
@@ -66,7 +72,8 @@ _TRIS = {3: ((0, 1, 2),),
          6: ((0, 1, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5))}
 
 # launches of each kernel wrapper since the last reset
-launch_counts = {"banded_fwd": 0, "banded_vg": 0, "banded_bwd": 0}
+launch_counts = {"banded_fwd": 0, "banded_vg": 0, "banded_bwd": 0,
+                 "banded_vg_rows": 0, "banded_bwd_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -102,13 +109,28 @@ def _row_cotangents(g, E, nu, w_sum) -> torch.Tensor:
     return cot
 
 
-def _recompute_sum(cot, ba, n_nodes):
-    """Node gradients from the recompute windows' row cotangents
-    cot [Br*EW, k, 4] through ``re_inc_rel`` (sentinel k*EW)."""
+def _placed_rows(n_rows: int, row_start: int, n_nodes: int) -> int:
+    """How many of ``n_rows`` table rows placed at ``row_start`` land below
+    ``n_nodes`` (the rest are table padding)."""
+    return max(0, min(n_rows, n_nodes - row_start))
+
+
+def _recompute_sum(cot, ba, n_nodes, row_start=0):
+    """Node gradients [n_nodes, 4] from the recompute windows' row
+    cotangents cot [Br*EW, k, 4] through ``re_inc_rel`` (sentinel k*EW),
+    the table's node rows placed at ``row_start``."""
     kew = ba.k * ba.re_ew
     base = torch.arange(ba.re_inc_rel.shape[0], device=cot.device) * kew
-    return window_incidence_sum(cot.reshape(-1, cot.shape[-1]),
-                                ba.re_inc_rel, base, kew, n_nodes)
+    rows = window_incidence_sum(cot.reshape(-1, cot.shape[-1]),
+                                ba.re_inc_rel, base, kew,
+                                ba.re_inc_rel.shape[0]
+                                * ba.re_inc_rel.shape[1])
+    if row_start == 0 and rows.shape[0] >= n_nodes:
+        return rows[:n_nodes]
+    take = _placed_rows(rows.shape[0], row_start, n_nodes)
+    out = rows.new_zeros((n_nodes, rows.shape[-1]))
+    out[row_start:row_start + take] = rows[:take]
+    return out
 
 
 def banded_fwd_plain(node, ba, E, nu, w_sum) -> torch.Tensor:
@@ -118,10 +140,11 @@ def banded_fwd_plain(node, ba, E, nu, w_sum) -> torch.Tensor:
                                    E, nu, w_sum))
 
 
-def banded_vg_plain(node, ba, E, nu, w_sum
+def banded_vg_plain(node, ba, E, nu, w_sum, row_start: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The function K4 computes, in plain torch: (energy of the owned rows
-    of the recompute windows, node gradient [N, 4])."""
+    of the recompute windows, node gradient [N, 4] with the tables' node
+    rows placed at ``row_start``)."""
     with torch.no_grad():
         g = _rows(node.detach(), ba.re_nstarts, ba.re_conn_rel)
         e = _row_energies(g, E, nu, w_sum).reshape(-1, ba.re_ew)
@@ -129,22 +152,27 @@ def banded_vg_plain(node, ba, E, nu, w_sum
         owned = (col >= ba.re_own_lo[:, None]) & (col < ba.re_own_hi[:, None])
         energy = torch.sum(torch.where(owned, e, torch.zeros_like(e)))
         grad = _recompute_sum(_row_cotangents(g, E, nu, w_sum), ba,
-                              node.shape[0])
+                              node.shape[0], row_start)
         return energy, grad
 
 
-def banded_bwd_plain(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
+def banded_bwd_plain(node, ba, ct, E, nu, w_sum,
+                     row_start: int = 0) -> torch.Tensor:
     """The function K5 computes, in plain torch: ``ct`` times the node
-    gradient [N, 4], from the recompute windows when the tables have them,
-    else from the forward tables' cotangents through the two-pass windows
-    (``ct_starts``, ``inc_rel``, sentinel ``wct``)."""
+    gradient [N, 4], from the recompute windows when the tables have them
+    (their node rows placed at ``row_start``), else from the forward
+    tables' cotangents through the two-pass windows (``ct_starts``,
+    ``inc_rel``, sentinel ``wct``)."""
     with torch.no_grad():
         node = node.detach()
         n = node.shape[0]
         if ba.re_conn_rel is not None:
             g = _rows(node, ba.re_nstarts, ba.re_conn_rel)
-            grad = _recompute_sum(_row_cotangents(g, E, nu, w_sum), ba, n)
+            grad = _recompute_sum(_row_cotangents(g, E, nu, w_sum), ba, n,
+                                  row_start)
         else:
+            if row_start:
+                raise ValueError("row_start needs the recompute tables")
             cot = _row_cotangents(_rows(node, ba.starts, ba.conn_rel), E, nu,
                                   w_sum)
             grad = window_incidence_sum(cot.reshape(-1, 4), ba.inc_rel,
@@ -165,10 +193,10 @@ def _library() -> ctypes.CDLL:
         vp, i, vp, vp]
     lib.hdnn_banded_fwd.restype = i
     lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
-        vp, i, vp, vp, ll, i, ll, vp, vp]
+        vp, i, vp, vp, ll, i, ll, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
     lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, i] + mat + [
-        vp, ll, i, vp, i, ll, vp, vp, vp]
+        vp, ll, i, vp, i, ll, ll, vp, vp, vp]
     lib.hdnn_banded_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
     lib.hdnn_banded_occupancy.argtypes = [i, i, i, pi, pi]
@@ -223,33 +251,49 @@ def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
     return out
 
 
-def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on the card: (energy of the owned rows of the recompute windows,
-    node gradient [N, 4]) in one launch and the partial sum, with no
-    cotangent buffer.  Needs the recompute tables with ownership."""
+def _vg_launch(name, node, ba, E, nu, w_sum, row_start):
     _check(node, ba, ba.re_conn_rel, ba.re_nstarts, ba.re_own_lo,
            ba.re_own_hi, ba.re_inc_rel)
     lib = _library()
     rel = ba.re_conn_rel
+    inc = ba.re_inc_rel
     n_rows = rel.shape[0] * rel.shape[1]
+    n_nodes = _placed_rows(inc.shape[0] * inc.shape[1], row_start,
+                           node.shape[0])
     # one thread per recompute row (its energy) and per node (its gradient)
-    n_part = -(-max(n_rows, node.shape[0])
-               // lib.hdnn_banded_threads_per_block())
+    n_part = -(-max(n_rows, n_nodes) // lib.hdnn_banded_threads_per_block())
     dev = node.device
     partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    grad = torch.empty_like(node)
-    inc = ba.re_inc_rel
+    grad = (torch.empty_like(node) if row_start == 0 and n_nodes
+            == node.shape[0] else torch.zeros_like(node))
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = _head(node, ba, ba.re_nstarts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_vg(
         *head[:4], ba.re_own_lo.data_ptr(), ba.re_own_hi.data_ptr(),
         *head[4:], partials.data_ptr(), n_part,
         out.data_ptr(), inc.data_ptr(), inc.shape[1], inc.shape[2],
-        node.shape[0], grad.data_ptr(), stream)
-    raise_on(lib, err, "banded_vg")
-    launch_counts["banded_vg"] += 1
+        n_nodes, row_start, grad.data_ptr(), stream)
+    raise_on(lib, err, name)
+    launch_counts[name] += 1
     return out, grad
+
+
+def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on the card: (energy of the owned rows of the recompute windows,
+    node gradient [N, 4]) in one launch and the partial sum, with no
+    cotangent buffer.  Needs the recompute tables with ownership."""
+    return _vg_launch("banded_vg", node, ba, E, nu, w_sum, 0)
+
+
+def banded_vg_rows(node, ba, E, nu, w_sum, row_start: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on the card over one rank's slice of the recompute tables:
+    (energy of the slice's owned rows, node gradient [N, 4] with the
+    slice's node rows placed at ``row_start``, every other row 0).  The
+    placed rows equal the unsharded K4's bit for bit."""
+    return _vg_launch("banded_vg_rows", node, ba, E, nu, w_sum,
+                      int(row_start))
 
 
 def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
@@ -257,6 +301,22 @@ def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
     times the node gradient [N, 4], in one launch with no cotangent
     buffer, over the recompute windows when the tables have them, else
     over the two-pass windows."""
+    return _bwd_launch("banded_bwd", node, ba, ct, E, nu, w_sum, 0)
+
+
+def banded_bwd_rows(node, ba, ct, E, nu, w_sum, row_start: int
+                    ) -> torch.Tensor:
+    """K5 on the card over one rank's slice of the recompute tables:
+    ``ct`` times the node gradient [N, 4] with the slice's node rows
+    placed at ``row_start``, every other row 0 (bit-equal to the
+    unsharded K5's rows)."""
+    if ba.re_conn_rel is None:
+        raise ValueError("banded_bwd_rows needs the recompute tables")
+    return _bwd_launch("banded_bwd_rows", node, ba, ct, E, nu, w_sum,
+                       int(row_start))
+
+
+def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start):
     if ba.re_conn_rel is not None:
         starts, rel, inc = ba.re_nstarts, ba.re_conn_rel, ba.re_inc_rel
         ct_starts, sentinel = None, ba.k * ba.re_ew
@@ -270,15 +330,22 @@ def banded_bwd(node, ba, ct, E, nu, w_sum) -> torch.Tensor:
         raise ValueError("ct must lie on the node table's device")
     lib = _library()
     dev = node.device
-    grad = torch.empty_like(node)
+    n_nodes = _placed_rows(inc.shape[0] * inc.shape[1], row_start,
+                           node.shape[0])
+    if row_start == 0 and n_nodes == node.shape[0]:
+        grad = torch.empty_like(node)
+    else:
+        grad = torch.zeros_like(node)
+        if n_nodes == 0:        # the slice holds table padding only
+            return grad
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = _head(node, ba, starts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_bwd(
         *head[:5], *head[6:], inc.data_ptr(), inc.shape[1], inc.shape[2],
         None if ct_starts is None else ct_starts.data_ptr(), sentinel,
-        node.shape[0], ct.data_ptr(), grad.data_ptr(), stream)
-    raise_on(lib, err, "banded_bwd")
-    launch_counts["banded_bwd"] += 1
+        n_nodes, row_start, ct.data_ptr(), grad.data_ptr(), stream)
+    raise_on(lib, err, name)
+    launch_counts[name] += 1
     return grad
 
 
@@ -307,15 +374,21 @@ def _single_pass(ba) -> bool:
 class _BandedEnergy(torch.autograd.Function):
     """Energy of the node table over the banded tables ``ba``.  With
     ``want_grad`` and ownership intervals the forward runs K4 and keeps
-    its gradient; otherwise it runs K3 and the backward K5.  Tensors on
-    the CPU run the plain versions."""
+    its gradient; otherwise it runs K3 and the backward K5.  With a
+    ``row_start`` (one rank's slice of the tables) the gradient rows are
+    placed there (K4 and K5's row variants).  Tensors on the CPU run the
+    plain versions."""
 
     @staticmethod
-    def forward(ctx, node, want_grad, ba, E, nu, w_sum):
-        ctx.ba, ctx.args = ba, (E, nu, w_sum)
+    def forward(ctx, node, want_grad, ba, E, nu, w_sum, row_start):
+        ctx.ba, ctx.args, ctx.row_start = ba, (E, nu, w_sum), row_start
         if want_grad and _single_pass(ba):
-            e, g = (banded_vg(node, ba, E, nu, w_sum) if node.is_cuda
-                    else banded_vg_plain(node, ba, E, nu, w_sum))
+            if not node.is_cuda:
+                e, g = banded_vg_plain(node, ba, E, nu, w_sum, row_start or 0)
+            elif row_start is None:
+                e, g = banded_vg(node, ba, E, nu, w_sum)
+            else:
+                e, g = banded_vg_rows(node, ba, E, nu, w_sum, row_start)
             ctx.single_pass = True
             ctx.save_for_backward(g)
             return e
@@ -327,26 +400,36 @@ class _BandedEnergy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (saved,) = ctx.saved_tensors
+        row_start = ctx.row_start
         if ctx.single_pass:
             grad = ct * saved
-        elif saved.is_cuda:
+        elif not saved.is_cuda:
+            grad = banded_bwd_plain(saved, ctx.ba, ct, *ctx.args,
+                                    row_start or 0)
+        elif row_start is None:
             grad = banded_bwd(saved, ctx.ba, ct, *ctx.args)
         else:
-            grad = banded_bwd_plain(saved, ctx.ba, ct, *ctx.args)
-        return grad, None, None, None, None, None
+            grad = banded_bwd_rows(saved, ctx.ba, ct, *ctx.args, row_start)
+        return grad, None, None, None, None, None, None
 
 
 def banded_element_energy(node: torch.Tensor, ba, E: float, nu: float,
-                          w_sum: float) -> torch.Tensor:
+                          w_sum: float, row_start=None) -> torch.Tensor:
     """Total elastic energy of the packed node table ``node`` [N, 4] over
     the banded tables ``ba`` (``mesh.banded_paired`` or ``mesh.banded``),
     differentiable in ``node``.
 
     When a gradient will be taken (grad mode on and ``node`` requiring
     grad) the forward is the single-pass K4, as ``jax.value_and_grad``
-    picks the JAX package's; under ``torch.no_grad()`` it is K3."""
+    picks the JAX package's; under ``torch.no_grad()`` it is K3.
+
+    ``row_start``: ``ba`` is one rank's slice of the tables (the TPU
+    package's ``_banded_energy_rows``); the energy is the slice's part and
+    the gradient has the slice's node rows placed at global row
+    ``row_start``, every other row 0."""
     want_grad = torch.is_grad_enabled() and node.requires_grad
     if node.is_cuda:
         node = node.contiguous()
     return _BandedEnergy.apply(node, want_grad, ba, float(E), float(nu),
-                               float(w_sum))
+                               float(w_sum),
+                               None if row_start is None else int(row_start))

@@ -22,6 +22,12 @@ In this module:
   (CUDA float32 tensors only; each launch adds one to ``launch_counts``);
 * ``lattice_stencil_fwd_plain`` / ``lattice_stencil_vg_plain``: their
   plain torch versions, the energy and the hand-derived node gradient;
+* ``lattice_stencil_fwd_rows`` / ``lattice_stencil_vg_rows``: the same
+  kernels over a window of node rows ``[row_lo, row_hi)`` (the TPU
+  kernels' ``row0``, which ``parallel/sharded_slab.py`` gives each rank):
+  the energy of the quads whose n00 row lies in the window and the
+  gradient of the window's nodes, placed in a zeroed [nx*ny, 4] table;
+  ``lattice_stencil_{fwd,vg}_rows_plain`` their plain versions;
 * ``lattice_total_slab``: domain - traction work of an identity-numbered
   float32 route, whose domain term is an autograd Function that runs K6
   when a gradient is wanted and K7 otherwise (their plain versions for a
@@ -52,6 +58,8 @@ from .lattice_energy import _families, _tri_energy, face_work, lattice_face
 __all__ = ["lattice_total_slab", "slab_supported", "structured_domain_slab",
            "lattice_stencil_fwd", "lattice_stencil_vg",
            "lattice_stencil_fwd_plain", "lattice_stencil_vg_plain",
+           "lattice_stencil_fwd_rows", "lattice_stencil_vg_rows",
+           "lattice_stencil_fwd_rows_plain", "lattice_stencil_vg_rows_plain",
            "route_stencil", "structured_stencil", "launch_counts",
            "reset_launch_counts",
            "UP", "DOWN", "SEL_MASK", "PARITY"]
@@ -60,7 +68,8 @@ UP, DOWN, SEL_MASK, PARITY = 0, 1, 2, 3
 _UNIFORM = {UP: "up", DOWN: "down"}
 
 # launches of each kernel wrapper since the last reset
-launch_counts = {"lattice_stencil_vg": 0, "lattice_stencil_fwd": 0}
+launch_counts = {"lattice_stencil_vg": 0, "lattice_stencil_fwd": 0,
+                 "lattice_stencil_vg_rows": 0, "lattice_stencil_fwd_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -164,6 +173,57 @@ def lattice_stencil_vg_plain(node, nx, ny, E, nu, w_sum, diag=UP,
         return energy, grad.reshape(nx * ny, 4)
 
 
+def _window_lattice(node, nx, ny, lo, hi, diag, phase, sel, t1, t2):
+    """The sub-lattice of node rows [lo, hi) as (node, nx, stencil
+    arguments): masks cut to its quad rows, the parity phase moved by
+    ``lo``."""
+    sub = lambda m: None if m is None else m[lo:hi - 1]
+    return (node[lo * ny:hi * ny], hi - lo,
+            dict(diag=diag, phase=phase + lo, sel=sub(sel), t1=sub(t1),
+                 t2=sub(t2)))
+
+
+def _check_rows(nx, row_lo, row_hi) -> None:
+    if not 0 <= row_lo < row_hi <= nx:
+        raise ValueError(f"row window [{row_lo}, {row_hi}) is not a "
+                         f"non-empty window of the {nx} node rows")
+
+
+def lattice_stencil_fwd_rows_plain(node, nx, ny, E, nu, w_sum, row_lo,
+                                   row_hi, diag=UP, phase=0, sel=None,
+                                   t1=None, t2=None) -> torch.Tensor:
+    """The function K7 computes over the node rows [row_lo, row_hi), in
+    plain torch: the energy of the quads whose n00 row lies there."""
+    _check_rows(nx, row_lo, row_hi)
+    hi = min(row_hi + 1, nx)
+    if hi - row_lo < 2:          # the window is the last row: no quads
+        return node.new_zeros(())
+    n, m, kw = _window_lattice(node, nx, ny, row_lo, hi, diag, phase, sel,
+                               t1, t2)
+    return lattice_stencil_fwd_plain(n, m, ny, E, nu, w_sum, **kw)
+
+
+def lattice_stencil_vg_rows_plain(node, nx, ny, E, nu, w_sum, row_lo,
+                                  row_hi, diag=UP, phase=0, sel=None,
+                                  t1=None, t2=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The function K6 computes over the node rows [row_lo, row_hi), in
+    plain torch: (that energy, the node gradient [nx*ny, 4] with the
+    window's rows complete and every other row 0).  The gradient comes
+    from the sub-lattice of the window and its one-row halo on each side,
+    which holds every quad that touches a window node."""
+    energy = lattice_stencil_fwd_rows_plain(node.detach(), nx, ny, E, nu,
+                                            w_sum, row_lo, row_hi, diag,
+                                            phase, sel, t1, t2)
+    lo, hi = max(row_lo - 1, 0), min(row_hi + 1, nx)
+    n, m, kw = _window_lattice(node.detach(), nx, ny, lo, hi, diag, phase,
+                               sel, t1, t2)
+    _, g = lattice_stencil_vg_plain(n, m, ny, E, nu, w_sum, **kw)
+    grad = torch.zeros((nx * ny, 4), dtype=node.dtype, device=node.device)
+    grad[row_lo * ny:row_hi * ny] = g[(row_lo - lo) * ny:(row_hi - lo) * ny]
+    return energy, grad
+
+
 # ----------------------------------------------------------- CUDA kernels
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
@@ -176,6 +236,11 @@ def _library() -> ctypes.CDLL:
     lib.hdnn_lattice_stencil_fwd.restype = i
     lib.hdnn_lattice_stencil_vg.argtypes = head + [vp, vp, i, vp, vp]
     lib.hdnn_lattice_stencil_vg.restype = i
+    rows = head[:4] + [i, i] + head[4:]
+    lib.hdnn_lattice_stencil_fwd_rows.argtypes = rows + [vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_fwd_rows.restype = i
+    lib.hdnn_lattice_stencil_vg_rows.argtypes = rows + [vp, vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_vg_rows.restype = i
     return lib
 
 
@@ -209,30 +274,39 @@ def _check(node, nx, ny, diag, sel, t1, t2) -> None:
                              "table's device")
 
 
-def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2):
+def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2,
+            rows=None):
+    """K6 (``vg``) or K7 over the whole lattice, or over the node rows
+    ``rows = (row_lo, row_hi)`` (then the gradient's other rows are 0)."""
     _check(node, nx, ny, diag, sel, t1, t2)
     lib = _library()
     f, shear = _constants(E, nu)
-    n_part = lib.hdnn_lattice_partials(nx, ny)
+    if rows is not None:
+        _check_rows(nx, *rows)
+    n_part = lib.hdnn_lattice_partials(
+        nx if rows is None else rows[1] - rows[0], ny)
     dev = node.device
     partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (dev.index, node.data_ptr(), nx, ny, diag, int(phase) % 2,
-            _ptr(sel), _ptr(t1), _ptr(t2), f, nu, shear, w_sum)
+    head = (dev.index, node.data_ptr(), nx, ny) + (
+        () if rows is None else tuple(rows)) + (
+        diag, int(phase) % 2, _ptr(sel), _ptr(t1), _ptr(t2), f, nu, shear,
+        w_sum)
+    name = "lattice_stencil_" + ("vg" if vg else "fwd") + (
+        "" if rows is None else "_rows")
+    entry = getattr(lib, "hdnn_" + name)
     if vg:
-        grad = torch.empty_like(node)
-        err = lib.hdnn_lattice_stencil_vg(*head, grad.data_ptr(),
-                                          partials.data_ptr(), n_part,
-                                          out.data_ptr(), stream)
-        raise_on(lib, err, "lattice_stencil_vg")
-        launch_counts["lattice_stencil_vg"] += 1
-        return out, grad
-    err = lib.hdnn_lattice_stencil_fwd(*head, partials.data_ptr(), n_part,
-                                       out.data_ptr(), stream)
-    raise_on(lib, err, "lattice_stencil_fwd")
-    launch_counts["lattice_stencil_fwd"] += 1
-    return out
+        grad = (torch.empty_like(node) if rows is None
+                else torch.zeros_like(node))
+        err = entry(*head, grad.data_ptr(), partials.data_ptr(), n_part,
+                    out.data_ptr(), stream)
+    else:
+        err = entry(*head, partials.data_ptr(), n_part, out.data_ptr(),
+                    stream)
+    raise_on(lib, err, name)
+    launch_counts[name] += 1
+    return (out, grad) if vg else out
 
 
 def lattice_stencil_fwd(node, nx, ny, E, nu, w_sum, diag=UP, phase=0,
@@ -248,6 +322,25 @@ def lattice_stencil_vg(node, nx, ny, E, nu, w_sum, diag=UP, phase=0,
     """K6 on the card: (energy, node gradient [nx*ny, 4]) in one launch."""
     return _launch(True, node, nx, ny, float(E), float(nu), float(w_sum),
                    diag, phase, sel, t1, t2)
+
+
+def lattice_stencil_fwd_rows(node, nx, ny, E, nu, w_sum, row_lo, row_hi,
+                             diag=UP, phase=0, sel=None, t1=None, t2=None
+                             ) -> torch.Tensor:
+    """K7 on the card over the node rows [row_lo, row_hi): the energy of
+    the quads whose n00 row lies there."""
+    return _launch(False, node, nx, ny, float(E), float(nu), float(w_sum),
+                   diag, phase, sel, t1, t2, rows=(row_lo, row_hi))
+
+
+def lattice_stencil_vg_rows(node, nx, ny, E, nu, w_sum, row_lo, row_hi,
+                            diag=UP, phase=0, sel=None, t1=None, t2=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on the card over the node rows [row_lo, row_hi): (that energy,
+    node gradient [nx*ny, 4] with the window's rows, every other row 0);
+    the window's rows equal the whole-lattice K6's bit for bit."""
+    return _launch(True, node, nx, ny, float(E), float(nu), float(w_sum),
+                   diag, phase, sel, t1, t2, rows=(row_lo, row_hi))
 
 
 # ------------------------------------------------------- autograd wrapper

@@ -10,7 +10,7 @@ params *before* each update, as in the JAX drivers.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
@@ -19,13 +19,14 @@ from .optimizers import lbfgs, ravel_params, unravel_params
 __all__ = ["run_optimizer", "run_lbfgs"]
 
 
-def run_optimizer(loss_fn: Callable, params: dict, optimizer,
+def run_optimizer(loss_fn: Callable, params, optimizer,
                   num_steps: int, loss_args: tuple = (),
-                  tol: Optional[float] = None
-                  ) -> Tuple[dict, torch.Tensor]:
+                  tol: Optional[float] = None):
     """Run ``optimizer`` (``init``/``update`` on flat vectors) for
     ``num_steps`` on ``loss_fn(params, *loss_args)``; returns
-    (final params, per-step loss history [num_steps]).
+    (final params, per-step loss history [num_steps]).  ``params`` is a
+    dict of tensors or a bare tensor, and the final params come back in
+    the same form.
 
     ``tol``: stop once the gradient's infinity norm drops below it; the
     history is then padded with the last value (one device read per
@@ -47,14 +48,15 @@ def run_optimizer(loss_fn: Callable, params: dict, optimizer,
     if history.shape[0] < num_steps:
         history = torch.cat([history, history[-1:].expand(
             num_steps - history.shape[0])])
-    return {k: v.clone() for k, v in unravel_params(x, params).items()}, \
-        history
+    final = unravel_params(x, params)
+    if isinstance(final, torch.Tensor):
+        return final.clone(), history
+    return {k: v.clone() for k, v in final.items()}, history
 
 
-def run_lbfgs(loss_fn: Callable, params: dict, num_steps: int = 600,
+def run_lbfgs(loss_fn: Callable, params, num_steps: int = 600,
               memory_size: int = 100, tol: Optional[float] = None,
-              loss_args: tuple = (), linesearch: str = "none"
-              ) -> Tuple[dict, torch.Tensor]:
+              loss_args: tuple = (), linesearch: str = "none"):
     """Fixed-step L-BFGS (torch LBFGS's default lr = 1, no line search);
     ``num_steps=600`` matches the reference's 30 epochs x max_iter 20."""
     return run_optimizer(loss_fn, params,

@@ -5,7 +5,8 @@
 An optimizer here is an object with ``init(x) -> state`` and
 ``update(g, state, x) -> (step, state)`` on flat [P] vectors; the driver
 applies ``x + step``.  Parameters are flattened in ``ravel_pytree`` order
-(sorted keys: ``coords`` then ``u``) by ``ravel_params``.
+(sorted keys: ``coords`` then ``u``) by ``ravel_params``; a bare tensor
+(the [N, 4] node table of the node-space solves) is its own flat view.
 
 The direction H g comes from the compact representation (Byrd, Nocedal &
 Schnabel 1994, Thm 2.2):
@@ -20,7 +21,8 @@ pair into the state's history tensors in place (the [2m, P] history is the
 solve's largest buffer: 740 MB at the 922K-element plate), so a state is
 consumed by the update that takes it.  The (s, y) pair goes to slot
 (count-1) % m and is zero on the first call; gamma is s.y / y.y of the
-newest pair, or min(1, 1/|g|) on the first call; a pair with s.y <= 1e-10
+newest pair, or min(1, 1/|g|) on the first call (gamma is 1 throughout
+with ``scale_init_precond=False``); a pair with s.y <= 1e-10
 (torch LBFGS's curvature guard) is stored as zeros, its R diagonal is
 patched to 1 and gamma keeps its last accepted value.  The products run
 in full float32: TF32 is off package-wide (``hidenn_fem_tpu_torch``).
@@ -36,13 +38,19 @@ __all__ = ["CompactLBFGSState", "CompactLBFGS", "scale_by_compact_lbfgs",
            "lbfgs", "ravel_params", "unravel_params"]
 
 
-def ravel_params(params: dict) -> torch.Tensor:
-    """Flat [P] vector of a params dict, keys in sorted order."""
+def ravel_params(params) -> torch.Tensor:
+    """Flat [P] vector of a params dict, keys in sorted order, or of a
+    bare tensor."""
+    if isinstance(params, torch.Tensor):
+        return params.reshape(-1)
     return torch.cat([params[k].reshape(-1) for k in sorted(params)])
 
 
-def unravel_params(flat: torch.Tensor, like: dict) -> dict:
-    """Inverse of ``ravel_params``: views of ``flat`` shaped as ``like``."""
+def unravel_params(flat: torch.Tensor, like):
+    """Inverse of ``ravel_params``: views of ``flat`` shaped as ``like``
+    (a dict, or a bare tensor)."""
+    if isinstance(like, torch.Tensor):
+        return flat.view(like.shape)
     out, i = {}, 0
     for k in sorted(like):
         n = like[k].numel()
@@ -66,11 +74,13 @@ class CompactLBFGS:
     followed by a fixed step ``-learning_rate * H g``."""
 
     def __init__(self, memory_size: int = 100,
-                 learning_rate: float | None = None):
+                 learning_rate: float | None = None,
+                 scale_init_precond: bool = True):
         if memory_size < 1:
             raise ValueError("memory_size must be >= 1")
         self.m = memory_size
         self.learning_rate = learning_rate
+        self.scale_init_precond = scale_init_precond
 
     def init(self, x: torch.Tensor) -> CompactLBFGSState:
         m, p = self.m, x.numel()
@@ -114,7 +124,9 @@ class CompactLBFGS:
 
         sy = torch.dot(s, y)
         yy = torch.dot(y, y)
-        if c == 0:
+        if not self.scale_init_precond:
+            gamma = torch.ones((), dtype=g.dtype, device=g.device)
+        elif c == 0:
             # first step: the capped reciprocal gradient norm
             gnorm = torch.linalg.vector_norm(g)
             gamma = torch.clamp(1.0 / torch.where(gnorm > 0, gnorm, 1.0),
@@ -151,9 +163,11 @@ class CompactLBFGS:
             YTY=YTY, gamma=gamma)
 
 
-def scale_by_compact_lbfgs(memory_size: int = 100) -> CompactLBFGS:
-    """The L-BFGS direction H g (no step size, no sign)."""
-    return CompactLBFGS(memory_size)
+def scale_by_compact_lbfgs(memory_size: int = 100,
+                           scale_init_precond: bool = True) -> CompactLBFGS:
+    """The L-BFGS direction H g (no step size, no sign); with
+    ``scale_init_precond=False`` the identity scale gamma stays 1."""
+    return CompactLBFGS(memory_size, scale_init_precond=scale_init_precond)
 
 
 def lbfgs(memory_size: int = 100, linesearch: str = "none",

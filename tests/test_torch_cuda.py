@@ -316,7 +316,8 @@ def test_banded_kernels_match_plain(dev, k, which):
     g5b = be.banded_bwd(node, no_re, ct, E, NU, W_SUM)
     torch.cuda.synchronize()
     assert {k2: be.launch_counts[k2] - before[k2] for k2 in before} == \
-        {"banded_fwd": 1, "banded_vg": 2, "banded_bwd": 2}
+        {"banded_fwd": 1, "banded_vg": 2, "banded_bwd": 2,
+         "banded_vg_rows": 0, "banded_bwd_rows": 0}
     p3 = be.banded_fwd_plain(node, ba, E, NU, W_SUM)
     p4, pg4 = be.banded_vg_plain(node, ba, E, NU, W_SUM)
     _close(e3, p3, rtol=1e-4, atol_scale=0.0)
@@ -446,3 +447,142 @@ def test_banded_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         be.banded_fwd(node.cpu(), ba, E, NU, W_SUM)
 
+
+
+# ------------------------------------------------ row windows, row_start
+def _windows(nx, n):
+    """``n`` windows of ceil(nx / n) node rows (the ranks' split of
+    ``parallel/sharded_slab.py``); empty ones dropped."""
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+    return [w for w in (row_window(nx, r, n) for r in range(n))
+            if w[0] < w[1]]
+
+
+@pytest.mark.parametrize("shape", [(300, 37), (2, 2), (37, 53), (129, 65)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("diag", [ls.UP, ls.SEL_MASK, ls.PARITY])
+@pytest.mark.parametrize("masked", [False, True])
+def test_lattice_row_windows_match_whole_lattice(dev, shape, diag, masked):
+    """K6 and K7 over 2, 3 and 4 row windows: each window's gradient rows
+    equal the whole-lattice K6's bit for bit and its other rows are 0; K6's
+    window energy equals K7's bit for bit; the windows against their plain
+    versions; the window energies sum to the whole lattice's."""
+    nx, ny = shape
+    node, rng = _lattice_node(nx, ny, 11, dev)
+    q = (nx - 1, ny - 1)
+    kw = dict(diag=diag, phase=1 if diag == ls.PARITY else 0)
+    if diag == ls.SEL_MASK:
+        kw["sel"] = torch.tensor((rng.random(q) > 0.5).astype(np.float32),
+                                 device=dev)
+    if masked:
+        for k in ("t1", "t2"):
+            kw[k] = torch.tensor((rng.random(q) > 0.1).astype(np.float32),
+                                 device=dev)
+    e_whole, g_whole = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
+    for n in (2, 3, 4):
+        total = 0.0
+        for lo, hi in _windows(nx, n):
+            before = dict(ls.launch_counts)
+            e6, g6 = ls.lattice_stencil_vg_rows(node, nx, ny, E, NU, W_SUM,
+                                                lo, hi, **kw)
+            e7 = ls.lattice_stencil_fwd_rows(node, nx, ny, E, NU, W_SUM, lo,
+                                             hi, **kw)
+            torch.cuda.synchronize()
+            assert ls.launch_counts["lattice_stencil_vg_rows"] == \
+                before["lattice_stencil_vg_rows"] + 1
+            assert ls.launch_counts["lattice_stencil_fwd_rows"] == \
+                before["lattice_stencil_fwd_rows"] + 1
+            rows = slice(lo * ny, hi * ny)
+            assert torch.equal(g6[rows], g_whole[rows])
+            assert not g6[:lo * ny].any() and not g6[hi * ny:].any()
+            assert float(e6) == float(e7)
+            pe, pg = ls.lattice_stencil_vg_rows_plain(node, nx, ny, E, NU,
+                                                      W_SUM, lo, hi, **kw)
+            _close(e6, pe, rtol=1e-4, atol_scale=0.0)
+            _close(g6, pg)
+            total += float(e6)
+        np.testing.assert_allclose(total, float(e_whole), rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [3, 4, 6])
+def test_banded_row_start_matches_unsharded(dev, k):
+    """K4 and K5 on each rank's slice of tables rebanded for 4 ranks: the
+    rows placed at row_start equal the unsharded K4/K5 rows on the same
+    tables bit for bit, every other row 0; the slices' energies sum to the
+    whole; each slice against its plain version."""
+    from hidenn_fem_tpu_torch.parallel.sharding import rank_tables
+
+    mesh = pt.generate_mesh_delaunay(lc=0.09, device=dev)
+    conn = mesh.connectivity.cpu().numpy()
+    n = mesh.n_nodes
+    kw = dict(window_limit=300, block_multiple=4, device=dev)
+    ba = (mb.build_banded_assembly(conn, n, mesh.incidence.cpu().numpy(),
+                                   **kw) if k == 3 else
+          (mb.build_paired_assembly if k == 4 else
+           mb.build_striped_assembly)(conn, n, **kw))
+    assert ba.re_own_lo is not None and ba.re_nstarts.shape[0] % 4 == 0
+    node = _banded_node(mesh, dev)
+    ct = torch.tensor(0.75, device=dev)
+    e4, g4 = be.banded_vg(node, ba, E, NU, W_SUM)
+    no_own = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    g5 = be.banded_bwd(node, no_own, ct, E, NU, W_SUM)
+    total = 0.0
+    for rank in range(4):
+        loc, rs = rank_tables(ba, rank, 4)
+        before = dict(be.launch_counts)
+        e, g = be.banded_vg_rows(node, loc, E, NU, W_SUM, rs)
+        loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
+        g5r = be.banded_bwd_rows(node, loc5, ct, E, NU, W_SUM, rs)
+        torch.cuda.synchronize()
+        grew = {c: be.launch_counts[c] - before[c] for c in before}
+        end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
+        assert grew["banded_vg_rows"] == 1
+        assert grew["banded_bwd_rows"] == (1 if end > rs else 0)
+        assert torch.equal(g[rs:end], g4[rs:end])
+        assert torch.equal(g5r[rs:end], g5[rs:end])
+        assert not g[:rs].any() and not g[end:].any()
+        assert not g5r[:rs].any() and not g5r[end:].any()
+        pe, pg = be.banded_vg_plain(node, loc, E, NU, W_SUM, rs)
+        _close(e, pe, rtol=1e-4, atol_scale=0.0)
+        _close(g, pg)
+        _close(g5r, be.banded_bwd_plain(node, loc5, ct, E, NU, W_SUM, rs))
+        total += float(e)
+    np.testing.assert_allclose(total, float(e4), rtol=1e-5)
+
+
+def test_two_rank_gloo_slab_on_one_card(dev, tmp_path):
+    """Two ranks (gloo) sharing the card run ``shard_map_lattice_slab``:
+    value and both gradient groups bit-equal across the ranks and within
+    tolerance of the single-rank lattice route, with K6's row variant
+    launched on each rank."""
+    import json
+
+    from torch_sharded_common import Groups, mesh_arrays
+
+    mesh = pt.generate_mesh(nx=65, ny=33, keep_dead_nodes=True, device=dev)
+    rng = np.random.default_rng(6)
+    nn = mesh.n_nodes
+    params_np = {"coords": mesh.coords.cpu().numpy()
+                 + 1e-3 * rng.standard_normal((nn, 2)),
+                 "u": 1e-4 * rng.standard_normal((nn, 2))}
+    groups = Groups(tmp_path, [(dict(name="slab", fn="slab",
+                                     dtype="float32"),
+                                mesh_arrays(mesh.to("cpu"), params_np))],
+                    worlds=(2,), device="cuda:0")
+    try:
+        got = groups.case(2, "slab")
+        ranks = groups.ranks(2)
+    finally:
+        groups.close()
+    p = pt.params_from_numpy(params_np, device=dev)
+    for v in p.values():
+        v.requires_grad_(True)
+    val = pt.PlaneStressEnergy(model=pt.TriangleP1()).total(p, mesh)
+    gc, gu = torch.autograd.grad(val, [p["coords"], p["u"]])
+    np.testing.assert_allclose(got["energy"], float(val.detach()), rtol=1e-5)
+    for a, b in ((got["g_coords"], gc), (got["g_u"], gu)):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=5e-4,
+                                   atol=1e-5 * np.abs(b).max())
+    for r in ranks:
+        assert json.loads(str(r["launches"]))["lattice_stencil_vg_rows"] >= 1

@@ -161,3 +161,24 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("a card is present: the entry point would run there")
     with pytest.raises((AssertionError, RuntimeError)):
         NO_DEVICE_CALLS[name]()
+
+
+@pytest.mark.parametrize("build_incidence", [True, False])
+def test_from_arrays_build_incidence_and_astuple_match_jax(build_incidence):
+    """``from_arrays(build_incidence=False)`` leaves the incidence table
+    None and builds no fused and no banded tables, as in the JAX package;
+    ``astuple`` is the reference's 6-tuple, array-equal to JAX's."""
+    jm = ht.generate_mesh(nx=17, ny=9, holes=[(1.0, 0.5, 0.25)])
+    arrays = [np.asarray(a) for a in jm.astuple()]
+    j = ht.TriMesh.from_arrays(*arrays, build_incidence=build_incidence,
+                               build_banded=True)
+    t = pt.TriMesh.from_arrays(*arrays, build_incidence=build_incidence,
+                               build_banded=True, device=CPU)
+    for name in ("incidence", "fused_connectivity", "fused_incidence",
+                 "banded", "banded_paired"):
+        assert (getattr(t, name) is None) == (getattr(j, name) is None), name
+    assert (t.incidence is None) == (not build_incidence)
+    tup = t.astuple()
+    assert len(tup) == 6
+    for a, b in zip(tup, j.astuple()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -151,3 +151,61 @@ def test_reference_compat_plateau_f32():
                              loss_args=(mesh,))
     plateau = float(losses[-1])
     assert plateau == pytest.approx(-10.392, abs=0.02), plateau
+
+
+def test_compact_lbfgs_fixed_gamma_matches_jax():
+    """``scale_init_precond=False``: gamma stays 1 on every update, as in
+    the JAX package (f64, rtol 1e-10)."""
+    seq = _quadratic_sequence(30, 9, seed=5)
+    with jax.enable_x64(True):
+        jopt = jlbfgs(memory_size=4, scale_init_precond=False)
+        jstate = jopt.init(jnp.asarray(seq[0][0]))
+        jdirs = []
+        for x, g in seq:
+            d, jstate = jax.jit(jopt.update)(jnp.asarray(g), jstate,
+                                             jnp.asarray(x))
+            jdirs.append(np.asarray(d))
+    opt = topt.scale_by_compact_lbfgs(memory_size=4, scale_init_precond=False)
+    state = opt.init(torch.tensor(seq[0][0]))
+    for (x, g), dj in zip(seq, jdirs):
+        d, state = opt.update(torch.tensor(g), state, torch.tensor(x))
+        assert float(state.gamma) == 1.0
+        assert_close(d.numpy(), dj, rtol=1e-10, atol=1e-12 * np.abs(dj).max())
+
+
+def test_drivers_take_a_bare_tensor_as_jax():
+    """``run_lbfgs`` and ``run_optimizer`` on a bare [N, 4] tensor (the
+    node-space solves' params), against the JAX drivers on the same array:
+    loss history and final params in f64 within rtol 1e-10, and the final
+    params come back as a tensor of the input's shape."""
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((24, 24))
+    A = a @ a.T / 24 + 0.5 * np.eye(24)
+    b = rng.standard_normal((6, 4))
+    x0 = rng.standard_normal((6, 4))
+    with jax.enable_x64(True):
+        Aj, bj = jnp.asarray(A), jnp.asarray(b)
+
+        def jloss(x):
+            v = x.reshape(-1)
+            return 0.5 * v @ (Aj @ v) - jnp.sum(bj * x)
+
+        xj, lj = ht.run_lbfgs(jloss, jnp.asarray(x0), num_steps=8,
+                              memory_size=5)
+        xj2, lj2 = ht.run_optimizer(jloss, jnp.asarray(x0),
+                                    ht.lbfgs(memory_size=5), num_steps=8)
+    At, bt = torch.tensor(A), torch.tensor(b)
+
+    def tloss(x):
+        v = x.reshape(-1)
+        return 0.5 * v @ (At @ v) - torch.sum(bt * x)
+
+    xt, lt = pt.run_lbfgs(tloss, torch.tensor(x0), num_steps=8,
+                          memory_size=5)
+    xt2, lt2 = pt.run_optimizer(tloss, torch.tensor(x0),
+                                pt.lbfgs(memory_size=5), num_steps=8)
+    for x, lh, xr, lr in ((xt, lt, xj, lj), (xt2, lt2, xj2, lj2)):
+        assert isinstance(x, torch.Tensor) and x.shape == (6, 4)
+        assert_close(lh.numpy(), np.asarray(lr), rtol=1e-10, what="history")
+        assert_close(x.numpy(), np.asarray(xr), rtol=1e-10,
+                     atol=1e-12, what="final x")

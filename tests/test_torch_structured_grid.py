@@ -258,3 +258,17 @@ def test_example6_small():
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert np.isfinite(final) and final < losses[0]
     assert bool(torch.isfinite(vm).all()) and float(vm.max()) > 0.0
+
+
+@pytest.mark.parametrize("boundaries", [None, {"up": 0, "down": 0,
+                                               "right": 1, "left": 2}])
+def test_neumann_edge_mask_alias_matches_jax(boundaries):
+    """``StructuredGrid.neumann_edge_mask`` is the right face's segment
+    mask (None without one), as in the JAX package."""
+    kw = dict(nx=17, ny=9, holes=((1.0, 0.5, 0.2),), boundaries=boundaries)
+    g_j = jsg.generate_structured_grid(**kw)
+    g_t = tsg.generate_structured_grid(device=CPU, **kw)
+    assert (g_t.neumann_edge_mask is None) == (g_j.neumann_edge_mask is None)
+    if g_j.neumann_edge_mask is not None:
+        np.testing.assert_array_equal(g_t.neumann_edge_mask.numpy(),
+                                      np.asarray(g_j.neumann_edge_mask))
