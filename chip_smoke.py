@@ -94,9 +94,37 @@ Phases (each raises on failure, and the script then exits non-zero):
     section 2's limits of the single-rank run; ms per value-and-grad and
     per step printed as ranks sharing one card.
 
-Each path of phases 4-10 (and K8's timed A/B) runs with every launch
+11. The CG family (``solve/linear.py``): a. example 8
+    (``examples/example8_linear_solve_torch.py``: the 81x41 proxy plate on
+    the lattice route, ``cg_solve`` to 1e-6 then 3 epochs of
+    ``radapt_cg_solve``; K6 each matvec, K7 each energy) against the JAX
+    package's energies, its residual plateau at or below JAX's; b. the
+    898K Delaunay plate from u = 0 (banded route: K4 each matvec and
+    probe, K3 each energy): ``color_nodes`` (proper, the numpy rounds'
+    colors, JAX's count), ``jacobi_diagonal`` (finite, zero exactly on the
+    Dirichlet rows), ``cg_solve`` and ``jacobi_pcg_solve`` capped at
+    CG_CAP iterations, their energies against JAX's f32 and f64 values;
+    ms per iteration and the stop test's read cost (profiler); c.
+    ``minimize(method="cg")`` and ``minimize(method="jacobi_cg",
+    mesh=...)`` on example 4 from u = 0: ``kind`` "relres", the same
+    minimum, at or below the 600-step L-BFGS energy.
+12. Multigrid (``solve/multigrid.py``): example 9
+    (``examples/example9_multigrid_torch.py``: the hole-free 961x481
+    ``StructuredGridP1``, 921,600 elements): the six-level hierarchy
+    (lmax against JAX's), ``mg_pcg_solve`` to 1e-6 (K6 every level
+    operator, fractional weights on the coarse levels; K7 the energy), its
+    energy against JAX's and against the port's own ``cg_solve`` of the
+    same system on the card; ms and K6 launches per MG-PCG iteration;
+    ``radapt_mg_solve`` for 2 epochs (the energies fall).
+13. Node-space L-BFGS (``solve/nodespace.py``) on example 4, 600 steps
+    (K6 each step, K7 the energy at the solution): the final energy
+    against the JAX package's node-space value and phase 4's params-space
+    solve.
+
+Each path of phases 4-13 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
-phase 10), and fails if a kernel of that path did not launch.  The last three lines of standard output
+phase 10), and fails if a kernel of that path did not launch; a solve
+whose residual turns non-finite fails.  The last three lines of standard output
 are the kernels' JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, ...}``.
 """
@@ -207,6 +235,64 @@ JAX_HYBRID_F64_LAST = 1064.1994153392743
 INIT_RTOL = 1e-4
 F64_RTOL = 2e-3
 F32_SPREAD_RTOL = 5e-3
+
+# The linear solvers (phases 11-13).  JAX package values on the CPU for
+# the same numpy inputs, made with (JAX_PLATFORMS=cpu, f32 unless noted)
+#   import numpy as np, jax.numpy as jnp, hidenn_fem_tpu as ht
+#   # example 8: the 81x41 proxy plate, u0 = 1e-5 N(0,1) (default_rng(0))
+#   m = ht.proxy_plate_mesh(nx=81, ny=41)
+#   e = ht.PlaneStressEnergy(model=ht.TriangleP1(), E=10e9, nu=0.3)
+#   ul = lambda p, c, m: e({"u": p["u"], "coords": c}, m)
+#   sol, h = ht.cg_solve(ul, {"u": u0}, (m.coords, m), max_iters=600,
+#                        tol=1e-6)           # iterations, h's last, ul(sol)
+#   _, en = ht.radapt_cg_solve(lambda p, m: e(p, m), {"u": sol["u"],
+#       "coords": m.coords}, (m,), outer_epochs=3, cg_iters=600,
+#       coord_steps=20, coord_lr=1e-5)
+#   # the 898K Delaunay plate from u = 0, capped at CG_CAP iterations,
+#   # the colors from _greedy_color_numpy (f64: the same arrays in f64 on
+#   # the gather route, as for phase 8):
+#   sol, _ = ht.cg_solve(ul, {"u": zeros}, (m.coords, m), max_iters=200,
+#                        tol=1e-6)
+#   sol, _ = ht.jacobi_pcg_solve(ul, {"u": zeros}, (m.coords, m),
+#       node_colors=colors, max_iters=200, tol=1e-6)   # energies ul(sol)
+#   # example 9: StructuredGridP1(E=10e9, nu=0.3, dtype) on the hole-free
+#   # generate_structured_grid(nx=961, ny=481), u0 = 1e-5 N(0,1):
+#   lv = ht.build_hierarchy(model, grid, model.coords(params, grid))
+#   sol, h = ht.mg_pcg_solve(model, grid, params, max_iters=40, tol=1e-6,
+#                            levels=lv)          # lmax, iterations, energy
+#   # example 4 (as JAX_EX4_LATTICE_FINAL_ENERGY above) in node space:
+#   sol, l = lbfgs_node_space(e, params, m, num_steps=600)
+# Converged solves (CG and MG-PCG to relres 1e-6) agree to ~1e-7 in f32
+# and f64 there, so they are held at SOLVE_RTOL; the capped 898K solves
+# (f32 2.2e-5 and 1.8e-5 from f64 on the CPU) at the f32 spread rule of
+# phases 8-9.
+SOLVE_RTOL = 1e-4
+# the r-adaptive MG epochs' coordinate step (5% of the 961x481 spacing in
+# 10 Adam steps): example 9's 1e-7 moves the energy less than the MG
+# solve's own f32 noise (~1e-7 relative), so "the energies fall" could not
+# show
+RADAPT_MG_LR = 1e-5
+# the cap of the CG solve that phase 12 holds MG-PCG to (2,138 iterations
+# to 1e-6 on the card)
+MG_CG_CAP = 4000
+JAX_EX8_CG_ITERS = 339
+JAX_EX8_CG_RELRES = 9.672751275502378e-07
+JAX_EX8_CG_ENERGY = -0.9937148094177246
+JAX_EX8_RADAPT = (-0.9937335848808289, -0.9937341213226318,
+                  -0.9937342405319214)
+CG_CAP = 200
+JAX_898K_COLORS = 7
+# (f32, f64) energies after CG_CAP iterations
+JAX_898K_CG = (-0.16281384229660034, -0.1628174890962335)
+JAX_898K_PCG = (-0.1617916375398636, -0.16179449943196103)
+MG_SHAPES = [(961, 481), (481, 241), (241, 121), (121, 61), (61, 31),
+             (31, 16)]
+JAX_MG_LMAX = (3.7544643878936768, 3.746400833129883, 3.7941272258758545,
+               3.668827772140503, 3.7501957416534424, 3.7587616443634033)
+JAX_MG_ITERS = 15
+JAX_MG_ENERGY = (-0.9938671588897705, -0.9938672685126402)   # f32, f64
+JAX_EX4_NODE_SPACE = -1.3143513202667236
+JAX_EX4_NODE_SPACE_AT_SOLUTION = -1.3143532276153564
 
 # kernel vs plain tolerances at full size (f32 on both sides, sums and
 # products in other orders): energy rtol 1e-4; gradients rtol 5e-4 with
@@ -1324,6 +1410,7 @@ def solve_example4(ht, mesh, dev, card, want, route_name):
     log(f"  {route_name}: max von Mises stress {vm_max:.6e}")
     log(f"  example-4 {route_name} 600-step solve: {seconds:.3f} s "
         f"({1e3 * seconds / cfg.lbfgs_steps:.4f} ms/iter) [{card}]")
+    return final
 
 
 def example4_mesh(ht, dev):
@@ -1400,6 +1487,297 @@ def phase_scale(ht, mesh, dev, card, steps=50):
         f"{losses[-1]:.6e} in {steps} steps")
     log(f"  922K-class L-BFGS (lattice route) at {mesh.n_elements} "
         f"elements: {1e3 * seconds / steps:.4f} ms/iter [{card}]")
+
+
+# ------------------------------------------------- the linear solvers
+def check_hist(name, hist):
+    """The executed part of a residual history (fails on a non-finite
+    residual: a diverged solve)."""
+    h = hist.cpu().double().numpy()
+    if not np.all(np.isfinite(h)):
+        raise AssertionError(f"{name}: non-finite residual (diverged)")
+    k = int(np.count_nonzero(h))
+    if k == 0 or np.any(h[k:] != 0.0):
+        raise AssertionError(f"{name}: history not zero past the stop")
+    return h[:k]
+
+
+def stop_read_ms(solve):
+    """Host ms per stop-test read of ``solve()`` (a solver run): the CPU
+    time of the device reads (``aten::_local_scalar_dense``, the wait for
+    the device included) from torch.profiler, per read; and the reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    reads = [e for e in prof.key_averages()
+             if e.key == "aten::_local_scalar_dense"]
+    if not reads or reads[0].count == 0:
+        raise AssertionError("the profiler saw no stop-test read")
+    return reads[0].cpu_time_total / 1e3 / reads[0].count, reads[0].count
+
+
+def phase_example8(dev, card):
+    """Phase 11a: example 8 at its own size (81x41 proxy plate, lattice
+    route: K6 each matvec, K7 each energy under no_grad)."""
+    from examples.example8_linear_solve_torch import main as example8
+
+    t0 = time.perf_counter()
+    _, energies, hist, e_cg = example8(device=dev)
+    seconds = time.perf_counter() - t0
+    h = check_hist("example-8 CG", hist)
+    log(f"  example 8: CG {len(h)} iterations to rel res {h[-1]:.6e} (JAX: "
+        f"{JAX_EX8_CG_ITERS} to {JAX_EX8_CG_RELRES!r}); {seconds:.3f} s "
+        f"with the r-adaptive epochs [{card}]")
+    if h[-1] > max(JAX_EX8_CG_RELRES, 1e-6):
+        raise AssertionError("example-8 CG plateau above JAX's")
+    check_ref("example-8 CG energy", e_cg, JAX_EX8_CG_ENERGY, SOLVE_RTOL)
+    for i, (got, want) in enumerate(zip(energies, JAX_EX8_RADAPT)):
+        check_ref(f"example-8 r-adaptive energy, epoch {i}", float(got),
+                  want, SOLVE_RTOL)
+    if not energies[-1] < energies[0]:
+        raise AssertionError("example-8 r-adaptive energies did not fall")
+
+
+def phase_cg_898k(ht, be, mesh, dev, card, counts):
+    """Phase 11b: the CG family on the 898K Delaunay plate (banded route,
+    K4 each matvec and probe, K3 each energy under no_grad), from u = 0,
+    capped at CG_CAP iterations; returns the path's launch counts."""
+    from hidenn_fem_tpu_torch.mesh import coloring
+
+    conn = mesh.connectivity
+    t0 = time.perf_counter()
+    colors = coloring.color_nodes(conn, mesh.n_nodes)
+    color_s = time.perf_counter() - t0
+    if not coloring.check_coloring(conn, colors):
+        raise AssertionError("color_nodes gave an improper coloring")
+    if not np.array_equal(colors, coloring._greedy_color_numpy(
+            conn.cpu().numpy(), mesh.n_nodes)):
+        raise AssertionError("color_nodes differs from the numpy rounds")
+    n_colors = int(colors.max()) + 1
+    log(f"  898K coloring: {n_colors} colors (JAX: {JAX_898K_COLORS}) in "
+        f"{color_s:.2f} s on the host; check_coloring passes")
+    if n_colors != JAX_898K_COLORS:
+        raise AssertionError("color count differs from the JAX package's")
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+
+    args = (mesh.coords, mesh)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+
+    def path():
+        out = {}
+        before = be.launch_counts["banded_vg"]
+        t0 = time.perf_counter()
+        diag = ht.jacobi_diagonal(loss, u0, args, colors)["u"]
+        torch.cuda.synchronize()
+        probes = be.launch_counts["banded_vg"] - before - 1
+        log(f"  jacobi_diagonal: {probes} probes ({n_colors} colors x 2 "
+            f"components) in {time.perf_counter() - t0:.3f} s [{card}]")
+        fixed = mesh.dirichlet_mask
+        if not (bool(torch.isfinite(diag).all())
+                and bool((diag[fixed] == 0).all())
+                and bool((diag[~fixed] != 0).all())):
+            raise AssertionError("Jacobi diagonal not finite, or not zero "
+                                 "exactly on the Dirichlet rows")
+        for name, solve, want in (
+                ("cg_solve", lambda: ht.cg_solve(
+                    loss, u0, args, max_iters=CG_CAP, tol=1e-6),
+                 JAX_898K_CG),
+                ("jacobi_pcg_solve", lambda: ht.jacobi_pcg_solve(
+                    loss, u0, args, node_colors=colors, max_iters=CG_CAP,
+                    tol=1e-6), JAX_898K_PCG)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol, hist = solve()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            h = check_hist(f"898K {name}", hist)
+            with torch.no_grad():
+                e = float(loss(sol, *args))
+            log(f"  898K {name}: {len(h)} iterations, rel res {h[-1]:.6e}; "
+                f"{1e3 * seconds / len(h):.4f} ms/iter [{card}]")
+            check_ref(f"898K {name} energy after {CG_CAP} iterations", e,
+                      want[0], F32_SPREAD_RTOL, want[1])
+            out[name] = seconds / len(h)
+        return out
+
+    per_iter, launches = run_path(counts, "898K CG family",
+                                  ("banded_vg", "banded_fwd"), path)
+    read_ms, reads = stop_read_ms(lambda: ht.cg_solve(
+        loss, u0, args, max_iters=20, tol=1e-6))
+    log(f"  898K CG stop test: {read_ms:.4f} ms of host time per read "
+        f"(profiler, {reads} reads in a 20-iteration solve; the wait for "
+        f"the device included) against {1e3 * per_iter['cg_solve']:.4f} "
+        f"ms per iteration [{card}]")
+    return launches
+
+
+def phase_minimize_ex4(ht, mesh, dev, card):
+    """Phase 11c: minimize(method="cg") and minimize(method="jacobi_cg",
+    mesh=...) on example 4 (lattice route: K6 each matvec), from u = 0:
+    both reach the same minimum, at or below the 600-step L-BFGS energy.
+    (From the 1e-5 N(0,1) start the first residual is the noise's, and a
+    relative residual of 1e-6 leaves the solution 5e-3 off in energy:
+    measured on the card for jacobi_cg.)"""
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+    params = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+
+    found = {}
+    for method, kw in (("cg", {}), ("jacobi_cg", {"mesh": mesh})):
+        t0 = time.perf_counter()
+        res = ht.minimize(loss, params, method=method, num_steps=3000,
+                          loss_args=(mesh.coords, mesh), **kw)
+        seconds = time.perf_counter() - t0
+        if res.kind != "relres":
+            raise AssertionError(f"minimize({method}).kind is {res.kind!r}")
+        h = check_hist(f"example-4 minimize({method})", res.history)
+        with torch.no_grad():
+            e = float(loss(res.params, mesh.coords, mesh))
+        log(f"  example 4, minimize(method={method!r}): {len(h)} "
+            f"iterations to rel res {h[-1]:.6e}, energy {e!r}, kind "
+            f"{res.kind!r}; {seconds:.3f} s [{card}]")
+        if h[-1] > 1e-6:
+            raise AssertionError(f"minimize({method}) did not converge")
+        check_ref(f"example-4 energy by minimize({method}) against the "
+                  "600-step L-BFGS", e, JAX_EX4_LATTICE_FINAL_ENERGY,
+                  EX4_RTOL)
+        found[method] = e
+    rel = abs(found["cg"] - found["jacobi_cg"]) / abs(found["cg"])
+    log(f"  example 4: cg and jacobi_cg minima rel {rel:.3e} (limit "
+        f"{SOLVE_RTOL})")
+    if rel > SOLVE_RTOL:
+        raise AssertionError("cg and jacobi_cg reach different minima")
+
+
+def phase_multigrid(ht, ls, dev, card, counts):
+    """Phase 12: example 9 at full width (961x481, 921,600 elements):
+    hierarchy, MG-PCG (K6 every level operator, K7 the energy), held to
+    JAX and to the port's own CG; then 2 r-adaptive epochs."""
+    from examples.example9_multigrid_torch import main as example9
+    from hidenn_fem_tpu_torch.models.structured_grid import (
+        StructuredGridP1, generate_structured_grid)
+
+    (sol, hist, _, levels), launches = run_path(
+        counts, "example-9 MG-PCG", ("lattice_stencil_vg",
+                                     "lattice_stencil_fwd"),
+        lambda: example9(device=dev))
+    shapes = [(lv.grid.nx, lv.grid.ny) for lv in levels]
+    if shapes != MG_SHAPES:
+        raise AssertionError(f"hierarchy {shapes}, expected {MG_SHAPES}")
+    for (nx, ny), lv, want in zip(shapes, levels, JAX_MG_LMAX):
+        check_ref(f"lmax of the {nx}x{ny} level", lv.lmax_host, want,
+                  INIT_RTOL)
+    h = check_hist("example-9 MG-PCG", hist)
+    if h[-1] > 1e-6:
+        raise AssertionError("MG-PCG did not reach 1e-6")
+    log(f"  MG-PCG: {len(h)} iterations (JAX: {JAX_MG_ITERS}) to "
+        f"{h[-1]:.6e}")
+    grid = generate_structured_grid(length=2.0, height=1.0, holes=(),
+                                    nx=961, ny=481, device=dev)
+    model = StructuredGridP1(E=10e9, nu=0.3)
+    params = model.init(np.random.default_rng(0), grid, device=dev)
+    with torch.no_grad():
+        e_mg = float(model(sol, grid))
+    check_ref("961x481 MG-PCG energy", e_mg, JAX_MG_ENERGY[0], SOLVE_RTOL,
+              JAX_MG_ENERGY[1])
+
+    # the warm solve, timed, with its launches per iteration
+    torch.cuda.synchronize()
+    before = ls.launch_counts["lattice_stencil_vg"]
+    t0 = time.perf_counter()
+    _, hist = ht.mg_pcg_solve(model, grid, params, max_iters=40, tol=1e-6,
+                              levels=levels)
+    iters = len(check_hist("warm MG-PCG", hist))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k6 = ls.launch_counts["lattice_stencil_vg"] - before
+    log(f"  warm MG-PCG: {iters} iterations in {seconds:.3f} s, "
+        f"{1e3 * seconds / iters:.3f} ms per iteration; {k6} K6 launches, "
+        f"{k6 / iters:.1f} per iteration [{card}]")
+
+    # the port's own CG on the same system from the same start.  That
+    # start's first residual is the noise's, so a relative residual of
+    # 1e-6 leaves CG's energy 5.3e-4 off MG-PCG's (measured on the card;
+    # at 481x241 on the CPU, CG from u = 0 needs 4,018 iterations and
+    # lands 2.8e-6 from MG-PCG), hence PERF.md section 2's solve limit
+    def loss(p, coords, g):
+        return model({"coords": coords, "u": p["u"]}, g)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg, hist = ht.cg_solve(loss, {"u": params["u"]},
+                           (params["coords"], grid), max_iters=MG_CG_CAP,
+                           tol=1e-6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    h = check_hist("961x481 CG", hist)
+    with torch.no_grad():
+        e_cg = float(loss(cg, params["coords"], grid))
+    rel = abs(e_mg - e_cg) / abs(e_cg)
+    du = float((sol["u"] - cg["u"]).abs().max() / cg["u"].abs().max())
+    log(f"  961x481 cg_solve: {len(h)} iterations to {h[-1]:.6e} in "
+        f"{seconds:.3f} s ({1e3 * seconds / len(h):.4f} ms/iter); energy "
+        f"{e_cg!r}; MG-PCG's {e_mg!r}: rel {rel:.3e} (limit {EX4_RTOL}); "
+        f"max|u_mg - u_cg| / max|u_cg| {du:.3e} [{card}]")
+    if rel > EX4_RTOL:
+        raise AssertionError("MG-PCG energy off the port's CG solution")
+
+    def radapt():
+        t0 = time.perf_counter()
+        _, energies = ht.radapt_mg_solve(model, grid, params,
+                                         outer_epochs=2, coord_steps=10,
+                                         coord_lr=RADAPT_MG_LR)
+        e = energies.cpu().numpy()
+        log(f"  radapt_mg_solve, 2 epochs: energies {float(e[0])!r} -> "
+            f"{float(e[1])!r} "
+            f"({time.perf_counter() - t0:.3f} s) [{card}]")
+        if not (np.all(np.isfinite(e)) and e[1] < e[0]):
+            raise AssertionError("r-adaptive MG energies did not fall")
+
+    run_path(counts, "961x481 r-adaptive MG", ("lattice_stencil_vg",
+                                                "lattice_stencil_fwd"),
+             radapt)
+    return launches
+
+
+def phase_node_space(ht, mesh, dev, card, params_space_final):
+    """Phase 13: node-space L-BFGS on example 4 (lattice route, K6 each
+    step, K7 for the energy at the solution), 600 steps."""
+    from hidenn_fem_tpu_torch.config import PlateConfig
+
+    cfg = PlateConfig()
+    energy = plate_energy(ht, cfg, ht.TriangleP1(u_fixed=0.0))
+    params = rest_params(ht, mesh, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, losses = ht.lbfgs_node_space(energy, params, mesh,
+                                      num_steps=cfg.lbfgs_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = losses.cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite node-space energy")
+    with torch.no_grad():
+        at_solution = float(energy.total(sol, mesh))
+    final = float(losses[-1])
+    log(f"  node-space L-BFGS: {cfg.lbfgs_steps} steps in {seconds:.3f} s "
+        f"({1e3 * seconds / cfg.lbfgs_steps:.4f} ms/iter); energy "
+        f"{losses[0]:.6e} -> {final!r}, {at_solution!r} at the solution "
+        f"[{card}]")
+    check_ref("node-space final energy", final, JAX_EX4_NODE_SPACE,
+              EX4_RTOL)
+    check_ref("node-space final energy against phase 4's params-space "
+              "solve", final, params_space_final, EX4_RTOL)
+    check_ref("node-space energy at the solution", at_solution,
+              JAX_EX4_NODE_SPACE_AT_SOLUTION, EX4_RTOL)
 
 
 # ---------------------------------------------- sharded paths on one card
@@ -1634,7 +2012,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/10] environment")
+    log("[1/13] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -1644,7 +2022,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/10] build")
+    log("[2/13] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -1654,7 +2032,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/10] kernel vs plain at full size")
+    log("[3/13] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -1668,15 +2046,15 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/10] example 4 on its default route (lattice), 600 steps")
-    _, lattice_launches = run_path(
+    log("[4/13] example 4 on its default route (lattice), 600 steps")
+    ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
         lambda: solve_example4(ht, mesh4, dev, card,
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/10] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/13] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -1684,16 +2062,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/10] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/13] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/10] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/13] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/10] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    log("[8/13] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     main_losses, delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -1705,17 +2083,34 @@ def main():
             ("banded_fwd", "banded_bwd"),
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
-    del mesh898
 
-    log("[9/10] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    log("[9/13] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/10] the sharded paths as groups of ranks on the one card")
+    log("[10/13] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
+
+    log("[11/13] the CG family: example 8, the 898K plate, minimize")
+    run_path(counts, "example-8 CG", ("lattice_stencil_vg",
+                                      "lattice_stencil_fwd"),
+             lambda: phase_example8(dev, card))
+    phase_cg_898k(ht, be, mesh898, dev, card, counts)
+    del mesh898
+    run_path(counts, "example-4 minimize(cg, jacobi_cg)",
+             ("lattice_stencil_vg", "lattice_stencil_fwd"),
+             lambda: phase_minimize_ex4(ht, mesh4, dev, card))
+
+    log("[12/13] multigrid: example 9 at 961x481")
+    phase_multigrid(ht, ls, dev, card, counts)
+
+    log("[13/13] node-space L-BFGS on example 4, 600 steps")
+    run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
+                                              "lattice_stencil_fwd"),
+             lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
     # each entry's launches: (the path's counts, the wrapper's counter)
     path_launches = {

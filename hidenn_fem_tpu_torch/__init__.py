@@ -18,8 +18,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import PlateConfig  # noqa: E402
-from .convert import (grid_from_numpy, mesh_from_numpy,  # noqa: E402
-                      params_from_numpy)
+from .convert import (grid_from_numpy, levels_from_numpy,  # noqa: E402
+                      mesh_from_numpy, params_from_numpy)
 from .mesh.banded import reorder_mesh  # noqa: E402
 from .mesh.delaunay import (generate_mesh_delaunay,  # noqa: E402
                             generate_mesh_unstructured)
@@ -38,7 +38,14 @@ from .ops.losses import PlaneStressEnergy  # noqa: E402
 from .ops.quadrature import (interval_gauss_points,  # noqa: E402
                              interval_gauss_points_m11,
                              triangle_gauss_points)
-from .solve.drivers import run_lbfgs, run_optimizer  # noqa: E402
-from .solve.optimizers import lbfgs  # noqa: E402
+from .solve.drivers import (MinimizeResult, minimize,  # noqa: E402
+                            run_lbfgs, run_optimizer)
+from .solve.linear import (cg_solve, jacobi_diagonal,  # noqa: E402
+                           jacobi_pcg_solve, radapt_cg_solve)
+from .solve.multigrid import (build_hierarchy, mg_pcg_solve,  # noqa: E402
+                              radapt_mg_solve)
+from .solve.nodespace import lbfgs_node_space  # noqa: E402
+from .solve.optimizers import (adam, adam_per_group,  # noqa: E402
+                               freeze_groups, lbfgs)
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@ from .mesh.types import TriMesh
 from .models.structured_grid import StructuredGrid
 
 __all__ = ["params_from_numpy", "mesh_from_numpy", "grid_from_numpy",
-           "banded_from_numpy"]
+           "banded_from_numpy", "levels_from_numpy"]
 
 
 def params_from_numpy(params_np: dict, device=None,
@@ -73,21 +73,50 @@ def mesh_from_numpy(mesh, device=None, dtype=torch.float32,
         for name, t in carried.items()})
 
 
-def grid_from_numpy(grid, device=None) -> StructuredGrid:
+def grid_from_numpy(grid, device=None, dtype=torch.float32
+                    ) -> StructuredGrid:
     """A ``StructuredGrid`` from the arrays and static fields of a grid
-    object (for example the JAX package's ``StructuredGrid``)."""
+    object (for example the JAX package's ``StructuredGrid``, a coarse
+    multigrid level's with its fractional quad mask included); coords and
+    quad mask in ``dtype``."""
     device = resolve_device(device)
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
 
     return StructuredGrid(
-        coords=t(grid.coords).to(torch.float32),
+        coords=t(grid.coords).to(dtype),
         geom_boundary_mask=t(grid.geom_boundary_mask),
         dirichlet_mask=t(grid.dirichlet_mask),
-        quad_mask=t(grid.quad_mask).to(torch.float32),
+        quad_mask=t(grid.quad_mask).to(dtype),
         neumann_edge_masks={f: t(m) for f, m in
                             grid.neumann_edge_masks.items()},
         u_dirichlet=(None if grid.u_dirichlet is None
                      else t(grid.u_dirichlet)),
         split=grid.split, zigzag_phase=int(grid.zigzag_phase))
+
+
+def levels_from_numpy(levels, grid=None, device=None, dtype=torch.float32):
+    """A multigrid hierarchy (``solve.multigrid.build_hierarchy``'s tuple)
+    from the levels of another one, for example the JAX package's: each
+    level's grid, coords, inverse diagonal ``dinv``, Chebyshev bound
+    ``lmax`` and ``free`` mask, taken as they are.  ``grid``, when given,
+    is the port's fine grid and stands for level 0's; every other grid is
+    carried by ``grid_from_numpy``.  Both packages' V-cycles can then run
+    on the same levels."""
+    from .solve.multigrid import _Level
+
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    out = []
+    for i, lev in enumerate(levels):
+        g = grid if (i == 0 and grid is not None) else grid_from_numpy(
+            lev.grid, device=device, dtype=dtype)
+        lmax = t(lev.lmax)
+        out.append(_Level(grid=g, coords=t(lev.coords), dinv=t(lev.dinv),
+                          lmax=lmax, free=t(lev.free),
+                          lmax_host=float(lmax)))
+    return tuple(out)

@@ -1,5 +1,5 @@
-"""Solve drivers (port of ``run_optimizer`` and ``run_lbfgs`` from
-``hidenn_fem_tpu/solve/drivers.py``).
+"""Solve drivers (port of ``run_optimizer``, ``run_lbfgs``, ``minimize``
+and ``MinimizeResult`` from ``hidenn_fem_tpu/solve/drivers.py``).
 
 The JAX package compiles a whole solve into one ``lax.scan``; here it is a
 Python loop around one ``torch.autograd.grad`` per step.  The loop reads
@@ -14,9 +14,31 @@ from typing import Callable, Optional
 
 import torch
 
+from . import optimizers as _opt
 from .optimizers import lbfgs, ravel_params, unravel_params
 
-__all__ = ["run_optimizer", "run_lbfgs"]
+__all__ = ["minimize", "run_optimizer", "run_lbfgs", "MinimizeResult"]
+
+
+class MinimizeResult(tuple):
+    """Result of :func:`minimize`: unpacks like the 2-tuple
+    ``(params, history)`` every driver returns, with a ``kind``
+    attribute naming what ``history`` holds: ``"loss"`` (per-step loss,
+    methods adam/lbfgs) or ``"relres"`` (per-iteration relative residual
+    norms, methods cg/jacobi_cg)."""
+
+    def __new__(cls, params, history, kind):
+        obj = super().__new__(cls, (params, history))
+        obj.kind = kind
+        return obj
+
+    @property
+    def params(self):
+        return self[0]
+
+    @property
+    def history(self):
+        return self[1]
 
 
 def run_optimizer(loss_fn: Callable, params, optimizer,
@@ -33,7 +55,7 @@ def run_optimizer(loss_fn: Callable, params, optimizer,
     step).
     """
     x = ravel_params(params).detach()
-    state = optimizer.init(x)
+    state = optimizer.init(x, like=params)
     losses = []
     for _ in range(num_steps):
         xg = x.detach().requires_grad_(True)
@@ -63,3 +85,41 @@ def run_lbfgs(loss_fn: Callable, params, num_steps: int = 600,
                          lbfgs(memory_size=memory_size,
                                linesearch=linesearch),
                          num_steps, loss_args=loss_args, tol=tol)
+
+
+def minimize(loss_fn: Callable, params, method: str = "adam",
+             num_steps: int = 1000, learning_rate: float = 1e-3,
+             group_lrs: Optional[dict] = None, loss_args: tuple = (),
+             **kwargs) -> MinimizeResult:
+    """One-call solve front end.
+
+    method: "adam" (with ``group_lrs`` for the two-group scheme,
+    ``examples/example4.py:54-57``), "lbfgs", "cg" or "jacobi_cg"
+    (matrix-free conjugate gradients, optionally Jacobi-preconditioned by
+    colored probing; only for losses quadratic in ``params``, see
+    ``solve/linear.py``; "jacobi_cg" needs ``mesh=`` or
+    ``node_colors=``; both return relative residual norms, not losses).
+    Returns a :class:`MinimizeResult` whose ``.kind`` says which.
+    """
+    if method == "adam":
+        opt = (_opt.adam_per_group(group_lrs) if group_lrs
+               else _opt.adam(learning_rate))
+        return MinimizeResult(
+            *run_optimizer(loss_fn, params, opt, num_steps, loss_args),
+            kind="loss")
+    if method == "lbfgs":
+        return MinimizeResult(
+            *run_lbfgs(loss_fn, params, num_steps, loss_args=loss_args,
+                       **kwargs), kind="loss")
+    if method == "cg":
+        from .linear import cg_solve
+        return MinimizeResult(
+            *cg_solve(loss_fn, params, loss_args=loss_args,
+                      max_iters=num_steps, **kwargs), kind="relres")
+    if method == "jacobi_cg":
+        from .linear import jacobi_pcg_solve
+        return MinimizeResult(
+            *jacobi_pcg_solve(loss_fn, params, loss_args=loss_args,
+                              max_iters=num_steps, **kwargs),
+            kind="relres")
+    raise ValueError(f"unknown method {method!r}")

@@ -1,0 +1,382 @@
+"""Geometric multigrid-preconditioned CG for the structured-grid plate
+(port of ``hidenn_fem_tpu/solve/multigrid.py``).
+
+At fixed node coordinates the ``StructuredGridP1`` energy is quadratic in
+``u``, so its minimum solves the FEM system K u = f.  Plain CG needs
+O(nx) iterations for it; a V-cycle preconditioner makes the count
+independent of the resolution.  Everything is matrix-free against the
+production energy:
+
+* level operators are two-point gradient differences
+  ``K_l v = grad(E_l)(v) - grad(E_l)(0)`` of the domain energy on the
+  coarsened grids (exact for the quadratic energy, reverse mode only);
+  each is one launch of the stencil kernel K6 on a CUDA float32 lattice
+  (``lattice_stencil_vg``, called directly: the value-and-grad that
+  ``torch.autograd.grad`` of ``domain_energy`` would run, its ``u``
+  columns, zero on the Dirichlet rows, bit for bit the autograd
+  gradient), its plain version otherwise;
+* level diagonals come exactly from 8 colored probes: the lattice node
+  adjacency (8-neighbourhood for every split) is properly 4-colored by
+  ``(i % 2, j % 2)``, times 2 displacement components;
+* smoothing is fixed-degree Chebyshev-Jacobi over ``[lmax/4, lmax]`` of
+  the ``D^{-1}K`` spectrum (lmax from a power iteration at set-up).  A
+  fixed polynomial is a linear, symmetric operator, so the V(nu,nu)
+  cycle is an SPD preconditioner and plain PCG applies.
+
+Coarse levels keep the quad mask by volume fraction (the mean of the 4
+fine quads), so the stencil weights there are fractional.  Dirichlet
+DOFs and hole interiors probe a zero diagonal, which the guarded
+``1/diag`` freezes; prolongation is masked to the free DOFs.
+
+The JAX package builds the hierarchy and runs the PCG loop as compiled
+programs; here they are Python loops.  The PCG stop test is one read from
+the device per iteration, and each level's Chebyshev coefficients are
+computed once on the host (from ``lmax``, in the level's dtype) at
+set-up.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.structured_grid import StructuredGrid
+from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
+                                structured_stencil)
+
+__all__ = ["coarsen_grid", "prolong", "build_hierarchy", "vcycle",
+           "mg_pcg_solve", "radapt_mg_solve"]
+
+_TINY = 1e-30
+
+
+# --------------------------------------------------------------- hierarchy
+def coarsen_grid(grid: StructuredGrid) -> Optional[StructuredGrid]:
+    """One geometric coarsening step (``None`` if the quad lattice is not
+    2-divisible).  Coords and the node masks are sampled (a coarse node
+    is pinned iff its fine image is); the quad mask is coarsened by
+    volume fraction (the mean of the 4 fine quads), so hole rims get
+    fractionally stiff coarse quads.  Neumann data is dropped: the
+    traction shifts the right-hand side, not K."""
+    nx, ny = grid.nx, grid.ny
+    if nx < 3 or ny < 3 or (nx - 1) % 2 or (ny - 1) % 2:
+        return None
+    nxc, nyc = (nx - 1) // 2 + 1, (ny - 1) // 2 + 1
+    qm = grid.quad_mask.reshape(nxc - 1, 2, nyc - 1, 2)
+    return StructuredGrid(
+        coords=grid.coords[::2, ::2].contiguous(),
+        geom_boundary_mask=grid.geom_boundary_mask[::2, ::2].contiguous(),
+        dirichlet_mask=grid.dirichlet_mask[::2, ::2].contiguous(),
+        quad_mask=qm.mean(dim=(1, 3)),
+        neumann_edge_masks={},
+        u_dirichlet=None,
+        split=grid.split,
+        zigzag_phase=grid.zigzag_phase % 2,
+    )
+
+
+def prolong(cu: torch.Tensor) -> torch.Tensor:
+    """Bilinear lattice interpolation [nxc, nyc, C] -> [2nxc-1, 2nyc-1, C]
+    (split-agnostic and symmetric): a row pass, then a column pass."""
+    nxc, nyc, c = cu.shape
+    rows = torch.stack([cu[:-1], 0.5 * (cu[:-1] + cu[1:])], dim=1)
+    rows = torch.cat([rows.reshape(2 * (nxc - 1), nyc, c), cu[-1:]], dim=0)
+    cols = torch.stack([rows[:, :-1], 0.5 * (rows[:, :-1] + rows[:, 1:])],
+                       dim=2)
+    return torch.cat([cols.reshape(2 * nxc - 1, 2 * (nyc - 1), c),
+                      rows[:, -1:]], dim=1)
+
+
+def _restrict_axis(r: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of one interpolation pass of ``prolong`` along
+    ``dim`` (length 2n-1 -> n): coarse entry i takes half of fine entries
+    2i-1 and 2i+1, then fine entry 2i, added in the order of the JAX
+    package's ``jax.linear_transpose`` (so the two agree bit for bit)."""
+    r = r.movedim(dim, 0)
+    half = 0.5 * r[1::2]
+    out = torch.zeros_like(r[0::2])
+    out[1:] = half
+    out[:-1] += half
+    return (out + r[0::2]).movedim(0, dim)
+
+
+def _restrict(r: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction, the exact adjoint of ``prolong``: the
+    transposed column pass, then the transposed row pass."""
+    return _restrict_axis(_restrict_axis(r, 1), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Level:
+    """One multigrid level: its grid, sampled coords, guarded inverse
+    diagonal, the Chebyshev upper eigenvalue bound of D^{-1}K (a 0-dim
+    tensor, and ``lmax_host``, the same value on the host), and ``free``,
+    [nx, ny, 2] 1/0 over the DOFs in the operator's support (Dirichlet
+    nodes and hole interiors probe a zero diagonal)."""
+
+    grid: StructuredGrid
+    coords: torch.Tensor
+    dinv: torch.Tensor
+    lmax: torch.Tensor
+    free: torch.Tensor
+    lmax_host: float
+
+
+def _level_grad(model, grid: StructuredGrid, coords: torch.Tensor):
+    """u -> d domain_energy / d u on ``grid`` at the (pinned) ``coords``:
+    one value-and-grad of the stencil, K6 on a CUDA float32 lattice (as
+    ``model.domain_energy`` would run it), its plain version otherwise."""
+    nx, ny = grid.nx, grid.ny
+    with torch.no_grad():
+        cpin = model.coords({"coords": coords}, grid)
+    kw = structured_stencil(grid.quad_mask, grid.split, grid.zigzag_phase,
+                            cpin.dtype)
+    pinned = grid.dirichlet_mask[..., None]
+
+    def g(u):
+        with torch.no_grad():
+            node = torch.cat([cpin, model.u_full({"u": u}, grid)],
+                             dim=-1).reshape(nx * ny, 4)
+            vg = (lattice_stencil_vg if model._use_kernel(node)
+                  else lattice_stencil_vg_plain)
+            _, gn = vg(node, nx, ny, model.E, model.nu, 0.5, **kw)
+            return torch.where(pinned, 0.0, gn.reshape(nx, ny, 4)[..., 2:])
+    return g
+
+
+def level_g0s(model, levels) -> tuple:
+    """Per-level gradients at zero, the affine part of each level
+    operator: compute them once outside an iteration loop."""
+    return tuple(_level_grad(model, lev.grid, lev.coords)(
+        torch.zeros_like(lev.coords)) for lev in levels)
+
+
+def _level_op(model, grid: StructuredGrid, coords: torch.Tensor, g0=None):
+    """The stiffness action v -> K v on a level's ``grid`` at its
+    ``coords`` (two-point gradient difference of the quadratic domain
+    energy)."""
+    g = _level_grad(model, grid, coords)
+    if g0 is None:
+        g0 = g(torch.zeros_like(coords))
+
+    def op(v):
+        return g(v) - g0
+
+    return op
+
+
+def _setup_level(model, grid: StructuredGrid, coords: torch.Tensor,
+                 power_iters: int) -> _Level:
+    op = _level_op(model, grid, coords)
+    nx, ny = grid.nx, grid.ny
+    dev, dtype = coords.device, coords.dtype
+    # exact diagonal by colored probing: (i%2, j%2, comp) is a proper
+    # coloring of the stiffness sparsity graph
+    ii = torch.arange(nx, device=dev)[:, None, None] % 2
+    jj = torch.arange(ny, device=dev)[None, :, None] % 2
+    kk = torch.arange(2, device=dev)[None, None, :]
+    diag = torch.zeros((nx, ny, 2), dtype=dtype, device=dev)
+    for color in range(8):
+        ci, cj, ck = color >> 2, (color >> 1) & 1, color & 1
+        z = ((ii == ci) & (jj == cj) & (kk == ck)).to(dtype)
+        diag = diag + z * op(z)
+    live = diag > _TINY
+    dinv = torch.where(live, 1.0 / torch.clamp_min(diag, _TINY), 0.0)
+
+    # lmax(D^{-1} K) by power iteration from JAX's deterministic start.
+    # The 30% headroom is not tuning: Chebyshev smoothing with an
+    # underestimated lmax amplifies the top of the spectrum (the JAX
+    # package measured a stall, then NaN, at 481x241).
+    v = torch.sin(torch.arange(nx * ny * 2, dtype=dtype, device=dev)
+                  ).reshape(nx, ny, 2) * live.to(dtype)
+    v = v / torch.clamp_min(torch.sqrt(torch.sum(v * v)), _TINY)
+    nrm = None
+    for _ in range(power_iters):
+        w = dinv * op(v)
+        nrm = torch.sqrt(torch.sum(w * w))
+        v = w / torch.clamp_min(nrm, _TINY)
+    lmax = 1.3 * nrm
+    # the preconditioner must never write outside the operator's range
+    free = live.to(dtype)
+    return _Level(grid=grid, coords=coords, dinv=dinv, lmax=lmax,
+                  free=free, lmax_host=float(lmax))
+
+
+def build_hierarchy(model, grid: StructuredGrid, coords: torch.Tensor,
+                    min_size: int = 4, max_levels: int = 16,
+                    power_iters: int = 30) -> Tuple[_Level, ...]:
+    """Coarsen ``grid`` (with the given, possibly r-adapted, pinned node
+    coordinates) while the quad lattice divides by 2 and stays at least
+    ``min_size`` nodes per axis; set up diagonals and Chebyshev bounds
+    per level (``8 + power_iters + 1`` level gradients each)."""
+    coords = coords.detach()
+    levels: List[_Level] = [_setup_level(model, grid, coords,
+                                         int(power_iters))]
+    g = grid
+    while len(levels) < max_levels:
+        gc = coarsen_grid(g)
+        if gc is None or gc.nx < min_size or gc.ny < min_size:
+            break
+        coords = coords[::2, ::2].contiguous()
+        levels.append(_setup_level(model, gc, coords, int(power_iters)))
+        g = gc
+    return tuple(levels)
+
+
+# --------------------------------------------------------------- smoothing
+@functools.lru_cache(maxsize=256)
+def _cheb_coeffs(lmax: float, degree: int, f64: bool):
+    """(theta, [(c1, c2)] * (degree - 1)) of the Chebyshev recursion
+    d <- c1 d + c2 D^{-1} r, in the level's precision (numpy scalars of
+    its dtype, so the values are the JAX package's float32 scalars)."""
+    f = np.float64 if f64 else np.float32
+    lmax = f(lmax)
+    lmin = lmax * f(0.25)
+    theta = f(0.5) * (lmax + lmin)
+    delta = f(0.5) * (lmax - lmin)
+    sigma = theta / delta
+    rho = f(1.0) / sigma
+    coeffs = []
+    for _ in range(degree - 1):
+        rho_new = f(1.0) / (f(2.0) * sigma - rho)
+        coeffs.append((float(rho_new * rho),
+                       float(f(2.0) * rho_new / delta)))
+        rho = rho_new
+    return float(theta), tuple(coeffs)
+
+
+def _cheb_smooth(op, lev: _Level, b, x, degree: int):
+    """``degree`` steps of Chebyshev-Jacobi smoothing of K x = b over
+    [lmax/4, lmax] of D^{-1}K (a fixed polynomial: linear and symmetric,
+    safe inside an SPD preconditioner)."""
+    theta, coeffs = _cheb_coeffs(lev.lmax_host, int(degree),
+                                 b.dtype == torch.float64)
+    r = b - op(x)
+    d = (lev.dinv * r) / theta
+    x = x + d
+    for c1, c2 in coeffs:
+        r = r - op(d)
+        d = c1 * d + c2 * (lev.dinv * r)
+        x = x + d
+    return x
+
+
+def vcycle(model, levels: Tuple[_Level, ...], b, nu: int = 3,
+           coarse_degree: int = 24, _l: int = 0, g0s=None):
+    """One V(nu, nu) cycle approximating K^{-1} b on the finest level;
+    linear and symmetric in ``b`` (a valid PCG preconditioner).  Pass
+    ``g0s = level_g0s(model, levels)`` from inside an iteration loop so
+    the affine parts are not recomputed per call."""
+    if g0s is None:
+        g0s = level_g0s(model, levels)
+    lev = levels[_l]
+    op = _level_op(model, lev.grid, lev.coords, g0s[_l])
+    if _l == len(levels) - 1:
+        return _cheb_smooth(op, lev, b, torch.zeros_like(b), coarse_degree)
+    x = _cheb_smooth(op, lev, b, torch.zeros_like(b), nu)
+    rc = _restrict(b - op(x))
+    xc = vcycle(model, levels, rc, nu, coarse_degree, _l + 1, g0s)
+    x = x + lev.free * prolong(xc)
+    return _cheb_smooth(op, lev, b, x, nu)
+
+
+# -------------------------------------------------------------------- PCG
+def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
+            nu: int, coarse_degree: int):
+    u0 = params["u"].detach()
+    coords = levels[0].coords
+    u = u0.clone().requires_grad_(True)
+    (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid), u)
+
+    g0s = level_g0s(model, levels)          # affine parts, hoisted
+    # K of the full energy (the traction term is linear in u)
+    fine_op = _level_op(model, levels[0].grid, coords, g0s[0])
+
+    r = -g0
+    z = vcycle(model, levels, r, nu, coarse_degree, g0s=g0s)
+    p = z
+    x = torch.zeros_like(u0)
+    rz = torch.sum(r * z)
+    rr0 = torch.sum(r * r)
+    rr = rr0
+    hist = torch.zeros((max_iters,), dtype=rr0.dtype, device=rr0.device)
+    thresh = (tol * tol) * rr0
+    i = 0
+    # one read from the device per iteration: the stop test
+    while i < max_iters and bool(rr > thresh):
+        Ap = fine_op(p)
+        pAp = torch.sum(p * Ap)
+        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
+                            torch.zeros_like(pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = vcycle(model, levels, r, nu, coarse_degree, g0s=g0s)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp_min(rz, _TINY)
+        p = z + beta * p
+        rz = rz_new
+        rr = torch.sum(r * r)
+        hist[i] = torch.sqrt(rr / torch.clamp_min(rr0, _TINY))
+        i += 1
+    return {"coords": params["coords"], "u": u0 + x}, hist
+
+
+def mg_pcg_solve(model, grid: StructuredGrid, params,
+                 max_iters: int = 60, tol: float = 1e-6, nu: int = 3,
+                 coarse_degree: int = 24,
+                 levels: Optional[Tuple[_Level, ...]] = None
+                 ) -> Tuple[dict, torch.Tensor]:
+    """Solve the fixed-mesh displacement problem ``min_u E(u)`` on a
+    ``StructuredGridP1`` model by V-cycle-preconditioned CG.
+
+    Args:
+      model: a ``StructuredGridP1`` (its ``total`` supplies the RHS, its
+        domain energy every level operator).
+      grid: the fine ``StructuredGrid``.
+      params: ``{"coords", "u"}``; coordinates are frozen (pinned by the
+        model's getter, so r-adapted meshes work), ``u`` is the initial
+        guess.
+      levels: a prebuilt ``build_hierarchy(...)`` to amortize set-up over
+        repeated solves at the same coordinates.
+
+    Returns (solved params, per-iteration relative residual norms
+    [max_iters], zero for iterations never run).
+    """
+    with torch.no_grad():
+        coords = model.coords(params, grid)
+    if levels is None:
+        levels = build_hierarchy(model, grid, coords)
+    return _mg_pcg(model, levels, grid, params, int(max_iters), float(tol),
+                   int(nu), int(coarse_degree))
+
+
+def radapt_mg_solve(model, grid: StructuredGrid, params,
+                    outer_epochs: int = 10, mg_iters: int = 40,
+                    mg_tol: float = 1e-6, coord_steps: int = 20,
+                    coord_lr: float = 1e-7) -> Tuple[dict, torch.Tensor]:
+    """r-adaptivity on the structured path with exact multigrid inner
+    solves: each outer epoch (1) MG-PCG-solves the displacement system at
+    the current node coordinates (rebuilding the hierarchy, since the
+    level diagonals and spectra follow the moved mesh), then (2) takes
+    ``coord_steps`` Adam steps on the coordinates at the equilibrated
+    displacements.
+
+    Returns (params, per-epoch energies at the equilibrated states).
+    """
+    from . import optimizers as _opt
+    from .drivers import run_optimizer
+
+    opt_c = _opt.freeze_groups(_opt.adam(coord_lr), ["u"])
+    energies = []
+    for _ in range(outer_epochs):
+        params, _ = mg_pcg_solve(model, grid, params, max_iters=mg_iters,
+                                 tol=mg_tol)
+        with torch.no_grad():
+            energies.append(model(params, grid))
+        params, _ = run_optimizer(model.total, params, opt_c, coord_steps,
+                                  (grid,))
+    return params, torch.stack(energies)

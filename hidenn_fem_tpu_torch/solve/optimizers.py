@@ -1,12 +1,18 @@
-"""Compact L-BFGS on a flat parameter vector (port of
-``scale_by_compact_lbfgs`` and ``lbfgs(linesearch="none")`` from
-``hidenn_fem_tpu/solve/optimizers.py``).
+"""Optimizers on a flat parameter vector (port of
+``hidenn_fem_tpu/solve/optimizers.py``): compact L-BFGS
+(``scale_by_compact_lbfgs``, ``lbfgs(linesearch="none")``) and Adam
+(``adam``, ``adam_per_group``, ``freeze_groups``).
 
-An optimizer here is an object with ``init(x) -> state`` and
+An optimizer here is an object with ``init(x, like=None) -> state`` and
 ``update(g, state, x) -> (step, state)`` on flat [P] vectors; the driver
 applies ``x + step``.  Parameters are flattened in ``ravel_pytree`` order
 (sorted keys: ``coords`` then ``u``) by ``ravel_params``; a bare tensor
 (the [N, 4] node table of the node-space solves) is its own flat view.
+``like`` is the params template the flat vector came from (a dict of
+tensors, or a bare tensor): the optax transformations that label
+parameter groups by top-level key (``multi_transform``) see the pytree,
+and the flat interface needs it to find a group's entries.  L-BFGS
+ignores it.
 
 The direction H g comes from the compact representation (Byrd, Nocedal &
 Schnabel 1994, Thm 2.2):
@@ -32,10 +38,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["CompactLBFGSState", "CompactLBFGS", "scale_by_compact_lbfgs",
-           "lbfgs", "ravel_params", "unravel_params"]
+           "lbfgs", "adam", "adam_per_group", "freeze_groups", "AdamState",
+           "Adam", "FreezeGroups", "ravel_params", "unravel_params"]
 
 
 def ravel_params(params) -> torch.Tensor:
@@ -82,7 +90,7 @@ class CompactLBFGS:
         self.learning_rate = learning_rate
         self.scale_init_precond = scale_init_precond
 
-    def init(self, x: torch.Tensor) -> CompactLBFGSState:
+    def init(self, x: torch.Tensor, like=None) -> CompactLBFGSState:
         m, p = self.m, x.numel()
         z = torch.zeros((p,), dtype=x.dtype, device=x.device)
         return CompactLBFGSState(
@@ -178,3 +186,117 @@ def lbfgs(memory_size: int = 100, linesearch: str = "none",
         raise ValueError(f"linesearch {linesearch!r} is not ported yet; "
                          "only 'none' is available")
     return CompactLBFGS(memory_size, learning_rate=learning_rate)
+
+
+# ------------------------------------------------------------------ Adam
+def _key_ranges(like) -> dict:
+    """Top-level key -> (start, end) of its entries in the flat vector of
+    ``like`` (sorted-key order, as ``ravel_params``)."""
+    if not isinstance(like, dict):
+        raise ValueError("parameter groups need the params dict as "
+                         "``like`` (keys label the groups)")
+    out, i = {}, 0
+    for k in sorted(like):
+        n = like[k].numel()
+        out[k] = (i, i + n)
+        i += n
+    return out
+
+
+class AdamState(NamedTuple):
+    count: int                 # update calls so far
+    mu: torch.Tensor           # [P] first moment
+    nu: torch.Tensor           # [P] second moment
+    lr: torch.Tensor | float   # learning rate: a scalar or a [P] vector
+
+
+class Adam:
+    """optax's ``adam``: b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
+    bias-corrected moments, step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``
+    in optax's order of operations (the bias corrections ``1 - b**count``
+    in the moments' precision, as optax computes them).  With
+    ``group_lrs`` each top-level key of the params takes its own rate,
+    which for an elementwise method is exactly optax's
+    ``multi_transform`` of one Adam per group."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, learning_rate: float = 1e-3, group_lrs=None):
+        self.learning_rate = learning_rate
+        self.group_lrs = None if group_lrs is None else dict(group_lrs)
+
+    def init(self, x: torch.Tensor, like=None) -> AdamState:
+        lr = self.learning_rate
+        if self.group_lrs is not None:
+            lr = torch.empty_like(x)
+            for k, (a, b) in _key_ranges(like).items():
+                if k not in self.group_lrs:
+                    raise KeyError(f"no learning rate for group {k!r}")
+                lr[a:b] = self.group_lrs[k]
+        return AdamState(count=0, mu=torch.zeros_like(x),
+                         nu=torch.zeros_like(x), lr=lr)
+
+    def update(self, g: torch.Tensor, state: AdamState, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, AdamState]:
+        b1, b2 = self.b1, self.b2
+        mu = (1 - b1) * g + b1 * state.mu
+        nu = (1 - b2) * (g * g) + b2 * state.nu
+        count = state.count + 1
+        # optax's bias corrections 1 - b**count, in the moments' precision
+        f = np.float64 if g.dtype == torch.float64 else np.float32
+        mu_hat = mu / float(f(1) - f(b1) ** f(count))
+        nu_hat = nu / float(f(1) - f(b2) ** f(count))
+        lr = state.lr
+        step = (mu_hat / (torch.sqrt(nu_hat) + self.eps)) * (-lr)
+        return step, AdamState(count=count, mu=mu, nu=nu, lr=lr)
+
+
+class FreezeGroups:
+    """``inner`` on the entries of the params keys not in ``frozen`` (the
+    inner optimizer sees only those, as optax's ``multi_transform`` gives
+    them), and a zero step on the frozen keys' entries."""
+
+    def __init__(self, inner, frozen_keys):
+        self.inner = inner
+        self.frozen = set(frozen_keys)
+
+    def init(self, x: torch.Tensor, like=None):
+        ranges = [r for k, r in _key_ranges(like).items()
+                  if k not in self.frozen]
+        active = {k: like[k] for k in sorted(like) if k not in self.frozen}
+        return ranges, self.inner.init(self._take(x, ranges), like=active)
+
+    @staticmethod
+    def _take(v, ranges):
+        return torch.cat([v[a:b] for a, b in ranges]) if ranges \
+            else v[:0]
+
+    def update(self, g: torch.Tensor, state, x: torch.Tensor):
+        ranges, inner_state = state
+        step_a, inner_state = self.inner.update(
+            self._take(g, ranges), inner_state, self._take(x, ranges))
+        step = torch.zeros_like(x)
+        i = 0
+        for a, b in ranges:
+            step[a:b] = step_a[i:i + b - a]
+            i += b - a
+        return step, (ranges, inner_state)
+
+
+def adam(learning_rate: float = 1e-3) -> Adam:
+    """optax's ``adam(learning_rate)``."""
+    return Adam(learning_rate)
+
+
+def adam_per_group(group_lrs) -> Adam:
+    """Adam with a separate learning rate per top-level parameter key:
+    ``adam_per_group({"u": 1e-4, "coords": 1e-5})`` is the reference's
+    two-group configuration (``examples/example4.py:54-57``)."""
+    return Adam(group_lrs=group_lrs)
+
+
+def freeze_groups(inner, frozen_keys) -> FreezeGroups:
+    """Wrap an optimizer so that the given top-level keys receive zero
+    updates (the reference's alternating freeze scheme,
+    ``examples/example4.py:83-109``, as a first-class optimizer)."""
+    return FreezeGroups(inner, frozen_keys)

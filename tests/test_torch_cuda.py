@@ -586,3 +586,140 @@ def test_two_rank_gloo_slab_on_one_card(dev, tmp_path):
                                    atol=1e-5 * np.abs(b).max())
     for r in ranks:
         assert json.loads(str(r["launches"]))["lattice_stencil_vg_rows"] >= 1
+
+
+# ------------------------------------------------------- the linear solvers
+# every coarse lattice of the 961x481 hierarchy, and the CPU tests' sizes
+COARSE_SHAPES = [(481, 241), (241, 121), (121, 61), (61, 31), (31, 16),
+                 (17, 9), (9, 5)]
+
+
+@pytest.mark.parametrize("shape", COARSE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("diag", [ls.UP, ls.PARITY])
+def test_lattice_stencil_kernels_take_fractional_weights(dev, shape, diag):
+    """K7 and K6 with the multigrid's coarse quad weights (volume
+    fractions in {0, .25, .5, .75, 1}) against their plain versions; K6's
+    energy equal to K7's bit for bit."""
+    nx, ny = shape
+    node, rng = _lattice_node(nx, ny, 11, dev)
+    w = torch.tensor(rng.integers(0, 5, (nx - 1, ny - 1)) / 4.0,
+                     dtype=torch.float32, device=dev)
+    kw = dict(diag=diag, phase=1 if diag == ls.PARITY else 0, t1=w, t2=w)
+    e7 = ls.lattice_stencil_fwd(node, nx, ny, E, NU, W_SUM, **kw)
+    e6, g6 = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
+    ep, gp = ls.lattice_stencil_vg_plain(node, nx, ny, E, NU, W_SUM, **kw)
+    assert float(e6) == float(e7)
+    _close(e7, ep, rtol=1e-4, atol_scale=0.0)
+    _close(g6, gp)
+
+
+def _mg_plate(nx, ny, dev, split="zigzag", holes=((1.0, 0.5, 0.15),)):
+    grid = generate_structured_grid(nx=nx, ny=ny, split=split, holes=holes,
+                                    device=dev)
+    model = StructuredGridP1(E=10e9, nu=0.3)
+    return grid, model, model.init(np.random.default_rng(0), grid,
+                                   device=dev)
+
+
+@pytest.mark.parametrize("shape", [(961, 481), (33, 17)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_level_operator_is_the_autograd_gradient_bit_for_bit(dev, shape):
+    """The multigrid level operator calls K6 directly; its gradient equals
+    torch.autograd.grad of ``domain_energy`` (which runs K6 through the
+    autograd Function) bit for bit, on every level (fractional weights on
+    the coarse ones)."""
+    from hidenn_fem_tpu_torch.solve import multigrid as tmg
+
+    grid, model, params = _mg_plate(*shape, dev)
+    coords = model.coords(params, grid).detach()
+    g = grid
+    while g is not None and min(g.nx, g.ny) >= 4:
+        u = 1e-4 * torch.randn((g.nx, g.ny, 2), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+        before = ls.launch_counts["lattice_stencil_vg"]
+        direct = tmg._level_grad(model, g, coords)(u)
+        assert ls.launch_counts["lattice_stencil_vg"] == before + 1
+        uu = u.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(
+            model.domain_energy({"coords": coords, "u": uu}, g), uu)
+        assert torch.equal(direct, auto), (g.nx, g.ny)
+        g = tmg.coarsen_grid(g)
+        coords = coords[::2, ::2].contiguous()
+
+
+def test_cg_solve_on_the_card_matches_the_cpu(dev):
+    """cg_solve on a banded Delaunay mesh (K4 every matvec) and on a
+    lattice plate (K6 every matvec) against the same solve on the CPU's
+    plain path: solutions within 1e-4 x max|u| (both f32 solves stop at
+    relres 1e-6), energies rtol 1e-5."""
+    mesh_cpu = pt.generate_mesh_delaunay(lc=0.09, device="cpu")
+    banded = dataclasses.replace(
+        mesh_cpu, banded=_banded_tables(mesh_cpu, 3, "cpu"),
+        banded_paired=_banded_tables(mesh_cpu, 4, "cpu"))
+    lattice = pt.proxy_plate_mesh(nx=41, ny=21, device="cpu")
+    for mesh, counter in ((banded, (be, "banded_vg")),
+                          (lattice, (ls, "lattice_stencil_vg"))):
+        energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+        def loss(p, coords, m):
+            return energy({"u": p["u"], "coords": coords}, m)
+        u0 = 1e-5 * np.random.default_rng(0).standard_normal(
+            (mesh.n_nodes, 2))
+        out = {}
+        for where in ("cpu", dev):
+            m = mesh.to(where)
+            u = {"u": torch.tensor(u0, dtype=torch.float32, device=where)}
+            mod, name = counter
+            before = mod.launch_counts[name]
+            sol, hist = pt.cg_solve(loss, u, (m.coords, m), max_iters=2000,
+                                    tol=1e-6)
+            launched = mod.launch_counts[name] - before
+            iters = int((hist > 0).sum())
+            assert launched == (0 if where == "cpu" else iters + 1)
+            with torch.no_grad():
+                out[str(where)] = (sol["u"].cpu(),
+                                   float(loss(sol, m.coords, m)))
+            assert float(hist[iters - 1]) <= 1e-6
+        (uc, ec), (ug, eg) = out["cpu"], out[str(dev)]
+        _close(ug, uc, rtol=0.0, atol_scale=1e-4)
+        assert abs(eg - ec) <= 1e-5 * abs(ec)
+
+
+def test_mg_pcg_solve_on_the_card_matches_the_cpu(dev):
+    """mg_pcg_solve on the 97x49 zigzag plate with a hole, from u = 0: on
+    the card every level operator is one K6 launch (fractional weights on
+    the coarse levels), counted exactly; against the same solve on the
+    CPU's plain path, solutions within 1e-4 x max|u|.  (From a noise start
+    the first residual is the noise's, and relres 1e-6 leaves the two f32
+    solutions 2.4e-4 x max|u| apart: measured on the card.)"""
+    from hidenn_fem_tpu_torch.solve import multigrid as tmg
+
+    out = {}
+    for where in ("cpu", dev):
+        grid, model, params = _mg_plate(97, 49, where)
+        params["u"] = torch.zeros_like(params["u"])
+        before = ls.launch_counts["lattice_stencil_vg"]
+        with torch.no_grad():
+            levels = tmg.build_hierarchy(model, grid,
+                                         model.coords(params, grid))
+        setup = ls.launch_counts["lattice_stencil_vg"] - before
+        n_lev = len(levels)
+        before = ls.launch_counts["lattice_stencil_vg"]
+        sol, hist = tmg.mg_pcg_solve(model, grid, params, max_iters=40,
+                                     tol=1e-6, levels=levels)
+        solve = ls.launch_counts["lattice_stencil_vg"] - before
+        iters = int((hist > 0).sum())
+        assert float(hist[iters - 1]) <= 1e-6
+        if where == "cpu":
+            assert setup == solve == 0
+        else:
+            # set-up: g0, 8 probes and 30 power iterations a level; solve:
+            # the right-hand side, the levels' g0s, a V(3,3) cycle (7 level
+            # operators a level, 24 on the coarsest) before the loop and
+            # each iteration, and one fine matvec each iteration
+            cycle = 7 * (n_lev - 1) + 24
+            assert setup == 39 * n_lev
+            assert solve == 1 + n_lev + (iters + 1) * cycle + iters
+        out[str(where)] = sol["u"].cpu()
+    _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)

@@ -22,6 +22,15 @@ Deliberate differences, and why:
   ``_banded_energy_rows`` made public for the sharded banded route.
 * ``backend`` on ``StructuredGridP1`` (kernel or plain), and ``tol`` on
   ``run_optimizer`` (the JAX package has it on ``run_lbfgs`` only).
+* The optimizers (``adam``, ``adam_per_group``, ``freeze_groups``,
+  ``lbfgs``) return objects with ``init(x, like=None)`` and
+  ``update(g, state, x)`` on one flat vector, not optax transformations
+  on a pytree: ``like`` is the params template, from which
+  ``adam_per_group`` and ``freeze_groups`` find each top-level key's
+  entries (``run_optimizer`` passes it; L-BFGS ignores it).
+* ``dtype`` on ``grid_from_numpy`` and ``levels_from_numpy`` (the port's
+  own converters), and ``lmax_host`` on the multigrid levels (the
+  Chebyshev bound on the host, read once at set-up).
 """
 
 import dataclasses
@@ -47,6 +56,9 @@ MODULES = {
     "parallel.multihost": "parallel.multihost", "parallel.sharding":
     "parallel.sharding", "parallel.sharded_slab": "parallel.sharded_slab",
     "parallel.sharded_lattice": "parallel.sharded_lattice",
+    "mesh": "mesh", "mesh.coloring": "mesh.coloring", "solve": "solve",
+    "solve.linear": "solve.linear", "solve.nodespace": "solve.nodespace",
+    "solve.multigrid": "solve.multigrid",
 }
 
 # JAX names the port does not have yet, by ROADMAP Queue A item
@@ -57,8 +69,10 @@ NOT_YET_PORTED = {
     "ops.quadrature": {"gauss_legendre_points_weights"},         # item 9
     "postproc": {"derivative_1d_per_element",                    # item 9
                  "locate_points", "evaluate_at_points"},         # item 10
-    "solve.drivers": {"minimize", "MinimizeResult"},             # item 1
-    "solve.optimizers": {"adam", "adam_per_group", "freeze_groups"},
+    "solve": {"alternating_solve", "two_phase_solve",            # item 7
+              "solve_with_checkpointing",
+              "aux_pcg_solve", "build_aux_preconditioner",       # item 4
+              "radapt_aux_solve"},
     "parallel": {"mg_pcg_solve_sharded"},                        # item 13
 }
 # JAX names with no torch counterpart by design (module doc)
@@ -75,6 +89,8 @@ JAX_ONLY_PARAMS = {
     # Queue A item 8: the zoom line search and the two-loop mode
     ("solve.drivers", "run_lbfgs"): {"max_linesearch_steps"},
     ("solve.optimizers", "lbfgs"): {"max_linesearch_steps", "mode"},
+    ("solve", "run_lbfgs"): {"max_linesearch_steps"},
+    ("solve", "lbfgs"): {"max_linesearch_steps", "mode"},
     # Queue A item 12: the windowed and chunked lattice fills
     ("mesh.lattice", "LatticeRoute"): {
         "fw_rel", "fw_starts", "bw_rel", "bw_starts", "ck_fwd_rowA",
@@ -94,6 +110,7 @@ PORT_EXTRA = {
     ("parallel.multihost", "initialize_multihost"): {"backend"},
     ("parallel", "initialize_multihost"): {"backend"},
     ("solve.drivers", "run_optimizer"): {"tol"},
+    ("solve", "run_optimizer"): {"tol"},
 }
 
 

@@ -8,11 +8,17 @@ the 922K-class plate on the lattice route; example 6's 1000x500
 ``StructuredGridP1`` (K6); and the 898K Delaunay plate
 (``generate_mesh_delaunay(lc=0.00218)``) on its banded route (K4 each
 value-and-grad) and, banded tables stripped, on the flat gather route
-(K1, K2, incidence_sum).  For each window it prints the wall time per
-call, the device-busy time per call (the union of kernel intervals), the
-idle share, each kernel's device µs per call by name (``key_averages()``),
-and the top operators by device and by host time.  Chrome traces go to
-the ``--out`` directory.
+(K1, K2, incidence_sum).  Two more windows profile the linear solvers
+per iteration: ``cg_solve`` on the 898K Delaunay plate from u = 0 (K4
+each matvec, one stop-test read an iteration) and ``mg_pcg_solve`` on
+example 9's hole-free 961x481 ``StructuredGridP1`` on a prebuilt
+hierarchy (K6 each level operator), each a 10-iteration solve that runs
+to its cap.  For each window it prints the wall time per call (per
+iteration for the solver windows), the device-busy time likewise (the
+union of kernel intervals), the idle share, each kernel's device µs per
+call by name (``key_averages()``), and the top operators by device and by
+host time.  Chrome traces go to the ``--out`` directory; ``--cases``
+picks windows by name.
 
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
@@ -107,7 +113,9 @@ def kernel_profile(fn, calls=20, tries=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def _window(name, fn, calls, out_dir, card):
+def _window(name, fn, calls, out_dir, card, iters=1):
+    """Profile ``calls`` calls of ``fn`` after one warm-up call; times are
+    per call, or per iteration when each call runs ``iters``."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -116,12 +124,13 @@ def _window(name, fn, calls, out_dir, card):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
-    busy = _busy_ms(prof) / calls
-    print(f"== {name}: {wall:.4f} ms/call wall, {busy:.4f} ms/call device "
-          f"busy, idle share {1 - busy / wall:.3f} [{card}]")
-    for kernel, us in kernel_us(prof, calls).items():
-        print(f"   device {us:9.2f} us/call  {kernel}")
+        wall = (time.perf_counter() - t0) * 1e3 / (calls * iters)
+    busy = _busy_ms(prof) / (calls * iters)
+    unit = "call" if iters == 1 else "iteration"
+    print(f"== {name}: {wall:.4f} ms/{unit} wall, {busy:.4f} ms/{unit} "
+          f"device busy, idle share {1 - busy / wall:.3f} [{card}]")
+    for kernel, us in kernel_us(prof, calls * iters).items():
+        print(f"   device {us:9.2f} us/{unit}  {kernel}")
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=15))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
@@ -156,6 +165,30 @@ def _example6(dev):
     return _case(model.total,
                  model.init(np.random.default_rng(0), grid, device=dev),
                  grid, memory_size=10)
+
+
+def _cg_898k(mesh, dev, iters=10):
+    """A cg_solve of ``iters`` iterations from u = 0 (tol 0: it runs to
+    its cap) on ``mesh``'s default route."""
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    return lambda: ht.cg_solve(loss, u0, (mesh.coords, mesh),
+                               max_iters=iters, tol=0.0)
+
+
+def _mg_961(dev, iters=10):
+    """An mg_pcg_solve of ``iters`` iterations (tol 0) on example 9's
+    plate, on a hierarchy built once."""
+    grid = ht.generate_structured_grid(nx=961, ny=481, device=dev)
+    model = ht.StructuredGridP1(E=10e9, nu=0.3)
+    params = model.init(np.random.default_rng(0), grid, device=dev)
+    with torch.no_grad():
+        levels = ht.build_hierarchy(model, grid, model.coords(params, grid))
+    return lambda: ht.mg_pcg_solve(model, grid, params, max_iters=iters,
+                                   tol=0.0, levels=levels)
 
 
 def _node(coords, seed):
@@ -278,6 +311,8 @@ def main():
                     help="with --kernels: save the banded gradients here")
     ap.add_argument("--compare-grads", nargs=2, metavar=("A", "B"),
                     help="hold two --grads directories equal bit for bit")
+    ap.add_argument("--cases", nargs="+", metavar="NAME",
+                    help="profile only these windows (default: all)")
     args = ap.parse_args()
     if args.compare_grads:
         _compare_grads(*args.compare_grads)
@@ -312,10 +347,20 @@ def main():
         "898k_delaunay_flat": lambda: _plate(dataclasses.replace(
             _delaunay(), banded=None, banded_paired=None), dev),
     }
+    solvers = {
+        "898k_delaunay_cg": lambda: _cg_898k(_delaunay(), dev),
+        "961x481_mg_pcg": lambda: _mg_961(dev),
+    }
     for name, make in cases.items():
+        if args.cases and name not in args.cases:
+            continue
         vg, steps = make()
         _window(f"{name}_value_and_grad", vg, 20, args.out, card)
         _window(f"{name}_lbfgs10", steps, 2, args.out, card)
+    for name, make in solvers.items():
+        if args.cases and name not in args.cases:
+            continue
+        _window(f"{name}_iteration", make(), 3, args.out, card, iters=10)
 
 
 if __name__ == "__main__":
