@@ -92,7 +92,11 @@ Phases (each raises on failure, and the script then exits non-zero):
     example 4; the lattice route on the 847K hybrid plate): every rank's
     values and history bit-equal across the ranks and within PERF.md
     section 2's limits of the single-rank run; ms per value-and-grad and
-    per step printed as ranks sharing one card.
+    per step printed as ranks sharing one card.  Each group also solves
+    the 898K plate from rest by ``aux_pcg_solve_sharded`` (K4 at row_start
+    each matvec and Jacobi probe, a replicated V-cycle on K6): solution
+    and history bit-equal across the ranks, within 6 iterations and
+    5e-3 x max|u| of the one-process ``aux_pcg_solve``.
 
 11. The CG family (``solve/linear.py``): a. example 8
     (``examples/example8_linear_solve_torch.py``: the 81x41 proxy plate on
@@ -120,8 +124,25 @@ Phases (each raises on failure, and the script then exits non-zero):
     (K6 each step, K7 the energy at the solution): the final energy
     against the JAX package's node-space value and phase 4's params-space
     solve.
+14. Auxiliary-space PCG (``solve/auxspace.py``): a. example 10
+    (``examples/example10_auxspace_torch.py``, the 961x481 proxy plate,
+    921,600 elements, lattice route: K6 each matvec) on the generic
+    background (513x257, windowed P^T) and on the lattice-aligned one
+    ("reshape", 961x481), each as the example runs it (set-up, cold and
+    warm solves from its noise start; iterations and energy against
+    JAX's) and from rest on the same preconditioner (energy against JAX
+    at SOLVE_RTOL); b. the 898K Delaunay plate from rest (K4 each matvec
+    and probe, K6 each level operator, K3 the energy; flat P^T as JAX
+    selects it); c. the 847K hybrid plate from rest ("reshape" with rim
+    tables; the hybrid route launches no kernel, so K6 comes from the
+    V-cycle only), then example 12 at its own size; d. example 11 at its
+    own size (gather route) and 2 epochs of ``radapt_aux_solve`` on its
+    mesh (the energies fall, the pins stay).  Each solve from rest counts
+    its launches exactly (K6: the levels' gradients once and a V-cycle
+    before the loop and each iteration; the fine kernel once and each
+    iteration) and prints its set-up seconds and ms per iteration.
 
-Each path of phases 4-13 (and K8's timed A/B) runs with every launch
+Each path of phases 4-14 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
 whose residual turns non-finite fails.  The last three lines of standard output
@@ -293,6 +314,71 @@ JAX_MG_ITERS = 15
 JAX_MG_ENERGY = (-0.9938671588897705, -0.9938672685126402)   # f32, f64
 JAX_EX4_NODE_SPACE = -1.3143513202667236
 JAX_EX4_NODE_SPACE_AT_SOLUTION = -1.3143532276153564
+
+# Auxiliary-space PCG (phase 14).  JAX package values on the CPU for the
+# same numpy inputs, made with (JAX_PLATFORMS=cpu; f64 under
+# jax_enable_x64, dt the matching dtype)
+#   import numpy as np, jax.numpy as jnp, hidenn_fem_tpu as ht
+#   from hidenn_fem_tpu.models.structured_grid import StructuredGridP1
+#   from hidenn_fem_tpu.solve import auxspace as ax
+#   m = ht.proxy_plate_mesh(nx=961, ny=481)     # example 10; or the 898K
+#   # Delaunay plate of phase 8 (f64: its arrays in f64 on the gather
+#   # route, as there) or the 847K hybrid plate of phase 9
+#   u0 = 1e-5 * np.random.default_rng(0).standard_normal((m.n_nodes, 2))
+#   # ("noise", example 10's start), or u0 = 0 ("rest")
+#   e = ht.PlaneStressEnergy(model=ht.TriangleP1(dtype=dt), E=10e9, nu=0.3)
+#   ul = lambda p, c, m: e({"u": p["u"], "coords": c}, m)
+#   c = jnp.asarray(np.asarray(m.coords), dt)
+#   bg = StructuredGridP1(E=10e9, nu=0.3, dtype=dt)
+#   pre = ax.build_aux_preconditioner(ul, {"u": u0}, (c, m), m,
+#       bg_model=bg, lattice_bg=<False for "generic">)
+#   sol, h = ax.aux_pcg_solve(ul, {"u": u0}, (c, m), pre=pre, bg_model=bg,
+#                             max_iters=200, tol=1e-6)
+#   # iterations: (h > 0).sum(); energy: ul(sol, c, m)
+# Under x64 the generic background's windowed P^T raises in the JAX
+# package (dynamic_slice index types int32 and int64), so its f64 values
+# come from the flat tables of the same preconditioner
+# (dataclasses.replace(pre, ptw_rel=None, ptw_w=None, ptw_starts=None,
+# ptw_width=0)), which apply the same P^T (2.3e-7 apart in f32 at this
+# size).  From example 10's noise start the first residual is the
+# noise's, and relres 1e-6 leaves the f32 solves far apart: JAX's own two
+# layouts of the generic background take 21 (windowed) and 28 (flat)
+# iterations to energies 3.5e-4 apart.  So the noise-start solves are
+# held to JAX's energies by the f32 spread rule of phases 8-9; the solves
+# from rest, to SOLVE_RTOL (JAX f32 and f64 there lie within 5.4e-7).
+# Iteration counts wander in f32 even from rest (71 against f64's 64 on
+# the lattice-aligned background): each path is held within
+# AUX_ITERS_SPREAD of the range of JAX's counts.
+JAX_AUX = {
+    # (path, start): (JAX's iteration counts: f32, [f32 on the other P^T
+    # layout,] f64; the f32 energy; the f64 energy)
+    ("lattice", "noise"): ((26, 26), -0.9938489198684692,
+                           -0.9938762597428269),
+    ("generic", "noise"): ((21, 28, 21), -0.9938318729400635,
+                           -0.9938818247333342),
+    ("lattice", "rest"): ((71, 64), -0.9938826560974121,
+                          -0.9938830750013381),
+    ("generic", "rest"): ((27, 27), -0.9938825368881226,
+                          -0.9938830750013379),
+    ("delaunay", "rest"): ((34, 34), -1.2771071195602417,
+                           -1.2771068675489459),
+    ("hybrid", "rest"): ((84, 82), -1.277075171470642,
+                         -1.2770752690367217),
+}
+AUX_ITERS_SPREAD = 6
+AUX_MAX_ITERS = 200
+# the preconditioners JAX builds there: background lattice, levels, and
+# the generic P^T layout (windowed: rel shape and window width; flat: the
+# table depth)
+JAX_AUX_SETUP = {
+    "lattice": ((961, 481), 6, "reshape"),
+    "generic": ((513, 257), 7, ("windowed", (65, 2056, 16), 8177)),
+    "delaunay": ((513, 257), 7, ("flat", 20)),
+    "hybrid": ((961, 481), 6, "reshape"),
+}
+# the r-adaptive aux epochs' coordinate step on example 11's mesh
+# (lc = 0.05: 0.2% of the spacing a step)
+RADAPT_AUX_LR = 1e-4
 
 # kernel vs plain tolerances at full size (f32 on both sides, sums and
 # products in other orders): energy rtol 1e-4; gradients rtol 5e-4 with
@@ -1780,6 +1866,239 @@ def phase_node_space(ht, mesh, dev, card, params_space_final):
               JAX_EX4_NODE_SPACE_AT_SOLUTION, EX4_RTOL)
 
 
+# ---------------------------------------------- auxiliary-space PCG
+def aux_loss(ht):
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1(), E=10e9, nu=0.3)
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    return loss
+
+
+def check_aux_setup(key, pre):
+    """The preconditioner's background, levels and P^T layout as the JAX
+    package builds them (JAX_AUX_SETUP)."""
+    shape, n_lev, layout = JAX_AUX_SETUP[key]
+    got_layout = pre.lat_kind or (
+        ("windowed", tuple(pre.ptw_rel.shape), pre.ptw_width)
+        if pre.ptw_rel is not None else ("flat", pre.pt_w.shape[1]))
+    got = ((pre.grid.nx, pre.grid.ny), len(pre.levels), got_layout)
+    log(f"  {key} preconditioner: background {got[0][0]}x{got[0][1]}, "
+        f"{got[1]} levels, P^T {got[2]} (JAX: {layout})")
+    if got != (shape, n_lev, layout):
+        raise AssertionError(f"{key}: preconditioner {got}, JAX builds "
+                             f"{(shape, n_lev, layout)}")
+
+
+def check_aux_iters(name, iters, want):
+    lo, hi = min(want) - AUX_ITERS_SPREAD, max(want) + AUX_ITERS_SPREAD
+    log(f"  {name}: {iters} iterations (JAX: {want}; limits {lo}-{hi})")
+    if not lo <= iters <= hi:
+        raise AssertionError(f"{name}: {iters} iterations, outside {lo}-"
+                             f"{hi}")
+
+
+def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
+    """A solve from rest on a prebuilt preconditioner, timed on the host
+    clock, with its launches counted exactly: the levels' gradients at
+    zero once, a V-cycle (7 level operators a level, 24 on the coarsest:
+    K6 each) before the loop and each iteration, and the fine gradient at
+    the start and once an iteration on ``fine``'s kernel (None: the hybrid
+    route, no kernel).  Returns (solution, history, seconds)."""
+    mesh = args[1]
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=mesh.coords.device)}
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    sol, hist = ht.aux_pcg_solve(loss, u0, args, pre=pre,
+                                 max_iters=AUX_MAX_ITERS, tol=1e-6)
+    h = check_hist(name, hist)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in counts.read().items() if v}
+    iters, n_lev = len(h), len(pre.levels)
+    want = {"lattice_stencil_vg": n_lev + (iters + 1)
+            * (7 * (n_lev - 1) + 24)}
+    if fine is not None:
+        want[fine] = want.get(fine, 0) + 1 + iters
+    log(f"  {name} from rest: {iters} iterations to {h[-1]:.6e} in "
+        f"{seconds:.3f} s, {1e3 * seconds / iters:.3f} ms per iteration; "
+        f"launches {launched} (expected {want}), per iteration "
+        + ", ".join(f"{k} {v / iters:.2f}" for k, v in launched.items())
+        + f" [{card}]")
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, expected "
+                             f"{want}")
+    if h[-1] > 1e-6:
+        raise AssertionError(f"{name}: did not reach relres 1e-6")
+    return sol, h, seconds
+
+
+def phase_aux_example10(ht, counts, dev, card):
+    """Phase 14a: example 10 at 961x481 (921,600 elements), both
+    framings: the example as a user runs it (noise start, timed set-up,
+    cold and warm solves), then a solve from rest on its preconditioner
+    with exact launch counts (K6 each matvec and each level operator)."""
+    from examples.example10_auxspace_torch import FRAMINGS
+    from examples.example10_auxspace_torch import main as example10
+
+    for label, lattice_bg in FRAMINGS:
+        key = "lattice" if lattice_bg else "generic"
+        res, _ = run_path(
+            counts, f"example-10 aux-PCG, {label}",
+            ("lattice_stencil_vg", "lattice_stencil_fwd"),
+            lambda: example10(device=dev, framings=((label, lattice_bg),)))
+        r = res[label]
+        check_aux_setup(key, r["pre"])
+        (want_it, f32, f64) = JAX_AUX[(key, "noise")]
+        h = check_hist(f"example-10 {label}", r["hist"])
+        warm = check_hist(f"example-10 {label}, warm", r["warm_hist"])
+        if h[-1] > 1e-6 or warm[-1] > 1e-6:
+            raise AssertionError(f"example 10, {label}: relres above 1e-6")
+        check_aux_iters(f"example 10, {label}", len(h), want_it)
+        log(f"  example 10, {label}: set-up {r['setup_s']:.3f} s, cold "
+            f"solve {r['solve_s']:.3f} s, warm solve {r['warm_s']:.3f} s "
+            f"({1e3 * r['warm_s'] / len(warm):.3f} ms per iteration, "
+            f"{len(warm)} iterations) [{card}]")
+        check_ref(f"example-10 energy, {label} (noise start)", r["energy"],
+                  f32, F32_SPREAD_RTOL, f64)
+        sol, h, _ = timed_aux_solve(ht, counts, f"example 10, {label}",
+                                    r["loss"], r["args"], r["pre"],
+                                    "lattice_stencil_vg", card)
+        (want_it, f32, f64) = JAX_AUX[(key, "rest")]
+        check_aux_iters(f"example 10, {label}, from rest", len(h), want_it)
+        with torch.no_grad():
+            e = float(r["loss"](sol, *r["args"]))
+        check_ref(f"example-10 energy, {label} (from rest)", e, f32,
+                  SOLVE_RTOL, f64)
+
+
+def phase_aux_898k(ht, counts, mesh, dev, card):
+    """Phase 14b: the 898K Delaunay plate from rest (banded route: K4 each
+    matvec and Jacobi probe, K6 in the V-cycle on the generic background,
+    K3 the energy under no_grad)."""
+    loss = aux_loss(ht)
+    args = (mesh.coords, mesh)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    (want_it, f32, f64) = JAX_AUX[("delaunay", "rest")]
+
+    def path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = ht.build_aux_preconditioner(
+            loss, u0, args, mesh, bg_model=ht.StructuredGridP1(E=10e9,
+                                                               nu=0.3))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check_aux_setup("delaunay", pre)
+        t0 = time.perf_counter()
+        sol, hist = ht.aux_pcg_solve(loss, u0, args, pre=pre,
+                                     max_iters=AUX_MAX_ITERS, tol=1e-6)
+        h = check_hist("898K aux-PCG", hist)
+        seconds = time.perf_counter() - t0
+        with torch.no_grad():
+            e = float(loss(sol, *args))
+        log(f"  898K aux-PCG: set-up {setup_s:.3f} s, {len(h)} iterations "
+            f"to {h[-1]:.6e} in {seconds:.3f} s ({1e3 * seconds / len(h):.3f}"
+            f" ms per iteration) [{card}]")
+        if h[-1] > 1e-6:
+            raise AssertionError("898K aux-PCG did not reach 1e-6")
+        check_aux_iters("898K aux-PCG", len(h), want_it)
+        check_ref("898K aux-PCG energy (from rest)", e, f32, SOLVE_RTOL, f64)
+        return pre
+
+    pre, _ = run_path(counts, "898K aux-PCG",
+                      ("banded_vg", "banded_fwd", "lattice_stencil_vg"), path)
+    timed_aux_solve(ht, counts, "898K aux-PCG, warm", loss, args, pre,
+                    "banded_vg", card)
+
+
+def phase_aux_hybrid(ht, counts, mesh, dev, card):
+    """Phase 14c: the 847K hybrid plate from rest (kind "reshape" with the
+    rim tables; the fine matvec is the plain hybrid route, so K6 launches
+    come from the V-cycle only), then example 12 at its own size."""
+    from examples.example12_hybrid_torch import main as example12
+
+    loss = aux_loss(ht)
+    args = (mesh.coords, mesh)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    (want_it, f32, f64) = JAX_AUX[("hybrid", "rest")]
+
+    def path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = ht.build_aux_preconditioner(
+            loss, u0, args, mesh, bg_model=ht.StructuredGridP1(E=10e9,
+                                                               nu=0.3))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check_aux_setup("hybrid", pre)
+        if pre.rim_corners is None:
+            raise AssertionError("the hybrid preconditioner has no rim "
+                                 "tables")
+        log(f"  847K hybrid aux set-up {setup_s:.3f} s; rim "
+            f"{pre.rim_w.shape[0]} nodes, {pre.aff_ids.shape[0]} affected "
+            f"background nodes [{card}]")
+        return pre
+
+    pre, _ = run_path(counts, "847K hybrid aux set-up",
+                      ("lattice_stencil_vg",), path)
+    sol, h, _ = timed_aux_solve(ht, counts, "847K hybrid aux-PCG", loss,
+                                args, pre, None, card)
+    check_aux_iters("847K hybrid aux-PCG", len(h), want_it)
+    with torch.no_grad():
+        e = float(loss(sol, *args))
+    check_ref("847K hybrid aux-PCG energy (from rest)", e, f32, SOLVE_RTOL,
+              f64)
+    e12, _ = run_path(counts, "example-12 aux-PCG", ("lattice_stencil_vg",),
+                      lambda: example12(device=dev))
+    if not np.isfinite(e12):
+        raise AssertionError("example 12: non-finite energy")
+
+
+def phase_aux_radapt(ht, counts, dev, card):
+    """Phase 14d: example 11 at its own size (lc = 0.05, gather route:
+    K1/K2 and incidence_sum each matvec, K6 in the V-cycle), then two
+    epochs of radapt_aux_solve on the same mesh: the equilibrated energies
+    fall and the pinned coordinates do not move."""
+    from examples.example11_delaunay_torch import HOLES as EX11_HOLES
+    from examples.example11_delaunay_torch import main as example11
+
+    gather = ("element_energy_fwd", "element_energy_bwd", "incidence_sum",
+              "lattice_stencil_vg")
+    e11, _ = run_path(counts, "example-11 aux-PCG", gather,
+                      lambda: example11(device=dev))
+    if not np.isfinite(e11):
+        raise AssertionError("example 11: non-finite energy")
+    mesh = ht.generate_mesh_delaunay(holes=EX11_HOLES, lc=0.05, device=dev)
+    model = ht.TriangleP1()
+    energy = ht.PlaneStressEnergy(model=model, E=10e9, nu=0.3)
+    params = rest_params(ht, mesh, dev)
+
+    def radapt():
+        t0 = time.perf_counter()
+        pf, energies = ht.radapt_aux_solve(
+            lambda p, m: energy(p, m), params, mesh, loss_args=(mesh,),
+            bg_model=ht.StructuredGridP1(E=10e9, nu=0.3), outer_epochs=2,
+            pcg_iters=100, coord_steps=10, coord_lr=RADAPT_AUX_LR)
+        e = energies.cpu().numpy()
+        with torch.no_grad():
+            moved = (model.coords(pf, mesh) - mesh.coords).abs()
+        pin = mesh.geom_boundary_mask | mesh.dirichlet_mask
+        log(f"  radapt_aux_solve, 2 epochs on example 11's mesh: energies "
+            f"{float(e[0])!r} -> {float(e[1])!r}; max coordinate move "
+            f"{float(moved.max()):.3e}, on the pins "
+            f"{float(moved[pin].max())!r} ({time.perf_counter() - t0:.3f} "
+            f"s) [{card}]")
+        if not (np.all(np.isfinite(e)) and e[1] < e[0]):
+            raise AssertionError("r-adaptive aux energies did not fall")
+        if float(moved[pin].max()) != 0.0 or float(moved.max()) <= 0.0:
+            raise AssertionError("r-adaptive aux moved a pinned node, or "
+                                 "none")
+
+    run_path(counts, "example-11 r-adaptive aux", gather, radapt)
+
+
 # ---------------------------------------------- sharded paths on one card
 # (name, sharded function, mesh input, L-BFGS steps, energy under no_grad,
 #  kernels the path must launch on the card)
@@ -1796,6 +2115,12 @@ SHARDED_PATHS = (
     ("lattice 847K hybrid", "sharded_lattice_energy", "hybrid847", 0, False,
      ()),
 )
+# the sharded aux path: its input (the 898K plate, paired tables rebanded
+# for 4 ranks, which 1 and 2 divide too) and the kernels each group must
+# launch (K4 at row_start each matvec and Jacobi probe, K6 in the
+# replicated V-cycle)
+SHARDED_AUX = ("aux-PCG 898K", "delaunay898",
+               ("banded_vg_rows", "lattice_stencil_vg"))
 SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 SHARDED_TIMEOUT_S = 600
 VG_REPS = 5
@@ -1841,6 +2166,22 @@ def _sharded_run(loss_fn, params, mesh, steps, nograd, counts):
     return out
 
 
+def _sharded_aux_run(parallel, energy, mesh, dmesh, counts):
+    """The sharded aux-PCG solve from rest on this rank (set-up included,
+    timed); its solution, history and launch counts."""
+    params = {"coords": mesh.coords,
+              "u": torch.zeros((mesh.n_nodes, 2), device=mesh.coords.device)}
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    sol, hist = parallel.aux_pcg_solve_sharded(
+        energy, mesh, params, dmesh=dmesh, max_iters=AUX_MAX_ITERS,
+        tol=1e-6)
+    torch.cuda.synchronize()
+    return {"u": sol["u"].cpu(), "hist": hist.cpu(),
+            "seconds": time.perf_counter() - t0, "launches": counts.read()}
+
+
 def rank_main(rank, world, port, backend, folder, queue):
     """One rank of a sharded group on ``cuda:0``: join the group, load the
     meshes and params the parent saved, run every path of SHARDED_PATHS and
@@ -1870,6 +2211,10 @@ def rank_main(rank, world, port, backend, folder, queue):
             loss_fn = getattr(parallel, fn)(energy, dmesh)
             results[name] = _sharded_run(loss_fn, params, mesh, steps,
                                          nograd, counts)
+        name, key, _ = SHARDED_AUX
+        mesh, _, energy = inputs[key]
+        results[name] = _sharded_aux_run(parallel, energy, mesh.to(dev),
+                                         dmesh, counts)
         torch.save(results, os.path.join(folder, f"w{world}r{rank}.pt"))
         queue.put((rank, "ok"))
     except Exception as e:        # reported to the parent, which fails
@@ -1933,6 +2278,19 @@ def single_rank_references(ht, inputs):
             _, losses = ht.run_lbfgs(energy.total, params["init"],
                                      num_steps=steps, loss_args=(mesh,))
             refs[name]["losses"] = losses
+    name, key, _ = SHARDED_AUX
+    mesh, _, energy = inputs[key]
+
+    def u_loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=mesh.coords.device)}
+    sol, hist = ht.aux_pcg_solve(u_loss, u0, (mesh.coords, mesh), mesh=mesh,
+                                 bg_model=ht.StructuredGridP1(E=energy.E,
+                                                              nu=energy.nu),
+                                 max_iters=AUX_MAX_ITERS, tol=1e-6)
+    refs[name] = {"u": sol["u"].cpu(),
+                  "hist": check_hist("898K aux-PCG, one process", hist)}
     return refs
 
 
@@ -1996,7 +2354,40 @@ def phase_sharded(ht, inputs, card):
                 log(line + f"; launches {launched} [{card}]")
                 if world == 4:
                     launches[name] = total
+            check_sharded_aux(ranks, refs, world, backend, card)
     return launches
+
+
+def check_sharded_aux(ranks, refs, world, backend, card):
+    """The sharded aux-PCG path of one group: histories and solutions
+    bit-equal across the ranks, the kernels of SHARDED_AUX launched, and
+    within the JAX test's limits of the one-process solve
+    (``tests/test_sharding.py::test_sharded_aux_pcg_matches_single_device``:
+    iterations within 6, solutions within 5e-3 x max|u|)."""
+    name, _, needs = SHARDED_AUX
+    r0 = ranks[0][name]
+    for r in ranks[1:]:
+        for f in ("u", "hist"):
+            if not torch.equal(r[name][f], r0[f]):
+                raise AssertionError(f"{name}: {f} differs across the ranks")
+    total = {}
+    for r in ranks:
+        for k, v in r[name]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    tag = f"{name}, {world} rank(s) ({backend})"
+    for k in needs:
+        if total[k] == 0:
+            raise AssertionError(f"{k} was not launched by the {tag} path")
+    h = check_hist(tag, r0["hist"])
+    ref = refs[name]
+    du = float((r0["u"] - ref["u"]).abs().max() / ref["u"].abs().max())
+    launched = {k: v for k, v in total.items() if v}
+    log(f"  {tag}: {len(h)} iterations to {h[-1]:.6e} (one process: "
+        f"{len(ref['hist'])}) in {r0['seconds']:.3f} s with the set-up "
+        f"(ranks sharing one card); max|u - u_1| / max|u_1| {du:.3e}; "
+        f"launches {launched} [{card}]")
+    if h[-1] > 1e-6 or abs(len(h) - len(ref["hist"])) > 6 or du > 5e-3:
+        raise AssertionError(f"{tag}: off the one-process solve")
 
 
 def main():
@@ -2012,7 +2403,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/13] environment")
+    log("[1/14] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -2022,7 +2413,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/13] build")
+    log("[2/14] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -2032,7 +2423,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/13] kernel vs plain at full size")
+    log("[3/14] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -2046,7 +2437,7 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/13] example 4 on its default route (lattice), 600 steps")
+    log("[4/14] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -2054,7 +2445,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/13] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/14] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -2062,16 +2453,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/13] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/14] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/13] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/14] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/13] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    log("[8/14] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     main_losses, delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -2084,33 +2475,40 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    log("[9/13] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    log("[9/14] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/13] the sharded paths as groups of ranks on the one card")
+    log("[10/14] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    log("[11/13] the CG family: example 8, the 898K plate, minimize")
+    log("[11/14] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
     phase_cg_898k(ht, be, mesh898, dev, card, counts)
-    del mesh898
     run_path(counts, "example-4 minimize(cg, jacobi_cg)",
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    log("[12/13] multigrid: example 9 at 961x481")
+    log("[12/14] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    log("[13/13] node-space L-BFGS on example 4, 600 steps")
+    log("[13/14] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
+
+    log("[14/14] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+        "plates, r-adaptivity")
+    phase_aux_example10(ht, counts, dev, card)
+    phase_aux_898k(ht, counts, mesh898, dev, card)
+    del mesh898
+    phase_aux_hybrid(ht, counts, hybrid, dev, card)
+    phase_aux_radapt(ht, counts, dev, card)
 
     # each entry's launches: (the path's counts, the wrapper's counter)
     path_launches = {

@@ -18,8 +18,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import PlateConfig  # noqa: E402
-from .convert import (grid_from_numpy, levels_from_numpy,  # noqa: E402
-                      mesh_from_numpy, params_from_numpy)
+from .convert import (aux_from_numpy, grid_from_numpy,  # noqa: E402
+                      levels_from_numpy, mesh_from_numpy,
+                      params_from_numpy)
 from .mesh.banded import reorder_mesh  # noqa: E402
 from .mesh.delaunay import (generate_mesh_delaunay,  # noqa: E402
                             generate_mesh_unstructured)
@@ -38,6 +39,8 @@ from .ops.losses import PlaneStressEnergy  # noqa: E402
 from .ops.quadrature import (interval_gauss_points,  # noqa: E402
                              interval_gauss_points_m11,
                              triangle_gauss_points)
+from .solve.auxspace import (aux_pcg_solve,  # noqa: E402
+                             build_aux_preconditioner, radapt_aux_solve)
 from .solve.drivers import (MinimizeResult, minimize,  # noqa: E402
                             run_lbfgs, run_optimizer)
 from .solve.linear import (cg_solve, jacobi_diagonal,  # noqa: E402

@@ -19,7 +19,10 @@ from .mesh.types import TriMesh
 from .models.structured_grid import StructuredGrid
 
 __all__ = ["params_from_numpy", "mesh_from_numpy", "grid_from_numpy",
-           "banded_from_numpy", "levels_from_numpy"]
+           "banded_from_numpy", "levels_from_numpy", "aux_from_numpy"]
+
+_FLOATS = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
 
 
 def params_from_numpy(params_np: dict, device=None,
@@ -120,3 +123,49 @@ def levels_from_numpy(levels, grid=None, device=None, dtype=torch.float32):
                           lmax=lmax, free=t(lev.free),
                           lmax_host=float(lmax)))
     return tuple(out)
+
+
+def aux_from_numpy(pre, device=None):
+    """An auxiliary-space preconditioner (``solve.auxspace
+    .build_aux_preconditioner``'s product) from the fields of another one,
+    for example the JAX package's: its levels (``levels_from_numpy``, in
+    their own precision), background grid (``grid_from_numpy``), inverse
+    diagonal, transfer, window, permutation and rim tables (float arrays
+    in their own dtype, index tables as int64) and static fields, taken
+    as they are; its background model as the port's ``StructuredGridP1``
+    of the same E, nu and dtype.  Both packages' ``_apply_aux`` can then
+    run on the same tables."""
+    from .models.structured_grid import StructuredGridP1
+    from .solve.auxspace import _AuxPrecond
+
+    device = resolve_device(device)
+
+    def t(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.kind in "iu":
+            return torch.tensor(a.astype(np.int64), device=device)
+        return torch.tensor(a, device=device)
+
+    grid = grid_from_numpy(pre.grid, device=device,
+                           dtype=_FLOATS[np.asarray(pre.grid.coords).dtype])
+    levels = levels_from_numpy(
+        pre.levels, grid=grid, device=device,
+        dtype=_FLOATS[np.asarray(pre.levels[0].dinv).dtype])
+    bg = None
+    if pre.bg_model is not None:
+        m = pre.bg_model
+        bg = StructuredGridP1(E=m.E, nu=m.nu, F_total=m.F_total,
+                              traction_length=m.traction_length,
+                              u_fixed=m.u_fixed, init_scale=m.init_scale,
+                              dtype=_FLOATS[np.dtype(m.dtype)],
+                              tractions=m.tractions)
+    arrays = {f.name: t(getattr(pre, f.name))
+              for f in dataclasses.fields(_AuxPrecond)
+              if f.name not in ("levels", "grid", "bg_model", "ptw_width",
+                                "omega", "lat_kind", "lat_nx", "lat_ny")}
+    return _AuxPrecond(levels=levels, grid=grid, bg_model=bg,
+                       ptw_width=int(pre.ptw_width), omega=float(pre.omega),
+                       lat_kind=str(pre.lat_kind), lat_nx=int(pre.lat_nx),
+                       lat_ny=int(pre.lat_ny), **arrays)

@@ -2,9 +2,11 @@
 ``hidenn_fem_tpu/parallel``): ``sharding`` (the element-sharded gather and
 banded routes), ``sharded_slab`` (the lattice stencil kernels over row
 windows), ``sharded_lattice`` (the plain lattice route over row blocks) and
-``multihost`` (joining the process group)."""
+``multihost`` (joining the process group); ``sharded_aux`` (auxiliary-space
+PCG over the sharded matvecs)."""
 
 from .multihost import initialize_multihost, is_multihost, process_summary
+from .sharded_aux import aux_pcg_solve_sharded
 from .sharded_lattice import sharded_lattice_energy
 from .sharded_slab import shard_map_lattice_slab
 from .sharding import (ELEM_AXIS, DeviceMesh, device_mesh, pad_mesh,

@@ -144,7 +144,10 @@ def _level_grad(model, grid: StructuredGrid, coords: torch.Tensor):
             vg = (lattice_stencil_vg if model._use_kernel(node)
                   else lattice_stencil_vg_plain)
             _, gn = vg(node, nx, ny, model.E, model.nu, 0.5, **kw)
-            return torch.where(pinned, 0.0, gn.reshape(nx, ny, 4)[..., 2:])
+            # in u's dtype, as jax.grad returns it (a float64 model on
+            # float32 coords computes in float64)
+            return torch.where(pinned, 0.0,
+                               gn.reshape(nx, ny, 4)[..., 2:]).to(u.dtype)
     return g
 
 
@@ -252,9 +255,11 @@ def _cheb_coeffs(lmax: float, degree: int, f64: bool):
 def _cheb_smooth(op, lev: _Level, b, x, degree: int):
     """``degree`` steps of Chebyshev-Jacobi smoothing of K x = b over
     [lmax/4, lmax] of D^{-1}K (a fixed polynomial: linear and symmetric,
-    safe inside an SPD preconditioner)."""
+    safe inside an SPD preconditioner).  The coefficients take the level's
+    precision, as the JAX package's do (float32 levels under a float64
+    right-hand side: the auxiliary-space background)."""
     theta, coeffs = _cheb_coeffs(lev.lmax_host, int(degree),
-                                 b.dtype == torch.float64)
+                                 lev.lmax.dtype == torch.float64)
     r = b - op(x)
     d = (lev.dinv * r) / theta
     x = x + d

@@ -723,3 +723,205 @@ def test_mg_pcg_solve_on_the_card_matches_the_cpu(dev):
             assert solve == 1 + n_lev + (iters + 1) * cycle + iters
         out[str(where)] = sol["u"].cpu()
     _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
+
+
+# ------------------------------------------------- auxiliary-space PCG
+AUX_BOUNDS = {"up": 0, "down": 0, "right": 2, "left": 1}
+
+
+def _aux_mesh(kind, where):
+    """(mesh, lattice_bg) of each background kind on ``where``."""
+    if kind in ("reshape", "generic", "windowed"):
+        return (pt.proxy_plate_mesh(nx=33, ny=17, device=where),
+                kind == "reshape")
+    if kind == "perm":
+        return pt.generate_mesh(length=2.0, height=1.0,
+                                holes=((0.6, 0.5, 0.22),),
+                                boundaries=AUX_BOUNDS, nx=33, ny=17,
+                                variant="up", device=where), True
+    return pt.generate_mesh_hybrid(lc=0.05, holes=((0.6, 0.5, 0.22),),
+                                   device=where), True
+
+
+def _aux_pre(kind, where):
+    from hidenn_fem_tpu_torch.solve import auxspace as tax
+
+    mesh, lattice_bg = _aux_mesh(kind, where)
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+
+    up = {"u": torch.tensor(u0, dtype=torch.float32, device=where)}
+    pre = tax.build_aux_preconditioner(loss, up, (mesh.coords, mesh), mesh,
+                                       bg_model=StructuredGridP1(E=E, nu=NU),
+                                       lattice_bg=lattice_bg)
+    if kind == "windowed":
+        rel, w, starts, width = tax._windowed_pt(
+            pre.pt_idx.reshape(pre.pt_w.shape).cpu().numpy(),
+            pre.pt_w.cpu().numpy(), mesh.n_nodes, pre.grid.nx, pre.grid.ny)
+        pre = dataclasses.replace(
+            pre, ptw_rel=torch.tensor(rel, device=where),
+            ptw_w=torch.tensor(w, device=where),
+            ptw_starts=torch.tensor(starts, device=where).long(),
+            ptw_width=width)
+    return mesh, pre
+
+
+@pytest.mark.parametrize("kind", ["reshape", "generic", "windowed", "perm",
+                                  "hybrid"])
+def test_apply_aux_on_the_card_matches_the_cpu(dev, kind):
+    """``_apply_aux`` on each background kind: on the card each V-cycle
+    launches K6 exactly L + 7 (L - 1) + 24 times (the levels' gradients at
+    zero, then 7 level operators a level and 24 on the coarsest), and two
+    applications are bit-equal (the hybrid rim's ``index_add`` has one
+    addend a row); against the CPU's plain path within 1e-4 x max|z|
+    (38-41 level operators of f32 sums in other orders)."""
+    from hidenn_fem_tpu_torch.solve import auxspace as tax
+
+    bg = StructuredGridP1(E=E, nu=NU)
+    out = {}
+    for where in ("cpu", dev):
+        mesh, pre = _aux_pre(kind, where)
+        r = torch.tensor(np.random.default_rng(1).standard_normal(
+            (mesh.n_nodes, 2)), dtype=torch.float32, device=where)
+        n_lev = len(pre.levels)
+        before = ls.launch_counts["lattice_stencil_vg"]
+        z = tax._apply_aux(bg, pre, r)
+        launched = ls.launch_counts["lattice_stencil_vg"] - before
+        assert launched == (0 if where == "cpu"
+                            else n_lev + 7 * (n_lev - 1) + 24)
+        assert torch.equal(z, tax._apply_aux(bg, pre, r))
+        out[str(where)] = z.cpu()
+    _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
+
+
+def test_aux_pcg_solve_on_the_card_matches_the_cpu(dev):
+    """aux_pcg_solve from u = 0 on the 41x21 proxy plate (lattice route
+    and lattice-aligned background: K6 each matvec and each level
+    operator) and on a banded Delaunay plate (K4 each matvec, K6 in the
+    V-cycle on the generic background), launches counted exactly; against
+    the CPU's plain path within 1e-4 x max|u|."""
+    from hidenn_fem_tpu_torch.solve import auxspace as tax
+
+    delaunay = pt.generate_mesh_delaunay(lc=0.09, device="cpu")
+    delaunay = dataclasses.replace(
+        delaunay, banded=_banded_tables(delaunay, 3, "cpu"),
+        banded_paired=_banded_tables(delaunay, 4, "cpu"))
+    lattice = pt.proxy_plate_mesh(nx=41, ny=21, device="cpu")
+    for mesh, fine in ((lattice, (ls, "lattice_stencil_vg")),
+                       (delaunay, (be, "banded_vg"))):
+        energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+        def loss(p, coords, m):
+            return energy({"u": p["u"], "coords": coords}, m)
+
+        out = {}
+        for where in ("cpu", dev):
+            m = mesh.to(where)
+            up = {"u": torch.zeros((m.n_nodes, 2), device=where)}
+            pre = tax.build_aux_preconditioner(
+                loss, up, (m.coords, m), m,
+                bg_model=StructuredGridP1(E=E, nu=NU))
+            n_lev = len(pre.levels)
+            counters = {"k6": (ls, "lattice_stencil_vg"), "fine": fine}
+            before = {k: mod.launch_counts[c]
+                      for k, (mod, c) in counters.items()}
+            sol, hist = tax.aux_pcg_solve(loss, up, (m.coords, m), pre=pre,
+                                          max_iters=200, tol=1e-6)
+            got = {k: mod.launch_counts[c] - before[k]
+                   for k, (mod, c) in counters.items()}
+            iters = int((hist > 0).sum())
+            assert float(hist[iters - 1]) <= 1e-6
+            cycle = 7 * (n_lev - 1) + 24
+            if where == "cpu":
+                assert got == {"k6": 0, "fine": 0}
+            else:
+                # the fine gradient at the start and one matvec an
+                # iteration; the levels' gradients at zero once, then a
+                # V-cycle before the loop and one each iteration
+                vcycles = n_lev + (iters + 1) * cycle
+                if fine[1] == "lattice_stencil_vg":
+                    assert got["k6"] == 1 + iters + vcycles
+                else:
+                    assert got == {"k6": vcycles, "fine": 1 + iters}
+            out[str(where)] = sol["u"].cpu()
+        _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
+
+
+def test_aux_pcg_float64_on_the_card_takes_the_plain_path(dev):
+    """A float64 solve (f64 energy and background model) launches no K6
+    (the level operator picks K6 for CUDA float32 only) and reaches
+    relres 1e-10, within 1e-8 x max|u| of the same solve on the CPU."""
+    from hidenn_fem_tpu_torch.solve import auxspace as tax
+
+    out = {}
+    for where in ("cpu", dev):
+        mesh = pt.proxy_plate_mesh(nx=33, ny=17, device=where,
+                                   dtype=torch.float64)
+        energy = pt.PlaneStressEnergy(
+            model=pt.TriangleP1(dtype=torch.float64))
+
+        def loss(p, coords, m):
+            return energy({"u": p["u"], "coords": coords}, m)
+
+        up = {"u": torch.zeros((mesh.n_nodes, 2), dtype=torch.float64,
+                               device=where)}
+        before = ls.launch_counts["lattice_stencil_vg"]
+        sol, hist = tax.aux_pcg_solve(
+            loss, up, (mesh.coords, mesh), mesh=mesh,
+            bg_model=StructuredGridP1(E=E, nu=NU, dtype=torch.float64),
+            max_iters=400, tol=1e-10)
+        assert ls.launch_counts["lattice_stencil_vg"] == before
+        iters = int((hist > 0).sum())
+        assert sol["u"].dtype == torch.float64
+        assert float(hist[iters - 1]) <= 1e-10
+        out[str(where)] = sol["u"].cpu()
+    _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-8)
+
+
+def test_two_rank_gloo_aux_pcg_on_one_card(dev, tmp_path):
+    """Two ranks (gloo) sharing the card solve the proxy plate with its
+    lattice stripped by ``aux_pcg_solve_sharded``: the banded route
+    rebanded for 2 ranks (K4 at row_start each matvec) and a replicated
+    V-cycle (K6); solutions and histories bit-equal across the ranks and
+    within 5e-3 x max|u| of the single-rank solve (the JAX test's bound),
+    iterations within 6."""
+    import json
+
+    from torch_sharded_common import Groups, mesh_arrays
+
+    mesh = dataclasses.replace(pt.proxy_plate_mesh(nx=65, ny=33,
+                                                   device="cpu"),
+                               lattice=None)
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    groups = Groups(tmp_path, [(dict(name="aux", fn="aux", dtype="float32",
+                                     max_iters=100, tol=1e-6),
+                                mesh_arrays(mesh, {"coords": mesh.coords,
+                                                   "u": u0}))],
+                    worlds=(2,), device="cuda:0")
+    try:
+        got = groups.case(2, "aux")
+        ranks = groups.ranks(2)
+    finally:
+        groups.close()
+    m = mesh.to(dev)
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def loss(p, coords, mm):
+        return energy({"u": p["u"], "coords": coords}, mm)
+
+    sol, hist = pt.aux_pcg_solve(
+        loss, {"u": torch.tensor(u0, dtype=torch.float32, device=dev)},
+        (m.coords, m), mesh=m, bg_model=StructuredGridP1(E=E, nu=NU),
+        max_iters=100, tol=1e-6)
+    h0, h1 = hist.cpu().numpy(), got["hist"]
+    assert h1[h1 > 0][-1] <= 1e-6
+    assert abs(int((h1 > 0).sum()) - int((h0 > 0).sum())) <= 6
+    u = sol["u"].cpu().numpy()
+    assert np.abs(got["u"] - u).max() <= 5e-3 * np.abs(u).max()
+    for r in ranks:
+        launched = json.loads(str(r["launches"]))
+        assert launched["banded_vg_rows"] >= 1
+        assert launched["lattice_stencil_vg"] >= 1

@@ -17,7 +17,9 @@ Deliberate differences, and why:
 * ``Mesh``/``NamedSharding``: torch has no global sharded arrays, so
   ``mesh_shardings`` has no counterpart and ``device_mesh`` returns a
   ``DeviceMesh`` descriptor (group, rank, size, device) over the process
-  group; ``initialize_multihost`` takes the ``backend`` (NCCL or gloo).
+  group, which the sharded functions take where the JAX package takes a
+  ``Mesh`` (``aux_pcg_solve_sharded``'s ``dmesh`` among them);
+  ``initialize_multihost`` takes the ``backend`` (NCCL or gloo).
 * ``row_start`` on ``banded_element_energy``: the JAX package's private
   ``_banded_energy_rows`` made public for the sharded banded route.
 * ``backend`` on ``StructuredGridP1`` (kernel or plain), and ``tol`` on
@@ -58,7 +60,8 @@ MODULES = {
     "parallel.sharded_lattice": "parallel.sharded_lattice",
     "mesh": "mesh", "mesh.coloring": "mesh.coloring", "solve": "solve",
     "solve.linear": "solve.linear", "solve.nodespace": "solve.nodespace",
-    "solve.multigrid": "solve.multigrid",
+    "solve.multigrid": "solve.multigrid", "solve.auxspace": "solve.auxspace",
+    "parallel.sharded_aux": "parallel.sharded_aux",
 }
 
 # JAX names the port does not have yet, by ROADMAP Queue A item
@@ -70,9 +73,7 @@ NOT_YET_PORTED = {
     "postproc": {"derivative_1d_per_element",                    # item 9
                  "locate_points", "evaluate_at_points"},         # item 10
     "solve": {"alternating_solve", "two_phase_solve",            # item 7
-              "solve_with_checkpointing",
-              "aux_pcg_solve", "build_aux_preconditioner",       # item 4
-              "radapt_aux_solve"},
+              "solve_with_checkpointing"},
     "parallel": {"mg_pcg_solve_sharded"},                        # item 13
 }
 # JAX names with no torch counterpart by design (module doc)

@@ -4,10 +4,12 @@
 
 Reads the cases of ``DIR/spec.json`` (meshes and params as numpy arrays in
 ``DIR/<case>.npz``, written by ``tests/torch_sharded_common.py``), runs
-each through its sharded function as rank RANK of WORLD ranks (gloo,
+each through its sharded function (or, for an "aux" case, the sharded
+auxiliary-space PCG solve) as rank RANK of WORLD ranks (gloo,
 ``tcp://localhost:PORT``) on DEVICE (default ``cpu``; ``cuda:0`` puts
 every rank on the one card), and writes this rank's energies, gradients,
-loss histories, errors and kernel launch counts to ``DIR/rank<RANK>.npz``.
+loss histories (aux: solutions and residual histories), errors and kernel
+launch counts to ``DIR/rank<RANK>.npz``.
 Imports the port only (never JAX), as the ranks of a real run do.
 """
 
@@ -27,9 +29,9 @@ from hidenn_fem_tpu_torch.ops import banded_energy  # noqa: E402
 from hidenn_fem_tpu_torch.ops import element_energy  # noqa: E402
 from hidenn_fem_tpu_torch.ops import lattice_slab  # noqa: E402
 from hidenn_fem_tpu_torch.parallel import (  # noqa: E402
-    device_mesh, initialize_multihost, pad_mesh, process_summary,
-    reband_for_shards, shard_map_banded_energy, shard_map_energy,
-    shard_map_lattice_slab, sharded_lattice_energy)
+    aux_pcg_solve_sharded, device_mesh, initialize_multihost, pad_mesh,
+    process_summary, reband_for_shards, shard_map_banded_energy,
+    shard_map_energy, shard_map_lattice_slab, sharded_lattice_energy)
 
 KERNELS = (banded_energy, element_energy, lattice_slab)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -58,7 +60,8 @@ def build(case, arrays, world, dev):
             arrays["geom_boundary_mask"], arrays["dirichlet_mask"],
             arrays["neumann_mask"], arrays["neumann_edges"], dtype=dtype,
             device=dev, build_banded=False,
-            build_lattice=case["fn"] in ("lattice", "slab"))
+            build_lattice=case["fn"] in ("lattice", "slab")
+            or case.get("lattice", False))
     if case["fn"] == "energy":
         mesh = pad_mesh(mesh, world)
     elif case["fn"] == "banded":
@@ -76,6 +79,13 @@ def build(case, arrays, world, dev):
 def run_case(case, arrays, world, dmesh, out):
     name = case["name"]
     mesh, params, energy = build(case, arrays, world, dmesh.device)
+    if case["fn"] == "aux":
+        sol, hist = aux_pcg_solve_sharded(energy, mesh, params, dmesh=dmesh,
+                                          max_iters=case["max_iters"],
+                                          tol=case["tol"])
+        out[f"{name}__u"] = sol["u"].cpu().numpy()
+        out[f"{name}__hist"] = hist.cpu().numpy()
+        return
     loss_fn = FUNCTIONS[case["fn"]](energy, dmesh)
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     value = loss_fn(p, mesh)

@@ -13,12 +13,21 @@ per iteration: ``cg_solve`` on the 898K Delaunay plate from u = 0 (K4
 each matvec, one stop-test read an iteration) and ``mg_pcg_solve`` on
 example 9's hole-free 961x481 ``StructuredGridP1`` on a prebuilt
 hierarchy (K6 each level operator), each a 10-iteration solve that runs
-to its cap.  For each window it prints the wall time per call (per
-iteration for the solver windows), the device-busy time likewise (the
-union of kernel intervals), the idle share, each kernel's device µs per
-call by name (``key_averages()``), and the top operators by device and by
-host time.  Chrome traces go to the ``--out`` directory; ``--cases``
-picks windows by name.
+to its cap.  Three windows profile auxiliary-space PCG per iteration on a
+preconditioner built once: example 10's 961x481 proxy plate on the
+lattice-aligned background (``961x481_aux_lattice_bg``: K6 each matvec
+and each level operator) and on the generic background
+(``961x481_aux_generic``: windowed P^T), and the 898K Delaunay plate from
+u = 0 (``898k_delaunay_aux``: K4 each matvec, flat P^T, K6 in the
+V-cycle).  For each window it prints the wall time per call (per
+iteration for the solver windows, with each kernel's launches per
+iteration), the device-busy time likewise (the union of kernel
+intervals), the idle share, each kernel's device µs per call by name
+(``key_averages()``), and the top operators by device and by host time.
+The ``pt_layouts`` window times the generic background's P^T alone in
+both layouts, flat and windowed (device µs per call), on the 922K proxy
+plate and the 898K Delaunay plate.  Chrome traces go to the ``--out``
+directory; ``--cases`` picks windows by name.
 
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
@@ -113,11 +122,23 @@ def kernel_profile(fn, calls=20, tries=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _launch_counts():
+    """The launch counters of every kernel module, summed by name."""
+    from hidenn_fem_tpu_torch.ops import (banded_energy, element_energy,
+                                          lattice_slab)
+    out = {}
+    for m in (banded_energy, element_energy, lattice_slab):
+        out.update(m.launch_counts)
+    return out
+
+
 def _window(name, fn, calls, out_dir, card, iters=1):
     """Profile ``calls`` calls of ``fn`` after one warm-up call; times are
-    per call, or per iteration when each call runs ``iters``."""
+    per call, or per iteration (with the kernels' launches per iteration)
+    when each call runs ``iters``."""
     fn()
     torch.cuda.synchronize()
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -129,6 +150,11 @@ def _window(name, fn, calls, out_dir, card, iters=1):
     unit = "call" if iters == 1 else "iteration"
     print(f"== {name}: {wall:.4f} ms/{unit} wall, {busy:.4f} ms/{unit} "
           f"device busy, idle share {1 - busy / wall:.3f} [{card}]")
+    if iters > 1:
+        launched = {k: (v - before[k]) / (calls * iters)
+                    for k, v in _launch_counts().items() if v > before[k]}
+        print("   launches per iteration: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in launched.items()))
     for kernel, us in kernel_us(prof, calls * iters).items():
         print(f"   device {us:9.2f} us/{unit}  {kernel}")
     ka = prof.key_averages()
@@ -189,6 +215,71 @@ def _mg_961(dev, iters=10):
         levels = ht.build_hierarchy(model, grid, model.coords(params, grid))
     return lambda: ht.mg_pcg_solve(model, grid, params, max_iters=iters,
                                    tol=0.0, levels=levels)
+
+
+def _aux_setup(mesh, dev, lattice_bg):
+    """(loss, u = 0 params, loss args, preconditioner built once) of
+    aux-PCG on ``mesh``'s default route."""
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    args = (mesh.coords, mesh)
+    pre = ht.build_aux_preconditioner(
+        loss, u0, args, mesh, bg_model=ht.StructuredGridP1(E=10e9, nu=0.3),
+        lattice_bg=lattice_bg)
+    return loss, u0, args, pre
+
+
+def _aux(mesh, dev, lattice_bg, iters=10):
+    """An aux_pcg_solve of ``iters`` iterations (tol 0) from u = 0 on a
+    preconditioner built once."""
+    loss, u0, args, pre = _aux_setup(mesh, dev, lattice_bg)
+    return lambda: ht.aux_pcg_solve(loss, u0, args, pre=pre,
+                                    max_iters=iters, tol=0.0)
+
+
+def _pt_layouts(meshes, dev, card, calls=20):
+    """The generic background's P^T alone, flat and windowed, on each
+    mesh: device µs per call (the windowed tables built without JAX's
+    64K window limit where the set-up chose the flat ones)."""
+    from hidenn_fem_tpu_torch.solve import auxspace as aux
+
+    for tag, mesh in meshes:
+        _, _, _, pre = _aux_setup(mesh, dev, lattice_bg=False)
+        n = mesh.n_nodes
+        chosen = "windowed" if pre.ptw_rel is not None else "flat"
+        if pre.ptw_rel is None:
+            rel, w, starts, width = aux._windowed_pt(
+                pre.pt_idx.reshape(pre.pt_w.shape).cpu().numpy(),
+                pre.pt_w.cpu().numpy(), n, pre.grid.nx, pre.grid.ny,
+                window_limit=n)
+            windowed = dataclasses.replace(
+                pre, ptw_rel=torch.tensor(rel, device=dev),
+                ptw_w=torch.tensor(w, device=dev),
+                ptw_starts=torch.tensor(starts, device=dev).long(),
+                ptw_width=width)
+        else:
+            windowed = pre
+        flat = dataclasses.replace(pre, ptw_rel=None, ptw_w=None,
+                                   ptw_starts=None, ptw_width=0)
+        rf = torch.tensor(np.random.default_rng(1).standard_normal((n, 2)),
+                          dtype=torch.float32, device=dev) * pre.free
+        a = aux._generic_pt(flat, rf)
+        b = aux._generic_pt(windowed, rf)
+        err = float((a - b).abs().max() / a.abs().max())
+        res = {}
+        for layout, p in (("flat", flat), ("windowed", windowed)):
+            per = kernel_profile(lambda: aux._generic_pt(p, rf), calls,
+                                 tries=6)
+            res[layout] = sum(per.values())
+        print(f"== P^T at {tag} ({n} fine nodes, background "
+              f"{pre.grid.nx}x{pre.grid.ny}, flat depth "
+              f"{pre.pt_w.shape[1]}, window width {windowed.ptw_width}; "
+              f"the set-up chose {chosen}): flat {res['flat']:.2f} us, "
+              f"windowed {res['windowed']:.2f} us device per call; "
+              f"max|flat - windowed| / max|flat| {err:.3e} [{card}]")
 
 
 def _node(coords, seed):
@@ -347,9 +438,19 @@ def main():
         "898k_delaunay_flat": lambda: _plate(dataclasses.replace(
             _delaunay(), banded=None, banded_paired=None), dev),
     }
+    proxy = []                        # example 10's plate, built once
+
+    def _proxy():
+        if not proxy:
+            proxy.append(ht.proxy_plate_mesh(nx=961, ny=481, device=dev))
+        return proxy[0]
+
     solvers = {
         "898k_delaunay_cg": lambda: _cg_898k(_delaunay(), dev),
         "961x481_mg_pcg": lambda: _mg_961(dev),
+        "961x481_aux_lattice_bg": lambda: _aux(_proxy(), dev, True),
+        "961x481_aux_generic": lambda: _aux(_proxy(), dev, False),
+        "898k_delaunay_aux": lambda: _aux(_delaunay(), dev, True),
     }
     for name, make in cases.items():
         if args.cases and name not in args.cases:
@@ -361,6 +462,9 @@ def main():
         if args.cases and name not in args.cases:
             continue
         _window(f"{name}_iteration", make(), 3, args.out, card, iters=10)
+    if not args.cases or "pt_layouts" in args.cases:
+        _pt_layouts((("922K proxy plate", _proxy()),
+                     ("898K Delaunay plate", _delaunay())), dev, card)
 
 
 if __name__ == "__main__":
