@@ -96,7 +96,17 @@ Phases (each raises on failure, and the script then exits non-zero):
     the 898K plate from rest by ``aux_pcg_solve_sharded`` (K4 at row_start
     each matvec and Jacobi probe, a replicated V-cycle on K6): solution
     and history bit-equal across the ranks, within 6 iterations and
-    5e-3 x max|u| of the one-process ``aux_pcg_solve``.
+    5e-3 x max|u| of the one-process ``aux_pcg_solve``.  Each group
+    also solves example 9's 961x481 grid by ``mg_pcg_solve_sharded`` with
+    both engines ("all": every level with 4 rows a rank padded and
+    sharded; "replicated_coarse": the fine level only), from rest and from
+    the noise start, to relres 1e-6: K6 over a row window on the sharded
+    levels, one ``all_reduce`` a sharded level operator; solutions and
+    histories bit-equal across the ranks, within 3 iterations of the card's
+    one-process ``mg_pcg_solve`` and of JAX's and within 5e-4 x max|u| of
+    the one-process solution (the JAX test's bounds), the ``all_reduce``
+    calls equal to ``count_collectives``' census; ms and K6 / K6-row
+    launches per iteration by the slope between the two starts.
 
 11. The CG family (``solve/linear.py``): a. example 8
     (``examples/example8_linear_solve_torch.py``: the 81x41 proxy plate on
@@ -142,7 +152,22 @@ Phases (each raises on failure, and the script then exits non-zero):
     before the loop and each iteration; the fine kernel once and each
     iteration) and prints its set-up seconds and ms per iteration.
 
-Each path of phases 4-14 (and K8's timed A/B) runs with every launch
+15. Example 5 (``examples/example5_scaling_torch.py``) at its own size:
+    the 1000x500 plate with the three holes (922,250 elements; the hole
+    nodes dropped, so a renumbered lattice: the plain lattice route, as in
+    the JAX package, and no kernel, which is checked), the slope-timed
+    value-and-grad (qp/s) and two 200-step L-BFGS runs (cold, warm); the
+    warm history against JAX's at init, step 25 and step 199.
+16. The L-BFGS variants on example 4 (lattice route, K6 every
+    value-and-grad), 50 steps each: the zoom line search
+    (``linesearch="zoom"``) against JAX's ``run_lbfgs(linesearch="zoom")``
+    at every step, with ms and value-and-grads per iteration; the
+    two-loop mode (``mode="scan"``) against the compact mode.
+17. Utils: ``solve_with_checkpointing`` on example 4 (compact L-BFGS, two
+    chunks of 25), stopped after the first chunk and resumed, bit-equal to
+    an uninterrupted run; ``check_gradients`` on the card.
+
+Each path of phases 4-17 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
 whose residual turns non-finite fails.  The last three lines of standard output
@@ -315,6 +340,82 @@ JAX_MG_ENERGY = (-0.9938671588897705, -0.9938672685126402)   # f32, f64
 JAX_EX4_NODE_SPACE = -1.3143513202667236
 JAX_EX4_NODE_SPACE_AT_SOLUTION = -1.3143532276153564
 
+# The sharded multigrid (phase 10's groups) on example 9's grid.  The JAX
+# package's mg_pcg_solve there (made as JAX_MG_ITERS above, with u0 = 0 and
+# max_iters=80) reaches relres 1e-6 from rest in 40 iterations; from the
+# noise start in JAX_MG_ITERS.  Each group solves by both engines from
+# both starts, capped at SHARDED_MG_MAX_ITERS, and is held within
+# MG_ITERS_SPREAD iterations of the card's one-process mg_pcg_solve and of
+# JAX's, and within MG_U_RTOL x max|u| of the one-process solution (the
+# bounds of tests/test_sharding.py::
+# test_sharded_multigrid_matches_single_device).
+JAX_MG_REST_ITERS = 40
+SHARDED_MG_RUNS = (("all", "rest"), ("all", "noise"),
+                   ("replicated_coarse", "rest"),
+                   ("replicated_coarse", "noise"))
+SHARDED_MG_MAX_ITERS = 60
+MG_ITERS_SPREAD = 3
+MG_U_RTOL = 5e-4
+
+# Example 5 (phase 15) in the JAX package on the CPU, from the port
+# example's init (u0 = 1e-5 N(0,1) from np.random.default_rng(0)):
+#   JAX_PLATFORMS=cpu python -c "
+#   import numpy as np, jax.numpy as jnp, hidenn_fem_tpu as ht
+#   m = ht.generate_mesh(length=2.0, height=1.0, holes=<the three
+#       reference holes>, nx=1000, ny=500)
+#   u0 = 1e-5 * np.random.default_rng(0).standard_normal((m.n_nodes, 2))
+#   e = ht.PlaneStressEnergy(model=ht.TriangleP1(u_fixed=0.0), E=10e9,
+#       nu=0.3)
+#   _, l = ht.run_lbfgs(e.total, {'coords': m.coords,
+#       'u': jnp.asarray(u0, jnp.float32)}, num_steps=200, loss_args=(m,))"
+# (f64: the same arrays in f64, from_arrays(dtype=jnp.float64,
+# build_banded=False), under jax_enable_x64).  The fixed step jumps to
+# 2.2e10 at step 1 and f32 rounding carries on: at step 25 JAX f32 lies
+# 1.7e-3 from JAX f64 (the port on the CPU, 2e-6), after 200 steps, where
+# the energy nears zero, 1.4e-2 (the port on the CPU, 3.3e-3).  So the
+# energy is held to JAX f32 at init (INIT_RTOL), at step 25 by the f32
+# spread rule of phases 8-9, and after 200 steps to JAX f64 within
+# EX5_FINAL_RTOL, twice JAX's own f32 spread there (as example 6's
+# 600-step value).
+JAX_EX5_INIT = 1371073.5
+JAX_EX5_AT_25 = (15.767266273498535, 15.74019626963804)       # f32, f64
+JAX_EX5_FINAL = (-0.07035034149885178, -0.07134962448182439)  # f32, f64
+EX5_FINAL_RTOL = 3e-2
+
+# The L-BFGS variants on example 4 (phase 16), the lattice route from the
+# init of phase 4.  The JAX package's run_lbfgs(linesearch="zoom"),
+# 50 steps (f32, CPU, made as JAX_EX4_LATTICE_FINAL_ENERGY with
+# num_steps=50, linesearch="zoom"): its f64 run lies within 1.4e-5 of it
+# at every step, so each step is held at EX4_RTOL.  The fixed-step modes
+# after 50 steps sit near zero, where f32 rounding (amplified since the
+# first step's jump to 2.2e10) moves them by a few 1e-3 in absolute terms:
+# JAX f64 -0.0239161929 in both modes, JAX f32 two-loop
+# -0.027732759714126587 and compact -0.02737283706665039, the port on the
+# CPU two-loop -0.0237884 and compact -0.0278816.  So each mode is held to
+# JAX f64 within FIXED_STEP_ATOL, 5e-3 of the converged energy's
+# magnitude, and the two-loop mode to the compact mode within twice that.
+JAX_EX4_ZOOM = (
+    53818.48046875, 6163.54638671875, 5148.28759765625, 3676.0869140625,
+    2551.201904296875, 1749.5079345703125, 1191.5469970703125,
+    803.944580078125, 533.6575317382812, 354.8449401855469,
+    242.05506896972656, 167.0326385498047, 114.97779083251953,
+    79.69266510009766, 57.317481994628906, 42.23512649536133,
+    31.134634017944336, 23.72939109802246, 18.761459350585938,
+    14.802947044372559, 11.983932495117188, 9.993685722351074,
+    8.168585777282715, 6.9145026206970215, 5.897523403167725,
+    4.879368305206299, 4.19343900680542, 3.521838665008545,
+    3.0279998779296875, 2.614903688430786, 2.201627492904663,
+    1.9119758605957031, 1.625853419303894, 1.4194787740707397,
+    1.2543463706970215, 1.0894254446029663, 0.9733156561851501,
+    0.8676310777664185, 0.7738773226737976, 0.6981697082519531,
+    0.6191807985305786, 0.5586407780647278, 0.4998500347137451,
+    0.44897085428237915, 0.40381044149398804, 0.3596063554286957,
+    0.32312774658203125, 0.2869100272655487, 0.2578788995742798,
+    0.23160117864608765)
+JAX_EX4_FIXED_STEP_50 = -0.023916192916413198           # f64
+VARIANT_STEPS = 50
+FIXED_STEP_ATOL = 5e-3 * abs(JAX_EX4_LATTICE_FINAL_ENERGY)
+
 # Auxiliary-space PCG (phase 14).  JAX package values on the CPU for the
 # same numpy inputs, made with (JAX_PLATFORMS=cpu; f64 under
 # jax_enable_x64, dt the matching dtype)
@@ -486,6 +587,15 @@ class Counts:
         for m in self.modules:
             out.update(m.launch_counts)
         return out
+
+
+def sum_launches(paths):
+    """The launch counts of several paths, added kernel by kernel."""
+    out = {}
+    for launches in paths:
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def run_path(counts, name, needs, fn):
@@ -2182,6 +2292,45 @@ def _sharded_aux_run(parallel, energy, mesh, dmesh, counts):
             "seconds": time.perf_counter() - t0, "launches": counts.read()}
 
 
+def mg_inputs(dev):
+    """Example 9's grid and model on ``dev``, and its params from each
+    start: "noise" (1e-5 N(0,1), np.random.default_rng(0)) and "rest"."""
+    from hidenn_fem_tpu_torch.models.structured_grid import (
+        StructuredGridP1, generate_structured_grid)
+
+    grid = generate_structured_grid(length=2.0, height=1.0, holes=(),
+                                    nx=961, ny=481, device=dev)
+    model = StructuredGridP1(E=10e9, nu=0.3)
+    noise = model.init(np.random.default_rng(0), grid, device=dev)
+    rest = {"coords": noise["coords"], "u": torch.zeros_like(noise["u"])}
+    return grid, model, {"noise": noise, "rest": rest}
+
+
+def _sharded_mg_run(dmesh, counts, grid, model, params, engine):
+    """One sharded MG-PCG solve on this rank (set-up included, timed):
+    its solution, history, launch counts, the all_reduce calls it issued
+    and count_collectives' census for the iterations it ran."""
+    from hidenn_fem_tpu_torch.parallel import sharded_mg, sharding
+
+    torch.cuda.synchronize()
+    counts.reset()
+    sharding.reset_collective_counts()
+    t0 = time.perf_counter()
+    sol, hist = sharded_mg.mg_pcg_solve_sharded(
+        model, grid, params, dmesh=dmesh, max_iters=SHARDED_MG_MAX_ITERS,
+        tol=1e-6, engine=engine)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    iters = int((hist > 0).sum())
+    census = sharded_mg.count_collectives(model, grid, params,
+                                          n_devices=dmesh.size,
+                                          engine=engine, max_iters=iters)
+    return {"u": sol["u"].cpu(), "hist": hist.cpu(), "seconds": seconds,
+            "launches": counts.read(),
+            "all_reduce": sharding.collective_counts["all_reduce"],
+            "census": census["all_reduce"]}
+
+
 def rank_main(rank, world, port, backend, folder, queue):
     """One rank of a sharded group on ``cuda:0``: join the group, load the
     meshes and params the parent saved, run every path of SHARDED_PATHS and
@@ -2215,6 +2364,10 @@ def rank_main(rank, world, port, backend, folder, queue):
         mesh, _, energy = inputs[key]
         results[name] = _sharded_aux_run(parallel, energy, mesh.to(dev),
                                          dmesh, counts)
+        grid, model, starts = mg_inputs(dev)
+        for engine, start in SHARDED_MG_RUNS:
+            results[("mg", engine, start)] = _sharded_mg_run(
+                dmesh, counts, grid, model, starts[start], engine)
         torch.save(results, os.path.join(folder, f"w{world}r{rank}.pt"))
         queue.put((rank, "ok"))
     except Exception as e:        # reported to the parent, which fails
@@ -2291,6 +2444,13 @@ def single_rank_references(ht, inputs):
                                  max_iters=AUX_MAX_ITERS, tol=1e-6)
     refs[name] = {"u": sol["u"].cpu(),
                   "hist": check_hist("898K aux-PCG, one process", hist)}
+    grid, model, starts = mg_inputs(mesh.coords.device)
+    for start, params in starts.items():
+        sol, hist = ht.mg_pcg_solve(model, grid, params,
+                                    max_iters=SHARDED_MG_MAX_ITERS, tol=1e-6)
+        refs[("mg", start)] = {
+            "u": sol["u"].cpu(),
+            "iters": len(check_hist(f"961x481 MG-PCG from {start}", hist))}
     return refs
 
 
@@ -2355,6 +2515,9 @@ def phase_sharded(ht, inputs, card):
                 if world == 4:
                     launches[name] = total
             check_sharded_aux(ranks, refs, world, backend, card)
+            mg = check_sharded_mg(ranks, refs, world, backend, card)
+            if world == 4:
+                launches["sharded MG"] = mg
     return launches
 
 
@@ -2390,6 +2553,205 @@ def check_sharded_aux(ranks, refs, world, backend, card):
         raise AssertionError(f"{tag}: off the one-process solve")
 
 
+def phase_example5(dev, card):
+    """Phase 15: example 5 at its own size (1000x500 nodes, 922,250
+    elements): the slope-timed value-and-grad and 200 L-BFGS steps twice,
+    as the example runs them; its warm history against JAX's.  The plate
+    takes the JAX package's route: a renumbered lattice (the hole nodes
+    dropped), the plain lattice route, no kernel."""
+    from examples.example5_scaling_torch import main as example5
+
+    t0 = time.perf_counter()
+    _, losses = example5(device=dev)
+    log(f"  example 5: {time.perf_counter() - t0:.1f} s with the mesh "
+        f"build [{card}]")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("non-finite energy in example 5")
+    check_ref("example-5 energy at init", float(losses[0]), JAX_EX5_INIT,
+              INIT_RTOL)
+    check_ref("example-5 energy at step 25", float(losses[25]),
+              JAX_EX5_AT_25[0], F32_SPREAD_RTOL, JAX_EX5_AT_25[1])
+    final, (f32, f64) = float(losses[-1]), JAX_EX5_FINAL
+    rel = abs(final - f64) / abs(f64)
+    log(f"  example-5 energy after 200 steps: {final!r} vs JAX f64 {f64!r}:"
+        f" rel {rel:.3e} (limit {EX5_FINAL_RTOL}; JAX f32 {f32!r})")
+    if rel > EX5_FINAL_RTOL:
+        raise AssertionError("example-5 energy after 200 steps off JAX's")
+
+
+def phase_lbfgs_variants(ht, mesh, dev, card, counts):
+    """Phase 16: the zoom line search and the two-loop mode on example 4
+    (lattice route, K6 every value-and-grad), 50 steps each, against JAX
+    and against the compact mode; returns each path's launches."""
+    from hidenn_fem_tpu_torch.config import PlateConfig
+
+    cfg = PlateConfig()
+    energy = plate_energy(ht, cfg, ht.TriangleP1(u_fixed=0.0))
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    params = ht.params_from_numpy(
+        {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
+
+    def solve(**kw):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, losses = ht.run_optimizer(energy.total, params,
+                                         ht.lbfgs(**kw), VARIANT_STEPS,
+                                         loss_args=(mesh,))
+            losses = losses.cpu().numpy()
+            return losses, time.perf_counter() - t0
+        return run
+
+    out = {}
+    for name, kw in (("zoom", dict(linesearch="zoom")),
+                     ("two-loop", dict(mode="scan")),
+                     ("compact", {})):
+        (losses, seconds), launches = run_path(
+            counts, f"example-4 {name} L-BFGS", ("lattice_stencil_vg",),
+            solve(**kw))
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite energy in the {name} solve")
+        vg = launches["lattice_stencil_vg"] / VARIANT_STEPS
+        log(f"  example-4 {name} L-BFGS, {VARIANT_STEPS} steps: {seconds:.3f}"
+            f" s ({1e3 * seconds / VARIANT_STEPS:.4f} ms/iter), "
+            f"{vg:.2f} value-and-grads per iteration; energy "
+            f"{float(losses[0])!r} -> {float(losses[-1])!r} [{card}]")
+        out[name] = (losses, launches)
+    zoom = out["zoom"][0]
+    rel = np.abs(zoom - np.asarray(JAX_EX4_ZOOM)) / np.abs(
+        np.asarray(JAX_EX4_ZOOM))
+    log(f"  zoom history vs JAX's run_lbfgs(linesearch='zoom'): max rel "
+        f"{rel.max():.3e} (limit {EX4_RTOL})")
+    if rel.max() > EX4_RTOL:
+        raise AssertionError("zoom L-BFGS history off JAX's")
+    scan, compact = out["two-loop"][0][-1], out["compact"][0][-1]
+    log(f"  after {VARIANT_STEPS} steps: two-loop {float(scan)!r}, compact "
+        f"{float(compact)!r}, JAX f64 {JAX_EX4_FIXED_STEP_50!r}: "
+        f"|two-loop - compact| {abs(scan - compact):.3e} (limit "
+        f"{2 * FIXED_STEP_ATOL:.3e}), |two-loop - JAX| "
+        f"{abs(scan - JAX_EX4_FIXED_STEP_50):.3e}, |compact - JAX| "
+        f"{abs(compact - JAX_EX4_FIXED_STEP_50):.3e} (limit "
+        f"{FIXED_STEP_ATOL:.3e})")
+    if (abs(scan - compact) > 2 * FIXED_STEP_ATOL
+            or abs(scan - JAX_EX4_FIXED_STEP_50) > FIXED_STEP_ATOL
+            or abs(compact - JAX_EX4_FIXED_STEP_50) > FIXED_STEP_ATOL):
+        raise AssertionError("two-loop L-BFGS off the compact mode")
+    return {name: launches for name, (_, launches) in out.items()}
+
+
+def phase_utils(ht, mesh, dev, card, counts):
+    """Phase 17: ``solve_with_checkpointing`` on example 4 (compact
+    L-BFGS, two chunks of 25 steps): a run stopped after its first chunk
+    and resumed ends bit-equal to an uninterrupted one; then
+    ``check_gradients`` on the card.  Returns the launches."""
+    import os
+    import tempfile
+
+    from hidenn_fem_tpu_torch.config import PlateConfig
+    from hidenn_fem_tpu_torch.solve.drivers import solve_with_checkpointing
+    from hidenn_fem_tpu_torch.utils import check_gradients
+
+    cfg = PlateConfig()
+    energy = plate_energy(ht, cfg, ht.TriangleP1(u_fixed=0.0))
+    params = rest_params(ht, mesh, dev)
+
+    def loss(p):
+        return energy.total(p, mesh)
+
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            a, b = os.path.join(d, "resumed"), os.path.join(d, "whole")
+            solve_with_checkpointing(loss, params, ht.lbfgs(), 25, a,
+                                     checkpoint_every=25)
+            p_res, hist = solve_with_checkpointing(
+                loss, params, ht.lbfgs(), 50, a, checkpoint_every=25,
+                metrics_path=os.path.join(d, "metrics.jsonl"))
+            p_full, _ = solve_with_checkpointing(loss, params, ht.lbfgs(),
+                                                 50, b, checkpoint_every=25)
+            files = sorted(os.listdir(a))
+        if len(hist) != 1 or files != ["ckpt_25.pt", "ckpt_50.pt"]:
+            raise AssertionError(f"the resumed run did not start from its "
+                                 f"checkpoint ({files}, {len(hist)} chunks)")
+        for k in p_full:
+            if not torch.equal(p_res[k], p_full[k]):
+                raise AssertionError(f"resumed {k} differs from the "
+                                     "uninterrupted run's")
+        log("  solve_with_checkpointing: stopped after 25 of 50 steps and "
+            "resumed; params bit-equal to the uninterrupted run")
+        norms = check_gradients(loss, params, verbose=False)
+        log(f"  check_gradients on the card: {norms}")
+        if not all(np.isfinite(v) and v > 0 for v in norms.values()):
+            raise AssertionError("check_gradients: bad gradient norms")
+
+    _, launches = run_path(counts, "example-4 checkpointed solve",
+                           ("lattice_stencil_vg",), run)
+    return launches
+
+
+def check_sharded_mg(ranks, refs, world, backend, card):
+    """The sharded MG-PCG runs of one group (SHARDED_MG_RUNS): solutions
+    and histories bit-equal across the ranks; relres 1e-6 within
+    MG_ITERS_SPREAD iterations of the one-process solve and of JAX's, and
+    within MG_U_RTOL x max|u| of the one-process solution; K6 over a row
+    window launched; the all_reduce calls equal to count_collectives'
+    census.  Per engine, ms and launches per iteration by the slope
+    between the two starts (the set-up is the same in both).  Returns
+    the launch counts of every run summed over the ranks."""
+    total, by = {}, {}
+    for engine, start in SHARDED_MG_RUNS:
+        key = ("mg", engine, start)
+        tag = f"sharded MG {engine} from {start}, {world} rank(s) ({backend})"
+        r0 = ranks[0][key]
+        for r in ranks[1:]:
+            for f in ("u", "hist"):
+                if not torch.equal(r[key][f], r0[f]):
+                    raise AssertionError(f"{tag}: {f} differs across the "
+                                         "ranks")
+        h = check_hist(tag, r0["hist"])
+        ref = refs[("mg", start)]
+        want = JAX_MG_REST_ITERS if start == "rest" else JAX_MG_ITERS
+        du = float((r0["u"] - ref["u"]).abs().max()
+                   / ref["u"].abs().max())
+        summed = {}
+        for r in ranks:
+            for k, v in r[key]["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+                total[k] = total.get(k, 0) + v
+        launched = {k: v for k, v in summed.items() if v}
+        log(f"  {tag}: {len(h)} iterations to {h[-1]:.6e} (one process "
+            f"{ref['iters']}, JAX {want}) in {r0['seconds']:.3f} s with "
+            f"the set-up; max|u - u_1| / max|u_1| {du:.3e}; all_reduce "
+            f"calls {r0['all_reduce']} a rank (census {r0['census']}); "
+            f"launches {launched} [{card}]")
+        if (h[-1] > 1e-6 or abs(len(h) - ref["iters"]) > MG_ITERS_SPREAD
+                or abs(len(h) - want) > MG_ITERS_SPREAD
+                or du > MG_U_RTOL):
+            raise AssertionError(f"{tag}: off the one-process solve")
+        if r0["all_reduce"] != r0["census"]:
+            raise AssertionError(f"{tag}: {r0['all_reduce']} all_reduce "
+                                 f"calls, census {r0['census']}")
+        if summed["lattice_stencil_vg_rows"] == 0:
+            raise AssertionError(f"{tag}: K6 over a row window did not "
+                                 "launch")
+        by[(engine, start)] = (len(h), r0["seconds"], r0["launches"])
+    for engine in ("all", "replicated_coarse"):
+        (i1, s1, l1), (i0, s0, l0) = by[(engine, "rest")], \
+            by[(engine, "noise")]
+        di = i1 - i0
+        if di <= 0:
+            raise AssertionError(f"sharded MG {engine}: the solve from rest "
+                                 "took no more iterations than the one "
+                                 "from the noise start")
+        per = {k: (l1[k] - l0[k]) / di for k in
+               ("lattice_stencil_vg", "lattice_stencil_vg_rows")}
+        log(f"  sharded MG {engine}, {world} rank(s) ({backend}): "
+            f"{1e3 * (s1 - s0) / di:.3f} ms per iteration (slope between "
+            f"the starts, ranks sharing one card); per iteration on rank "
+            f"0: K6 {per['lattice_stencil_vg']:.2f}, K6 over a row window "
+            f"{per['lattice_stencil_vg_rows']:.2f} launches [{card}]")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs "
@@ -2403,7 +2765,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/14] environment")
+    log("[1/17] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -2413,7 +2775,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/14] build")
+    log("[2/17] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -2423,7 +2785,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/14] kernel vs plain at full size")
+    log("[3/17] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -2437,7 +2799,7 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/14] example 4 on its default route (lattice), 600 steps")
+    log("[4/17] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -2445,7 +2807,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/14] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/17] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -2453,16 +2815,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/14] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/17] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/14] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/17] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/14] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    log("[8/17] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     main_losses, delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -2475,17 +2837,17 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    log("[9/14] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    log("[9/17] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/14] the sharded paths as groups of ranks on the one card")
+    log("[10/17] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    log("[11/14] the CG family: example 8, the 898K plate, minimize")
+    log("[11/17] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
@@ -2494,15 +2856,15 @@ def main():
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    log("[12/14] multigrid: example 9 at 961x481")
+    log("[12/17] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    log("[13/14] node-space L-BFGS on example 4, 600 steps")
+    log("[13/17] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
-    log("[14/14] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+    log("[14/17] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
     phase_aux_898k(ht, counts, mesh898, dev, card)
@@ -2510,9 +2872,28 @@ def main():
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
-    # each entry's launches: (the path's counts, the wrapper's counter)
+    log("[15/17] example 5: the 1000x500 plate, slope-timed "
+        "value-and-grad and 2 x 200 L-BFGS steps")
+    _, ex5_launches = run_path(counts, "example-5", (),
+                               lambda: phase_example5(dev, card))
+    if any(ex5_launches.values()):
+        raise AssertionError("example 5's plain lattice route launched a "
+                             "kernel")
+
+    log("[16/17] the zoom line search and the two-loop L-BFGS on "
+        "example 4")
+    variants = phase_lbfgs_variants(ht, mesh4, dev, card, counts)
+
+    log("[17/17] utils: a checkpointed and resumed solve, check_gradients")
+    utils_launches = phase_utils(ht, mesh4, dev, card, counts)
+
+    # each entry's launches: (the path's counts, the wrapper's counter);
+    # K6 and its row variant also count slice 9's paths
+    k6_paths = (lattice_launches, variants["zoom"], variants["two-loop"],
+                variants["compact"], utils_launches, sharded["sharded MG"])
     path_launches = {
-        "lattice_stencil_vg": (lattice_launches, "lattice_stencil_vg"),
+        "lattice_stencil_vg": (sum_launches(k6_paths),
+                               "lattice_stencil_vg"),
         "lattice_stencil_fwd": (lattice_launches, "lattice_stencil_fwd"),
         "element_energy_fwd": (gather_launches, "element_energy_fwd"),
         "element_energy_bwd": (gather_launches, "element_energy_bwd"),
@@ -2521,7 +2902,8 @@ def main():
         "banded_vg": (delaunay_launches, "banded_vg"),
         "banded_bwd": (fallback_launches[True], "banded_bwd"),
         "banded_bwd_two_pass": (fallback_launches[False], "banded_bwd"),
-        "lattice_stencil_vg_rows": (sharded["slab 922K"],
+        "lattice_stencil_vg_rows": (sum_launches((sharded["slab 922K"],
+                                                  sharded["sharded MG"])),
                                     "lattice_stencil_vg_rows"),
         "lattice_stencil_fwd_rows": (sharded["slab 922K"],
                                      "lattice_stencil_fwd_rows"),

@@ -41,8 +41,9 @@ from .ops.quadrature import (interval_gauss_points,  # noqa: E402
                              triangle_gauss_points)
 from .solve.auxspace import (aux_pcg_solve,  # noqa: E402
                              build_aux_preconditioner, radapt_aux_solve)
-from .solve.drivers import (MinimizeResult, minimize,  # noqa: E402
-                            run_lbfgs, run_optimizer)
+from .solve.drivers import (MinimizeResult,  # noqa: E402
+                            alternating_solve, minimize, run_lbfgs,
+                            run_optimizer, two_phase_solve)
 from .solve.linear import (cg_solve, jacobi_diagonal,  # noqa: E402
                            jacobi_pcg_solve, radapt_cg_solve)
 from .solve.multigrid import (build_hierarchy, mg_pcg_solve,  # noqa: E402

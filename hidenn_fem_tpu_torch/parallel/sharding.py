@@ -18,7 +18,10 @@ Functions carry the collectives with the same semantics:
   params).
 
 Only ``all_reduce`` and ``broadcast`` are used, so a gloo group can run
-its ranks on CUDA tensors, several ranks on one card.  Every rank runs the
+its ranks on CUDA tensors, several ranks on one card.  Every collective of
+the port goes through ``all_reduce`` and ``broadcast`` here, which count
+the calls this process issues by kind (``collective_counts``; the census
+of ``sharded_mg.count_collectives`` is held to them).  Every rank runs the
 same loss on identical parameters and receives the same reduced values,
 so an optimizer run on each rank (``run_lbfgs``, unchanged) stays
 identical across ranks.  Without an initialized group the functions run
@@ -50,7 +53,8 @@ from ..solve.optimizers import ravel_params, unravel_params
 __all__ = ["ELEM_AXIS", "DeviceMesh", "device_mesh", "pad_mesh",
            "shard_mesh", "replicate", "shard_map_energy",
            "reband_for_shards", "shard_map_banded_energy", "rank_tables",
-           "sum_over_ranks", "replicated"]
+           "sum_over_ranks", "replicated", "all_reduce", "broadcast",
+           "collective_counts", "reset_collective_counts"]
 
 ELEM_AXIS = "elem"
 
@@ -96,16 +100,40 @@ def _collective(dmesh: DeviceMesh) -> bool:
     return dmesh.size > 1 or dist.is_initialized()
 
 
+# collectives this process issued since the last reset, by kind
+collective_counts = {"all_reduce": 0, "broadcast": 0}
+
+
+def reset_collective_counts() -> None:
+    for k in collective_counts:
+        collective_counts[k] = 0
+
+
+def all_reduce(t: torch.Tensor, dmesh: DeviceMesh) -> torch.Tensor:
+    """In-place ``all_reduce(SUM)`` of ``t`` over the mesh's ranks (none
+    for a lone process), counted in ``collective_counts``."""
+    if _collective(dmesh):
+        dist.all_reduce(t, group=dmesh.group)
+        collective_counts["all_reduce"] += 1
+    return t
+
+
+def broadcast(t: torch.Tensor, dmesh: DeviceMesh, src: int = 0
+              ) -> torch.Tensor:
+    """In-place ``broadcast`` of rank ``src``'s ``t``, counted."""
+    if _collective(dmesh):
+        dist.broadcast(t, src=src, group=dmesh.group)
+        collective_counts["broadcast"] += 1
+    return t
+
+
 class _SumOverRanks(torch.autograd.Function):
     """all_reduce(SUM) forward (every rank gets the total), identity
     backward: the JAX package's ``psum`` of a partial energy."""
 
     @staticmethod
     def forward(ctx, x, dmesh):
-        y = x.detach().clone()
-        if _collective(dmesh):
-            dist.all_reduce(y, group=dmesh.group)
-        return y
+        return all_reduce(x.detach().clone(), dmesh)
 
     @staticmethod
     def backward(ctx, ct):
@@ -123,10 +151,7 @@ class _Replicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        g = ct.detach().contiguous().clone()
-        if _collective(ctx.dmesh):
-            dist.all_reduce(g, group=ctx.dmesh.group)
-        return g, None
+        return all_reduce(ct.detach().contiguous().clone(), ctx.dmesh), None
 
 
 def sum_over_ranks(x: torch.Tensor, dmesh: DeviceMesh) -> torch.Tensor:
@@ -185,10 +210,8 @@ def replicate(pytree, dmesh: DeviceMesh):
     """Rank 0's params (a dict of tensors, or a tensor) on every rank, on
     its device: a ``broadcast`` from rank 0."""
     def bcast(x):
-        y = x.detach().to(dmesh.device).clone().contiguous()
-        if _collective(dmesh):
-            dist.broadcast(y, src=0, group=dmesh.group)
-        return y
+        return broadcast(x.detach().to(dmesh.device).clone().contiguous(),
+                         dmesh)
 
     if isinstance(pytree, torch.Tensor):
         return bcast(pytree)

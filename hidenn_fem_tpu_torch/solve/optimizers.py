@@ -1,7 +1,9 @@
 """Optimizers on a flat parameter vector (port of
 ``hidenn_fem_tpu/solve/optimizers.py``): compact L-BFGS
-(``scale_by_compact_lbfgs``, ``lbfgs(linesearch="none")``) and Adam
-(``adam``, ``adam_per_group``, ``freeze_groups``).
+(``scale_by_compact_lbfgs``, ``lbfgs(linesearch="none")``), optax's
+two-loop L-BFGS (``lbfgs(mode="scan")``) and its zoom line search
+(``lbfgs(linesearch="zoom")``, rewritten here: optax imports JAX), and
+Adam (``adam``, ``adam_per_group``, ``freeze_groups``).
 
 An optimizer here is an object with ``init(x, like=None) -> state`` and
 ``update(g, state, x) -> (step, state)`` on flat [P] vectors; the driver
@@ -43,7 +45,9 @@ import torch
 
 __all__ = ["CompactLBFGSState", "CompactLBFGS", "scale_by_compact_lbfgs",
            "lbfgs", "adam", "adam_per_group", "freeze_groups", "AdamState",
-           "Adam", "FreezeGroups", "ravel_params", "unravel_params"]
+           "Adam", "FreezeGroups", "ravel_params", "unravel_params",
+           "LBFGSState", "TwoLoopLBFGS", "ZoomLinesearchInfo",
+           "ZoomLinesearchState", "ZoomLBFGSState", "ZoomLBFGS"]
 
 
 def ravel_params(params) -> torch.Tensor:
@@ -178,14 +182,337 @@ def scale_by_compact_lbfgs(memory_size: int = 100,
     return CompactLBFGS(memory_size, scale_init_precond=scale_init_precond)
 
 
-def lbfgs(memory_size: int = 100, linesearch: str = "none",
-          learning_rate: float = 1.0) -> CompactLBFGS:
-    """L-BFGS with torch LBFGS's default fixed step (lr = 1, no line
-    search), the reference's flagship solve."""
-    if linesearch != "none":
-        raise ValueError(f"linesearch {linesearch!r} is not ported yet; "
-                         "only 'none' is available")
-    return CompactLBFGS(memory_size, learning_rate=learning_rate)
+def lbfgs(memory_size: int = 100, max_linesearch_steps: int = 20,
+          linesearch: str = "none", learning_rate: float = 1.0,
+          mode: str = "compact"):
+    """L-BFGS, matching the reference's flagship solve.
+
+    ``linesearch="none"`` (default) is torch LBFGS's default fixed step
+    (lr = ``learning_rate``, no line search); ``mode="compact"`` computes
+    its direction by the compact representation (``CompactLBFGS``),
+    ``mode="scan"`` by optax's two-loop recursion (``TwoLoopLBFGS``).
+    ``linesearch="zoom"`` is ``optax.lbfgs(memory_size=memory_size,
+    linesearch=optax.scale_by_zoom_linesearch(max_linesearch_steps))``:
+    the two-loop direction and the strong-Wolfe zoom search
+    (``ZoomLBFGS``; ``mode`` and ``learning_rate`` do not apply, as in the
+    JAX package).  Drive it with ``run_lbfgs``, which hands the search the
+    loss and reuses the value and gradient it computed."""
+    if mode not in ("compact", "scan"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if linesearch == "zoom":
+        return ZoomLBFGS(memory_size, max_linesearch_steps)
+    if linesearch == "none":
+        if mode == "compact":
+            return CompactLBFGS(memory_size, learning_rate=learning_rate)
+        return TwoLoopLBFGS(memory_size, learning_rate=learning_rate)
+    raise ValueError(f"unknown linesearch {linesearch!r}")
+
+
+# ------------------------------------------------------ two-loop L-BFGS
+class LBFGSState(NamedTuple):
+    """optax's ``ScaleByLBFGSState`` on flat vectors."""
+    count: int                          # update calls so far
+    params: torch.Tensor                # [P] previous flat params
+    updates: torch.Tensor               # [P] previous flat gradient
+    diff_params_memory: torch.Tensor    # [m, P] s_i
+    diff_updates_memory: torch.Tensor   # [m, P] y_i
+    weights_memory: torch.Tensor        # [m] rho_i = 1 / (s_i . y_i)
+
+
+class TwoLoopLBFGS:
+    """optax's ``scale_by_lbfgs(memory_size, scale_init_precond=True)``:
+    the two-loop recursion (Nocedal & Wright, Algorithm 7.4) over a
+    circular [m, P] history, then ``-learning_rate`` times the direction
+    H g (``direction`` alone gives H g).
+
+    optax's semantics, kept exactly: the pair (s, y) goes to slot
+    (count - 1) % m and is zero on the first call; rho = 1/(s.y), 0 where
+    s.y == 0 (no curvature guard: a pair with s.y < 0 is kept, unlike
+    ``CompactLBFGS``); gamma = s.y / y.y of the newest pair (1 when
+    y.y == 0), or min(1, 1/|g|) on the first call.  2m dot products and
+    2m axpys per call, in sequence; the history is updated in place, so a
+    state is consumed by the update that takes it."""
+
+    def __init__(self, memory_size: int = 100, learning_rate: float = 1.0):
+        if memory_size < 1:
+            raise ValueError("memory_size must be >= 1")
+        self.m = memory_size
+        self.learning_rate = learning_rate
+
+    def init(self, x: torch.Tensor, like=None) -> LBFGSState:
+        m, p = self.m, x.numel()
+        z = torch.zeros((p,), dtype=x.dtype, device=x.device)
+        return LBFGSState(
+            count=0, params=z, updates=z,
+            diff_params_memory=torch.zeros((m, p), dtype=x.dtype,
+                                           device=x.device),
+            diff_updates_memory=torch.zeros((m, p), dtype=x.dtype,
+                                            device=x.device),
+            weights_memory=torch.zeros((m,), dtype=x.dtype,
+                                       device=x.device))
+
+    def direction(self, g: torch.Tensor, state: LBFGSState,
+                  x: torch.Tensor) -> Tuple[torch.Tensor, LBFGSState]:
+        """(H g, new state): optax's ``scale_by_lbfgs`` update."""
+        m, c = self.m, state.count
+        S, Y, W = (state.diff_params_memory, state.diff_updates_memory,
+                   state.weights_memory)
+        prev = (c - 1) % m
+        if c > 0:
+            s = x - state.params
+            y = g - state.updates
+            sy = torch.dot(y, s)
+            S[prev] = s
+            Y[prev] = y
+            W[prev] = torch.where(sy == 0.0, 0.0, 1.0 / sy)
+        else:
+            S[prev] = 0.0
+            Y[prev] = 0.0
+            W[prev] = 0.0
+        if c > 0:
+            yy = torch.dot(y, y)
+            gamma = torch.where(yy > 0.0, sy / yy, 1.0)
+        else:
+            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+        # oldest first; the first loop runs newest first
+        order = [(c % m + i) % m for i in range(m)]
+        vec, alphas = g, [None] * m
+        for i in reversed(range(m)):
+            j = order[i]
+            alphas[i] = W[j] * torch.dot(S[j], vec)
+            vec = vec + (-alphas[i]) * Y[j]
+        vec = gamma * vec
+        for i in range(m):
+            j = order[i]
+            beta = W[j] * torch.dot(Y[j], vec)
+            vec = vec + (alphas[i] - beta) * S[j]
+        return vec, LBFGSState(count=c + 1, params=x, updates=g,
+                               diff_params_memory=S, diff_updates_memory=Y,
+                               weights_memory=W)
+
+    def update(self, g: torch.Tensor, state: LBFGSState, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, LBFGSState]:
+        hg, state = self.direction(g, state, x)
+        return hg * (-self.learning_rate), state
+
+
+# ------------------------------------------------------- zoom line search
+class ZoomLinesearchInfo(NamedTuple):
+    """optax's ``ZoomLinesearchInfo`` of the last search."""
+    num_linesearch_steps: int
+    decrease_error: float
+    curvature_error: float
+
+
+class ZoomLinesearchState(NamedTuple):
+    """optax's ``ScaleByZoomLinesearchState``: the accepted step size (the
+    next search's first guess), and the value and gradient at the
+    accepted point (inf before the first search)."""
+    learning_rate: float
+    value: torch.Tensor
+    grad: torch.Tensor
+    info: ZoomLinesearchInfo
+
+
+class ZoomLBFGSState(NamedTuple):
+    lbfgs: LBFGSState
+    linesearch: ZoomLinesearchState
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Critical point of the cubic through (a, fa), (b, fb), (c, fc) with
+    slope fpa at a (optax's ``_cubicmin``; NaN when there is none)."""
+    C = fpa
+    db = b - a
+    dc = c - a
+    denom = (db * dc) * (db * dc) * (db - dc)
+    v0 = fb - fa - C * db
+    v1 = fc - fa - C * dc
+    A = (dc * dc * v0 + (-(db * db)) * v1) / denom
+    B = ((-(dc * dc * dc)) * v0 + db * db * db * v1) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Critical point of the quadratic through (a, fa), (b, fb) with slope
+    fpa at a (optax's ``_quadmin``)."""
+    D = fa
+    C = fpa
+    db = b - a
+    B = (fb - D - C * db) / (db * db)
+    return a - C / (2.0 * B)
+
+
+# optax's zoom_linesearch settings under scale_by_zoom_linesearch's
+# defaults, the JAX package's: tol 0, no maximal step size
+_INCREASE_FACTOR = 2.0
+_SLOPE_RTOL = 1e-4
+_CURV_RTOL = 0.9
+_APPROX_DEC_RTOL = 1e-6
+_STEPSIZE_PRECISION = 1e-5
+
+
+def _zoom_linesearch(value_and_grad, x, d, value, grad, stepsize_guess,
+                     max_linesearch_steps: int):
+    """optax's ``zoom_linesearch`` along ``d`` from ``x``: the interval
+    search of Nocedal & Wright's Algorithm 3.5, then the zoom of Algorithm
+    3.6 (cubic, else quadratic, else bisection trial points), to the
+    strong-Wolfe conditions or Hager and Zhang's approximate-Wolfe
+    decrease, and optax's safeguard when the search runs out of steps or
+    its interval falls below ``_STEPSIZE_PRECISION``.  The control runs
+    on the host, on numpy scalars of the parameters' dtype (optax's
+    scalar arithmetic); each trial point costs one
+    ``value_and_grad(x + t d)`` and one read.
+
+    Returns (step size, value, gradient, number of trial points,
+    decrease error, curvature error)."""
+    f = np.float64 if x.dtype == torch.float64 else np.float32
+    inf = f(np.inf)
+
+    def at(t):
+        v, g = value_and_grad(x + float(t) * d)
+        return f(v.item()), g, f(torch.dot(g, d).item())
+
+    def decrease_error(t, v, sl):
+        # Armijo's, or else the approximate decrease near a minimum
+        e = v - value_init - _SLOPE_RTOL * t * slope_init
+        a = sl - (2 * _SLOPE_RTOL - 1.0) * slope_init
+        dv = v - value_init - _APPROX_DEC_RTOL * np.abs(value_init)
+        e = np.maximum(np.minimum(np.maximum(a, dv), e), f(0.0))
+        return inf if np.isnan(e) else e
+
+    def curvature_error(sl):
+        e = np.maximum(np.abs(sl) - _CURV_RTOL * np.abs(slope_init), f(0.0))
+        return inf if np.isnan(e) else e
+
+    value_init = f(value.item())
+    slope_init = f(torch.dot(d, grad).item())
+    count = 0
+    stepsize, v_cur, g_cur, sl_cur = f(0.0), value_init, grad, slope_init
+    dec_err = curv_err = inf
+    interval_found = done = failed = False
+    low = high = cubic_ref = f(0.0)
+    v_low = v_high = v_cubic = value_init
+    sl_low = sl_high = slope_init
+    safe_t, safe_v, safe_g = f(0.0), value_init, grad
+    with np.errstate(all="ignore"):
+        while not (done or failed):
+            if not interval_found:
+                # the interval search (optax's _search_interval)
+                t = stepsize_guess if count == 0 else \
+                    _INCREASE_FACTOR * stepsize
+                t = f(t)
+                v, g, sl = at(t)
+                dec_err = decrease_error(t, v, sl)
+                curv_err = curvature_error(sl)
+                err = np.maximum(dec_err, curv_err)
+                if dec_err <= 0.0:
+                    safe_t, safe_v, safe_g = t, v, g
+                set_high = (dec_err > 0.0) or (v >= v_cur and count > 0)
+                set_low = (sl >= 0.0) and not set_high
+                if set_low:
+                    low, v_low, sl_low = t, v, sl
+                    high, v_high, sl_high = stepsize, v_cur, sl_cur
+                else:
+                    low, v_low, sl_low = stepsize, v_cur, sl_cur
+                    high, v_high, sl_high = t, v, sl
+                interval_found = set_high or set_low or err <= 0.0
+                done = bool(err <= 0.0)
+                failed = count + 1 >= max_linesearch_steps and not done
+                cubic_ref, v_cubic = low, v_low
+            else:
+                # the zoom (optax's _zoom_into_interval)
+                delta = np.abs(high - low)
+                left, right = np.minimum(high, low), np.maximum(high, low)
+                cubic_chk, quad_chk = 0.2 * delta, 0.1 * delta
+                too_small = delta <= _STEPSIZE_PRECISION
+                mc = _cubicmin(low, v_low, sl_low, high, v_high, cubic_ref,
+                               v_cubic)
+                mq = _quadmin(low, v_low, sl_low, high, v_high)
+                if left + cubic_chk < mc < right - cubic_chk:
+                    t = mc
+                elif left + quad_chk < mq < right - quad_chk:
+                    t = mq
+                else:
+                    t = (low + high) / 2.0
+                t = f(t)
+                v, g, sl = at(t)
+                dec_err = decrease_error(t, v, sl)
+                curv_err = curvature_error(sl)
+                err = np.maximum(dec_err, curv_err)
+                if dec_err <= 0.0 and v < safe_v:
+                    safe_t, safe_v, safe_g = t, v, g
+                done = bool(err <= 0.0)
+                set_high_mid = (dec_err > 0.0) or (v >= v_low)
+                set_high_low = (sl * (high - low) >= 0.0) and \
+                    not set_high_mid
+                if set_high_mid or set_high_low:
+                    cubic_ref, v_cubic = high, v_high
+                else:
+                    cubic_ref, v_cubic = low, v_low
+                if set_high_mid:
+                    high, v_high, sl_high = t, v, sl
+                elif set_high_low:
+                    high, v_high, sl_high = low, v_low, sl_low
+                if not set_high_mid:
+                    low, v_low, sl_low = t, v, sl
+                failed = ((count + 1 >= max_linesearch_steps
+                           or (too_small and safe_t > 0.0)) and not done)
+            count += 1
+            stepsize, v_cur, g_cur, sl_cur = t, v, g, sl
+            if failed and (safe_t > 0.0 or np.isinf(dec_err)):
+                # optax's _try_safe_step: the best point with sufficient
+                # decrease (or the start, when every trial left the domain)
+                stepsize, v_cur, g_cur = safe_t, safe_v, safe_g
+    return stepsize, v_cur, g_cur, count, dec_err, curv_err
+
+
+class ZoomLBFGS:
+    """``optax.lbfgs(memory_size, linesearch=optax.scale_by_zoom_linesearch(
+    max_linesearch_steps))``: the two-loop direction d = -H g (optax's
+    ``scale_by_lbfgs`` then ``scale(-1)``), then ``_zoom_linesearch`` along
+    d from the previous accepted step size (optax's
+    ``initial_guess_strategy="keep"``, 1 at the start); the step is
+    ``t d``.  ``update`` needs the value at ``x`` and ``value_fn``,
+    ``x -> (value, gradient)``; the state keeps the value and gradient at
+    the accepted point, which ``run_lbfgs`` reuses for the next step
+    (optax's ``value_and_grad_from_state``)."""
+
+    def __init__(self, memory_size: int = 100,
+                 max_linesearch_steps: int = 20):
+        self.lbfgs = TwoLoopLBFGS(memory_size)
+        self.max_linesearch_steps = max_linesearch_steps
+
+    def init(self, x: torch.Tensor, like=None) -> ZoomLBFGSState:
+        return ZoomLBFGSState(
+            lbfgs=self.lbfgs.init(x),
+            linesearch=ZoomLinesearchState(
+                learning_rate=1.0,
+                value=torch.full((), float("inf"), dtype=x.dtype,
+                                 device=x.device),
+                grad=torch.zeros_like(x),
+                info=ZoomLinesearchInfo(0, float("inf"), float("inf"))))
+
+    def update(self, g: torch.Tensor, state: ZoomLBFGSState,
+               x: torch.Tensor, value=None, value_fn=None
+               ) -> Tuple[torch.Tensor, ZoomLBFGSState]:
+        if value is None or value_fn is None:
+            raise ValueError("the zoom line search needs value= and "
+                             "value_fn= (drive it with run_lbfgs)")
+        hg, lstate = self.lbfgs.direction(g, state.lbfgs, x)
+        d = hg * -1.0
+        f = np.float64 if x.dtype == torch.float64 else np.float32
+        t, v, gv, n, de, ce = _zoom_linesearch(
+            value_fn, x, d, value, g, f(state.linesearch.learning_rate),
+            self.max_linesearch_steps)
+        return float(t) * d, ZoomLBFGSState(
+            lbfgs=lstate,
+            linesearch=ZoomLinesearchState(
+                learning_rate=float(t),
+                value=torch.full((), float(v), dtype=x.dtype,
+                                 device=x.device),
+                grad=gv, info=ZoomLinesearchInfo(n, float(de), float(ce))))
 
 
 # ------------------------------------------------------------------ Adam

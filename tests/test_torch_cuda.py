@@ -925,3 +925,134 @@ def test_two_rank_gloo_aux_pcg_on_one_card(dev, tmp_path):
         launched = json.loads(str(r["launches"]))
         assert launched["banded_vg_rows"] >= 1
         assert launched["lattice_stencil_vg"] >= 1
+
+
+# ------------------------------------------------ the sharded multigrid
+@pytest.mark.parametrize("shape,ranks", [((961, 481), 4), ((33, 17), 2),
+                                         ((65, 33), 4)],
+                         ids=lambda v: str(v))
+def test_sharded_level_operator_is_the_whole_level_k6(dev, shape, ranks):
+    """On a level padded with dead rows for ``ranks`` ranks (zigzag, a
+    hole: the padding moves the parity), K6 over each rank's row window,
+    its displacement rows placed and summed over the windows (what the
+    sharded level operator's ``all_reduce`` adds), equals the whole-level
+    K6's displacement gradient bit for bit."""
+    from hidenn_fem_tpu_torch.parallel import sharded_mg as smg
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+
+    grid, model, params = _mg_plate(*shape, dev)
+    coords = model.coords(params, grid).detach()
+    gP, cP, uP, k = smg._pad(grid, coords, params["u"], ranks)
+    assert k != 0 and gP.nx % ranks == 0
+    nx, ny = gP.nx, gP.ny
+    node = torch.cat([model.coords({"coords": cP}, gP),
+                      model.u_full({"u": uP}, gP)], dim=-1).reshape(-1, 4)
+    kw = ls.structured_stencil(gP.quad_mask, gP.split, gP.zigzag_phase,
+                               torch.float32)
+    _, whole = ls.lattice_stencil_vg(node, nx, ny, E, NU, 0.5, **kw)
+    summed = torch.zeros((nx * ny, 2), device=dev)
+    before = ls.launch_counts["lattice_stencil_vg_rows"]
+    for r in range(ranks):
+        lo, hi = row_window(nx, r, ranks)
+        _, g = ls.lattice_stencil_vg_rows(node, nx, ny, E, NU, 0.5, lo, hi,
+                                          **kw)
+        summed += g[:, 2:]
+    assert ls.launch_counts["lattice_stencil_vg_rows"] - before == ranks
+    assert torch.equal(summed, whole[:, 2:].contiguous())
+
+
+@pytest.mark.parametrize("engine", ["all", "replicated_coarse"])
+def test_two_rank_gloo_sharded_mg_on_one_card(dev, tmp_path, engine):
+    """Two ranks (gloo) sharing the card solve the 65x33 zigzag plate with
+    a hole by ``mg_pcg_solve_sharded``: K6 over a row window on the
+    sharded levels; solutions and histories bit-equal across the ranks,
+    within 3 iterations and 5e-4 x max|u| of the single-process
+    ``mg_pcg_solve`` on the card (the JAX test's bounds; on the CPU the
+    same case takes 13 or 14 iterations against 13); the
+    ``all_reduce`` calls equal ``count_collectives``' census when the
+    solve runs to its cap."""
+    import json
+
+    from hidenn_fem_tpu_torch.parallel import sharded_mg as smg
+    from torch_sharded_common import Groups
+
+    hole = [[1.0, 0.5, 0.15]]
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((65, 33, 2))
+    common = dict(fn="mg", dtype="float32", nx=65, ny=33, split="zigzag",
+                  holes=hole, engine=engine)
+    groups = Groups(tmp_path, [
+        (dict(name="solve", max_iters=40, tol=1e-6, **common), {"p_u": u0}),
+        (dict(name="census", max_iters=4, tol=0.0, **common), {"p_u": u0})],
+        worlds=(2,), device="cuda:0")
+    try:
+        got = groups.case(2, "solve")
+        census = groups.case(2, "census")
+        ranks = groups.ranks(2)
+    finally:
+        groups.close()
+    grid, model, _ = _mg_plate(65, 33, dev)
+    params = {"coords": grid.coords,
+              "u": torch.tensor(u0, dtype=torch.float32, device=dev)}
+    sol, hist = pt.mg_pcg_solve(model, grid, params, max_iters=40, tol=1e-6)
+    h0, h1 = hist.cpu().numpy(), got["hist"]
+    assert h1[h1 > 0][-1] <= 1e-6
+    assert abs(int((h1 > 0).sum()) - int((h0 > 0).sum())) <= 3
+    u = sol["u"].cpu().numpy()
+    assert np.abs(got["u"] - u).max() <= 5e-4 * np.abs(u).max()
+    want = smg.count_collectives(model, grid, params, n_devices=2,
+                                 engine=engine, max_iters=4)
+    assert int(census["all_reduce"]) == want["all_reduce"]
+    for r in ranks:
+        assert json.loads(str(r["launches"]))["lattice_stencil_vg_rows"] > 0
+
+
+# ------------------------------------ two-loop and zoom L-BFGS, profiling
+@pytest.mark.parametrize("mode,linesearch", [("scan", "none"),
+                                             ("compact", "zoom")])
+def test_lbfgs_variants_on_the_card_match_the_cpu(dev, mode, linesearch):
+    """``lbfgs(mode="scan")`` and the zoom line search on the 33x17 proxy
+    plate (the lattice route: K6 each value-and-grad on the card), 30
+    steps, against the same run on the CPU: the energy at init within
+    rtol 1e-4 and after 30 steps within the f32 spread rule (5e-3)."""
+    from hidenn_fem_tpu_torch.solve import optimizers as topt
+    from hidenn_fem_tpu_torch.solve.drivers import run_optimizer
+
+    out = {}
+    for where in ("cpu", dev):
+        mesh = pt.proxy_plate_mesh(nx=33, ny=17, device=where)
+        u0 = 1e-5 * np.random.default_rng(0).standard_normal(
+            (mesh.n_nodes, 2))
+        params = pt.params_from_numpy({"coords": mesh.coords.cpu().numpy(),
+                                       "u": u0}, device=where)
+        energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+        opt = topt.lbfgs(memory_size=10, mode=mode, linesearch=linesearch)
+        before = ls.launch_counts["lattice_stencil_vg"]
+        _, losses = run_optimizer(energy.total, params, opt, 30,
+                                  loss_args=(mesh,))
+        launched = ls.launch_counts["lattice_stencil_vg"] - before
+        assert launched == 0 if where == "cpu" else launched >= 30
+        out[str(where)] = losses.cpu().numpy()
+    got, want = out[str(dev)], out["cpu"]
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    np.testing.assert_allclose(got[-1], want[-1], rtol=5e-3)
+
+
+def test_slope_time_scan_around_k6(dev):
+    """``slope_time_scan`` of a K6 step on the 961x481 lattice: a finite
+    positive time, every step one K6 launch ((1 + repeats) (n1 + n2)
+    launches in all)."""
+    from hidenn_fem_tpu_torch.utils.profiling import slope_time_scan
+
+    grid, model, params = _mg_plate(961, 481, dev, split="up", holes=())
+    node = torch.cat([grid.coords, params["u"]], dim=-1).reshape(-1, 4)
+    kw = ls.structured_stencil(grid.quad_mask, "up", 0, torch.float32)
+
+    def step(n):
+        e, g = ls.lattice_stencil_vg(n, 961, 481, E, NU, 0.5, **kw)
+        return n - 1e-15 * g, e
+
+    before = ls.launch_counts["lattice_stencil_vg"]
+    t = slope_time_scan(step, node.contiguous(), n1=5, n2=25, repeats=2)
+    assert np.isfinite(t) and t > 0
+    assert ls.launch_counts["lattice_stencil_vg"] - before == 3 * 30

@@ -33,6 +33,15 @@ Deliberate differences, and why:
 * ``dtype`` on ``grid_from_numpy`` and ``levels_from_numpy`` (the port's
   own converters), and ``lmax_host`` on the multigrid levels (the
   Chebyshev bound on the host, read once at set-up).
+* The sharded multigrid (``parallel.sharded_mg``) takes the same
+  ``DeviceMesh`` as ``dmesh`` where the JAX package takes a ``Mesh``, and
+  its ``count_collectives`` counts the port's own collective calls
+  (by kind: ``all_reduce``, ``broadcast``) where the JAX package counts
+  collective HLOs of a compiled program.
+* Checkpoints (``utils.checkpoint``) are the port's own ``torch.save``
+  format, ``ckpt_<step>.pt``, where the JAX package writes flax msgpack,
+  ``ckpt_<step>.msgpack``: flax and msgpack may not be imported; the
+  signatures are the JAX package's.
 """
 
 import dataclasses
@@ -62,6 +71,10 @@ MODULES = {
     "solve.linear": "solve.linear", "solve.nodespace": "solve.nodespace",
     "solve.multigrid": "solve.multigrid", "solve.auxspace": "solve.auxspace",
     "parallel.sharded_aux": "parallel.sharded_aux",
+    "parallel.sharded_mg": "parallel.sharded_mg", "utils": "utils",
+    "utils.profiling": "utils.profiling", "utils.checkpoint":
+    "utils.checkpoint", "utils.metrics": "utils.metrics", "utils.debug":
+    "utils.debug",
 }
 
 # JAX names the port does not have yet, by ROADMAP Queue A item
@@ -72,9 +85,6 @@ NOT_YET_PORTED = {
     "ops.quadrature": {"gauss_legendre_points_weights"},         # item 9
     "postproc": {"derivative_1d_per_element",                    # item 9
                  "locate_points", "evaluate_at_points"},         # item 10
-    "solve": {"alternating_solve", "two_phase_solve",            # item 7
-              "solve_with_checkpointing"},
-    "parallel": {"mg_pcg_solve_sharded"},                        # item 13
 }
 # JAX names with no torch counterpart by design (module doc)
 NO_COUNTERPART = {"parallel.sharding": {"mesh_shardings"},
@@ -87,11 +97,6 @@ JAX_ONLY_PARAMS = {
     ("ops.lattice_slab", "structured_domain_slab"): {"interpret"},
     ("models.triangle_p1", "TriangleP1.init"): {"key"},
     ("models.structured_grid", "StructuredGridP1.init"): {"key"},
-    # Queue A item 8: the zoom line search and the two-loop mode
-    ("solve.drivers", "run_lbfgs"): {"max_linesearch_steps"},
-    ("solve.optimizers", "lbfgs"): {"max_linesearch_steps", "mode"},
-    ("solve", "run_lbfgs"): {"max_linesearch_steps"},
-    ("solve", "lbfgs"): {"max_linesearch_steps", "mode"},
     # Queue A item 12: the windowed and chunked lattice fills
     ("mesh.lattice", "LatticeRoute"): {
         "fw_rel", "fw_starts", "bw_rel", "bw_starts", "ck_fwd_rowA",

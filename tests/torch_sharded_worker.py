@@ -5,11 +5,13 @@
 Reads the cases of ``DIR/spec.json`` (meshes and params as numpy arrays in
 ``DIR/<case>.npz``, written by ``tests/torch_sharded_common.py``), runs
 each through its sharded function (or, for an "aux" case, the sharded
-auxiliary-space PCG solve) as rank RANK of WORLD ranks (gloo,
+auxiliary-space PCG solve; for an "mg" case, the sharded multigrid-PCG
+solve of a structured grid) as rank RANK of WORLD ranks (gloo,
 ``tcp://localhost:PORT``) on DEVICE (default ``cpu``; ``cuda:0`` puts
 every rank on the one card), and writes this rank's energies, gradients,
-loss histories (aux: solutions and residual histories), errors and kernel
-launch counts to ``DIR/rank<RANK>.npz``.
+loss histories (aux and mg: solutions and residual histories; mg: the
+``all_reduce`` calls of the solve as well), errors and kernel launch
+counts to ``DIR/rank<RANK>.npz``.
 Imports the port only (never JAX), as the ranks of a real run do.
 """
 
@@ -29,9 +31,10 @@ from hidenn_fem_tpu_torch.ops import banded_energy  # noqa: E402
 from hidenn_fem_tpu_torch.ops import element_energy  # noqa: E402
 from hidenn_fem_tpu_torch.ops import lattice_slab  # noqa: E402
 from hidenn_fem_tpu_torch.parallel import (  # noqa: E402
-    aux_pcg_solve_sharded, device_mesh, initialize_multihost, pad_mesh,
-    process_summary, reband_for_shards, shard_map_banded_energy,
-    shard_map_energy, shard_map_lattice_slab, sharded_lattice_energy)
+    aux_pcg_solve_sharded, device_mesh, initialize_multihost,
+    mg_pcg_solve_sharded, pad_mesh, process_summary, reband_for_shards,
+    shard_map_banded_energy, shard_map_energy, shard_map_lattice_slab,
+    sharded_lattice_energy, sharding)
 
 KERNELS = (banded_energy, element_energy, lattice_slab)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -76,8 +79,34 @@ def build(case, arrays, world, dev):
     return mesh, params, energy
 
 
+def run_mg(case, arrays, dmesh, out):
+    """The sharded MG-PCG solve of the ``nx`` x ``ny`` plate
+    (``generate_structured_grid`` with the case's ``split`` and ``holes``,
+    default "up" and none; the tests build the JAX package's from the same
+    arrays) from the case's u0."""
+    name, dtype = case["name"], DTYPES[case["dtype"]]
+    grid = pt.grid_from_numpy(pt.generate_structured_grid(
+        length=2.0, height=1.0, nx=case["nx"], ny=case["ny"],
+        split=case.get("split", "up"), holes=case.get("holes", ()),
+        device="cpu"), device=dmesh.device, dtype=dtype)
+    model = pt.StructuredGridP1(E=10e9, nu=0.3, dtype=dtype)
+    params = {"coords": grid.coords,
+              "u": torch.tensor(arrays["p_u"], dtype=dtype,
+                                device=dmesh.device)}
+    sharding.reset_collective_counts()
+    sol, hist = mg_pcg_solve_sharded(model, grid, params, dmesh=dmesh,
+                                     max_iters=case["max_iters"],
+                                     tol=case["tol"], engine=case["engine"])
+    out[f"{name}__all_reduce"] = np.asarray(
+        sharding.collective_counts["all_reduce"])
+    out[f"{name}__u"] = sol["u"].cpu().numpy()
+    out[f"{name}__hist"] = hist.cpu().numpy()
+
+
 def run_case(case, arrays, world, dmesh, out):
     name = case["name"]
+    if case["fn"] == "mg":
+        return run_mg(case, arrays, dmesh, out)
     mesh, params, energy = build(case, arrays, world, dmesh.device)
     if case["fn"] == "aux":
         sol, hist = aux_pcg_solve_sharded(energy, mesh, params, dmesh=dmesh,

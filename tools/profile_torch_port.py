@@ -26,8 +26,9 @@ intervals), the idle share, each kernel's device µs per call by name
 (``key_averages()``), and the top operators by device and by host time.
 The ``pt_layouts`` window times the generic background's P^T alone in
 both layouts, flat and windowed (device µs per call), on the 922K proxy
-plate and the 898K Delaunay plate.  Chrome traces go to the ``--out``
-directory; ``--cases`` picks windows by name.
+plate and the 898K Delaunay plate.  Each window's Chrome trace goes to
+``<out>/<window>/`` (``utils.profiling.trace_to``); ``--cases`` picks
+windows by name.
 
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
@@ -58,6 +59,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import hidenn_fem_tpu_torch as ht
+from hidenn_fem_tpu_torch.utils.profiling import trace_to
 
 
 def _busy_ms(prof):
@@ -139,8 +141,7 @@ def _window(name, fn, calls, out_dir, card, iters=1):
     fn()
     torch.cuda.synchronize()
     before = _launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace_to(os.path.join(out_dir, name)) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -160,7 +161,6 @@ def _window(name, fn, calls, out_dir, card, iters=1):
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=15))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
 
 
 def _case(loss, params, data, memory_size=100):
