@@ -166,8 +166,35 @@ Phases (each raises on failure, and the script then exits non-zero):
 17. Utils: ``solve_with_checkpointing`` on example 4 (compact L-BFGS, two
     chunks of 25), stopped after the first chunk and resumed, bit-equal to
     an uninterrupted run; ``check_gradients`` on the card.
+18. Examples 1-3 (``examples/example{1,2,3}_torch.py``) at their own
+    sizes (100 nodes and 500 Adam epochs; 25x25 and 5000 minibatch epochs
+    of 1000 points; 89 nodes and 4000 epochs; plain torch, no kernel):
+    example 1's final MSE within a factor 2 of JAX's, example 3's RMS error
+    against the exact solution under 5e-4 and its final energy within
+    2e-3 of JAX's, example 2's final MSE over all points within a factor
+    2 of JAX's (other minibatch streams), then 100 epochs of example 2 on
+    one numpy index table from one numpy init against JAX's f32 and f64
+    losses at step 100; ms per epoch of each.
+19. Point evaluation at full width: 10^6 points uniform in the bounding
+    box of the 898K plate after phase 8's 50 steps (moved coordinates),
+    ``locate_points`` (the bucket grid, on the card) and
+    ``evaluate_at_points`` timed apart; NaN exactly outside the mesh,
+    every point clear of the holes found and none inside one, a linear
+    field reproduced to f32 rounding, the field at the element centroids
+    equal to the vertex mean.
+20. The native mesh loader (``mesh/native.py``): built with g++, then the
+    whole 898K Delaunay plate (``generate_mesh_delaunay``) and its host
+    tables alone (``TriMesh.from_arrays`` on its arrays) built with it and
+    with ``HDNN_NO_NATIVE=1``, every table array-equal, the four host
+    times printed.
 
-Each path of phases 4-17 (and K8's timed A/B) runs with every launch
+Phases 1-19 run with ``HDNN_NO_NATIVE=1``: the host tables and the
+coloring take the numpy paths whether or not an earlier run left a native
+library in ``hidenn_fem_tpu_torch/csrc/build/``, so every run takes the
+same path and phase 11b holds the colors to the JAX package's numpy
+rounds.  Phase 20 alone turns the library on.
+
+Each path of phases 4-20 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
 whose residual turns non-finite fails.  The last three lines of standard output
@@ -480,6 +507,59 @@ JAX_AUX_SETUP = {
 # the r-adaptive aux epochs' coordinate step on example 11's mesh
 # (lc = 0.05: 0.2% of the spacing a step)
 RADAPT_AUX_LR = 1e-4
+
+# Examples 1-3 (phase 18) in the JAX package on the CPU at their own sizes
+# (f32), made with
+#   JAX_PLATFORMS=cpu python -c "
+#   import numpy as np, jax.numpy as jnp, hidenn_fem_tpu as ht
+#   from examples.example3 import b_force
+#   m, p = ht.Linear1D.from_node_coords(np.linspace(0, 1, 100),
+#                                       r_adapt=True)          # example 1
+#   x = jnp.linspace(0, 1, 1000)
+#   _, l = ht.minimize(lambda q: ht.l2_loss(m, q, x, jnp.sin(2 * jnp.pi
+#       * x)), p, method='adam', num_steps=500, learning_rate=5e-3)
+#   m, p = ht.Linear1D.from_node_coords(np.linspace(0, 10, 89),
+#       r_adapt=True, u0=0.0, uN=0.0)                          # example 3
+#   _, l = ht.minimize(lambda q: ht.bar_energy_1d(m, q, 2, b_force,
+#       E=175.0), p, method='adam', num_steps=4000, learning_rate=1e-4)
+#   print(float(l[-1]))"
+# and example 2 as examples/example2.py runs it (its own PRNG stream), the
+# final MSE over all 10,000 collocation points from the returned params.
+# Both packages' inits of examples 1 and 3 are deterministic and equal; the
+# port on the CPU ends at MSE 3.245e-7 and energy -0.0315217599 (rel
+# 2.0e-4 from JAX's).  Example 2's packages draw their minibatches from
+# different generators (the port's CPU run: 5.45e-6 against JAX's 4.81e-6),
+# so its final MSE is held to JAX's within EX2_MSE_FACTOR, and the same
+# loop is run again for 100 epochs on one numpy index table from one numpy
+# init (rng = np.random.default_rng(0); batches = rng.integers(0, 10000,
+# (100, 1000)); u0 = rng.standard_normal((25, 25)); the raw-diff
+# increments), the JAX side a lax.scan of examples/example2.py's step over
+# those batches.  At step 100 of that run JAX f32 lies 3.4e-3 from JAX f64
+# (training points that are grid nodes put the element choice on the last
+# bit of the grid, and Adam's normalized steps carry it), while the port's
+# f64 run on the CPU equals JAX's f64 to 1e-16: so the card's f32 value is
+# held to both at the f32 spread rule of phases 8-9 (F32_SPREAD_RTOL).
+JAX_EX1_FINAL_MSE = 3.2339582389795396e-07
+EX1_MSE_FACTOR = 2.0          # tests/test_baseline_parity.py: < 6.5e-7
+JAX_EX3_FINAL_ENERGY = -0.03152796998620033
+EX3_ENERGY_RTOL = 2e-3
+EX3_RMS_LIMIT = 5e-4          # tests/test_losses_1d.py
+JAX_EX2_FULL_MSE = 4.8130932555068284e-06
+EX2_MSE_FACTOR = 2.0
+EX2_TABLE_EPOCHS = 100
+JAX_EX2_TABLE_LAST = (0.3700171709060669, 0.37128129055777664)  # f32, f64
+
+# Point evaluation (phase 19) on the 898K plate after phase 8's solve:
+# POINT_COUNT points uniform in the plate's bounding box.  A linear field
+# is reproduced, and the centroid value is the vertex mean, up to the f32
+# rounding of the blend (the reference coordinates are cast to f32):
+# POINT_ATOL x max|u|.  Points farther than HOLE_MARGIN inside a hole are
+# NaN, and farther than HOLE_MARGIN outside every hole (and inside the
+# plate) are found (the hole boundaries are polygons of ~DELAUNAY_LC
+# edges, pinned under r-adaptivity).
+POINT_COUNT = 1_000_000
+POINT_ATOL = 1e-5
+HOLE_MARGIN = 0.005
 
 # kernel vs plain tolerances at full size (f32 on both sides, sums and
 # products in other orders): energy rtol 1e-4; gradients rtol 5e-4 with
@@ -1397,7 +1477,8 @@ def check_ref(what, got, f32, f32_rtol, f64=None):
 
 
 def phase_delaunay_solve(ht, be, mesh, dev, card, steps=50):
-    """Phase 8: the slice's main path on the 898K Delaunay plate."""
+    """Phase 8: the slice's main path on the 898K Delaunay plate; returns
+    (losses, the params after the solve)."""
     from hidenn_fem_tpu_torch import postproc
 
     model = ht.TriangleP1()
@@ -1438,7 +1519,7 @@ def phase_delaunay_solve(ht, be, mesh, dev, card, steps=50):
     log(f"  898K Delaunay L-BFGS (banded route, paired tables) at "
         f"{mesh.n_elements} elements: {steps} steps in {seconds:.3f} s, "
         f"{1e3 * seconds / steps:.4f} ms/iter [{card}]")
-    return losses
+    return losses, params
 
 
 def phase_banded_fallback(ht, mesh, dev, card, main_losses, name, keep,
@@ -1741,7 +1822,7 @@ def phase_cg_898k(ht, be, mesh, dev, card, counts):
     """Phase 11b: the CG family on the 898K Delaunay plate (banded route,
     K4 each matvec and probe, K3 each energy under no_grad), from u = 0,
     capped at CG_CAP iterations; returns the path's launch counts."""
-    from hidenn_fem_tpu_torch.mesh import coloring
+    from hidenn_fem_tpu_torch.mesh import coloring, native
 
     conn = mesh.connectivity
     t0 = time.perf_counter()
@@ -1749,12 +1830,14 @@ def phase_cg_898k(ht, be, mesh, dev, card, counts):
     color_s = time.perf_counter() - t0
     if not coloring.check_coloring(conn, colors):
         raise AssertionError("color_nodes gave an improper coloring")
+    n_colors = int(colors.max()) + 1
+    if native.available():
+        raise AssertionError("the native library is on before phase 20")
     if not np.array_equal(colors, coloring._greedy_color_numpy(
             conn.cpu().numpy(), mesh.n_nodes)):
         raise AssertionError("color_nodes differs from the numpy rounds")
-    n_colors = int(colors.max()) + 1
-    log(f"  898K coloring: {n_colors} colors (JAX: {JAX_898K_COLORS}) in "
-        f"{color_s:.2f} s on the host; check_coloring passes")
+    log(f"  898K coloring: {n_colors} colors (JAX: {JAX_898K_COLORS}) "
+        f"in {color_s:.2f} s on the host; check_coloring passes")
     if n_colors != JAX_898K_COLORS:
         raise AssertionError("color count differs from the JAX package's")
     energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
@@ -2752,10 +2835,224 @@ def check_sharded_mg(ranks, refs, world, backend, card):
     return total
 
 
+def phase_examples_1d(ht, dev, card):
+    """Phase 18: examples 1-3 on the card at their own sizes (plain torch,
+    no kernel), against the JAX package's values."""
+    from examples import example1_torch, example2_torch, example3_torch
+    from hidenn_fem_tpu_torch.config import Projection2DConfig
+
+    def within_factor(what, got, want, factor):
+        ratio = got / want
+        log(f"  {what}: {got!r} vs JAX {want!r}: ratio {ratio:.4f} "
+            f"(limit a factor {factor})")
+        if not (np.isfinite(got) and 1 / factor <= ratio <= factor):
+            raise AssertionError(f"{what} off JAX's")
+
+    t0 = time.perf_counter()
+    _, losses = example1_torch.main(device=dev)
+    sec = time.perf_counter() - t0
+    within_factor("example-1 final MSE", float(losses[-1]),
+                  JAX_EX1_FINAL_MSE, EX1_MSE_FACTOR)
+    log(f"  example 1: {len(losses)} epochs in {sec:.3f} s, "
+        f"{1e3 * sec / len(losses):.4f} ms/epoch with the set-up [{card}]")
+
+    t0 = time.perf_counter()
+    _, _, losses, mse = example2_torch.main(device=dev)
+    sec = time.perf_counter() - t0
+    within_factor("example-2 final MSE over all points", mse,
+                  JAX_EX2_FULL_MSE, EX2_MSE_FACTOR)
+    log(f"  example 2: {len(losses)} epochs in {sec:.3f} s, "
+        f"{1e3 * sec / len(losses):.4f} ms/epoch with the set-up [{card}]")
+    rng = np.random.default_rng(0)
+    batches = rng.integers(0, 10_000, (EX2_TABLE_EPOCHS, 1000))
+    u0 = rng.standard_normal((25, 25))
+    _, params = ht.Bilinear2D.create(np.linspace(0, 1, 25),
+                                     np.linspace(0, 1, 25), r_adapt=True,
+                                     device=dev)
+    params["u"] = torch.tensor(u0, dtype=torch.float32, device=dev)
+    _, _, losses, _ = example2_torch.main(
+        Projection2DConfig(epochs=EX2_TABLE_EPOCHS), device=dev,
+        params=params, batches=batches)
+    for dt, want in zip(("f32", "f64"), JAX_EX2_TABLE_LAST):
+        rel = abs(float(losses[-1]) - want) / abs(want)
+        log(f"  example-2 loss at step {EX2_TABLE_EPOCHS} on the index "
+            f"table: {float(losses[-1])!r} vs JAX {dt} {want!r}: rel "
+            f"{rel:.3e} (limit {F32_SPREAD_RTOL})")
+        if rel > F32_SPREAD_RTOL:
+            raise AssertionError(f"example 2 on the index table off JAX "
+                                 f"{dt}")
+
+    t0 = time.perf_counter()
+    _, losses, err = example3_torch.main(device=dev)
+    sec = time.perf_counter() - t0
+    check_ref("example-3 final energy", float(losses[-1]),
+              JAX_EX3_FINAL_ENERGY, EX3_ENERGY_RTOL)
+    log(f"  example-3 RMS error against the exact solution: {err:.4e} "
+        f"(limit {EX3_RMS_LIMIT})")
+    if not err < EX3_RMS_LIMIT:
+        raise AssertionError("example 3 off the exact solution")
+    log(f"  example 3: {len(losses)} epochs in {sec:.3f} s, "
+        f"{1e3 * sec / len(losses):.4f} ms/epoch with the set-up [{card}]")
+
+
+def timed(fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_point_eval(ht, mesh, params, dev, card):
+    """Phase 19: point location and evaluation at full width on the 898K
+    plate's phase-8 solution (moved coordinates): POINT_COUNT points over
+    the bounding box, timed; holes and margins, a linear field, and the
+    element centroids checked."""
+    from hidenn_fem_tpu_torch import postproc
+
+    model = ht.TriangleP1()
+    coords = model.coords(params, mesh).detach()
+    conn = mesh.connectivity
+    rng = np.random.default_rng(0)
+    lo = coords.min(0).values.double().cpu().numpy()
+    hi = coords.max(0).values.double().cpu().numpy()
+    pts = torch.tensor(lo + (hi - lo) * rng.random((POINT_COUNT, 2)),
+                       device=dev)
+    (eid, ref), cold = timed(lambda: postproc.locate_points(coords, conn,
+                                                            pts))
+    (eid, ref), warm = timed(lambda: postproc.locate_points(coords, conn,
+                                                            pts))
+    u, total = timed(lambda: postproc.evaluate_at_points(model, params,
+                                                         mesh, pts))
+    _, interp = timed(lambda: model.interpolate(params, mesh,
+                                                ref.float(),
+                                                eid.clamp_min(0)))
+    log(f"  {POINT_COUNT} points on {mesh.n_elements} elements: locate "
+        f"{cold:.4f} s cold, {warm:.4f} s warm; evaluate_at_points "
+        f"{total:.4f} s (locate + interpolate), interpolate alone "
+        f"{interp:.4f} s [{card}]")
+    outside = eid < 0
+    if not torch.equal(torch.isnan(u).any(dim=1), outside) or \
+            bool(torch.isnan(u[~outside]).any()):
+        raise AssertionError("NaN rows are not the points outside the mesh")
+    p = pts.cpu().numpy()
+    gap = np.min([np.hypot(p[:, 0] - cx, p[:, 1] - cy) - r
+                  for cx, cy, r in HOLES], axis=0)
+    in_plate = ((p[:, 0] > lo[0] + HOLE_MARGIN)
+                & (p[:, 0] < hi[0] - HOLE_MARGIN)
+                & (p[:, 1] > lo[1] + HOLE_MARGIN)
+                & (p[:, 1] < hi[1] - HOLE_MARGIN))
+    out = outside.cpu().numpy()
+    lost = int((out & in_plate & (gap > HOLE_MARGIN)).sum())
+    found_in_hole = int((~out & (gap < -HOLE_MARGIN)).sum())
+    log(f"  outside the mesh: {int(out.sum())} points "
+        f"({out.mean():.4%}; the holes cover "
+        f"{np.pi * sum(r * r for _, _, r in HOLES) / 2.0:.4%} of the "
+        f"plate); lost inside the plate {lost}, found in a hole "
+        f"{found_in_hole}")
+    if lost or found_in_hole:
+        raise AssertionError("point location disagrees with the geometry")
+
+    # a linear field (no Dirichlet pins) is reproduced exactly
+    A = torch.tensor([[1e-3, 2e-4], [-3e-4, 5e-4]], dtype=torch.float64,
+                     device=dev)
+    b = torch.tensor([1e-4, -2e-4], dtype=torch.float64, device=dev)
+    free = dataclasses.replace(mesh, dirichlet_mask=torch.zeros_like(
+        mesh.dirichlet_mask))
+    lin = {"coords": params["coords"],
+           "u": (coords.double() @ A.T + b).float()}
+    got = postproc.evaluate_at_points(model, lin, free, pts)
+    want = pts @ A.T + b
+    err = float((got.double() - want)[~outside].abs().max())
+    scale = float(want.abs().max())
+    log(f"  linear field: max|err| {err:.4e} (limit {POINT_ATOL} x "
+        f"max|u| = {POINT_ATOL * scale:.4e})")
+    if not err <= POINT_ATOL * scale:
+        raise AssertionError("a linear field is not reproduced")
+
+    # the field at every element centroid is the vertex mean
+    cen = coords.double()[conn.long()].mean(dim=1)
+    ceid, _ = postproc.locate_points(coords, conn, cen)
+    own = ceid == torch.arange(mesh.n_elements, device=dev)
+    got = postproc.evaluate_at_points(model, params, mesh, cen)
+    mean = model.u_full(params, mesh)[conn.long()].mean(dim=1)
+    err = float((got - mean)[own].abs().max())
+    scale = float(mean.abs().max())
+    log(f"  centroids: {int(own.sum())} of {mesh.n_elements} in their own "
+        f"element; field vs vertex mean max|err| {err:.4e} (limit "
+        f"{POINT_ATOL * scale:.4e})")
+    if float(own.double().mean()) < 0.999 or not err <= POINT_ATOL * scale:
+        raise AssertionError("the centroid field is not the vertex mean")
+
+
+def tables_equal(a, b, what):
+    """Every tensor of two meshes (their banded tables too) array-equal."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            tables_equal(x, y, f"{what}.{f.name}")
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}.{f.name} differs")
+        elif x != y:
+            raise AssertionError(f"{what}.{f.name}: {x!r} vs {y!r}")
+
+
+def phase_native(ht, arrays, dev, card):
+    """Phase 20: the native loader: build, then the whole 898K Delaunay
+    plate and its host tables alone (``TriMesh.from_arrays`` on its
+    arrays: incidence, fused, triangle and paired banded tables), each
+    with the library and with HDNN_NO_NATIVE=1, array-equal, all timed in
+    this run."""
+    import os
+
+    from hidenn_fem_tpu_torch.mesh import native
+
+    os.environ.pop("HDNN_NO_NATIVE", None)
+    try:
+        path, sec = timed(lambda: native.build(verbose=False))
+        log(f"  built {path} in {sec:.2f} s; available: "
+            f"{native.available()}")
+        if not native.available():
+            raise AssertionError("the native library is not available")
+        builds = {
+            "whole plate": lambda: ht.generate_mesh_delaunay(
+                holes=HOLES, lc=DELAUNAY_LC, device=dev),
+            "tables alone": lambda: ht.TriMesh.from_arrays(*arrays,
+                                                           device=dev)}
+        for what, fn in builds.items():
+            meshes = {}
+            for name in ("native", "numpy"):
+                if name == "numpy":
+                    os.environ["HDNN_NO_NATIVE"] = "1"
+                try:
+                    meshes[name], sec = timed(fn)
+                finally:
+                    os.environ.pop("HDNN_NO_NATIVE", None)
+                log(f"  898K Delaunay plate, {what}, with the {name} "
+                    f"paths: {sec:.2f} s on the host [{card}]")
+            m = meshes["native"]
+            if (m.n_elements, m.n_nodes) != DELAUNAY_SIZES \
+                    or m.banded is None or m.banded_paired is None:
+                raise AssertionError("expected the 898K plate with its "
+                                     "triangle and paired tables")
+            tables_equal(m, meshes["numpy"], "mesh")
+            log(f"  {what}: every table array-equal (coordinates, "
+                "connectivity, incidence, fused, triangle and paired "
+                "banded tables)")
+    finally:
+        os.environ["HDNN_NO_NATIVE"] = "1"
+
+
 def main():
+    import os
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs "
                          "only on a GPU")
+    # the numpy host paths until phase 20 (module doc)
+    os.environ["HDNN_NO_NATIVE"] = "1"
     import hidenn_fem_tpu_torch as ht
     from hidenn_fem_tpu_torch.mesh import banded as mb
     from hidenn_fem_tpu_torch.ops import banded_energy as be
@@ -2765,7 +3062,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/17] environment")
+    log("[1/20] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -2775,7 +3072,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/17] build")
+    log("[2/20] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -2785,7 +3082,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/17] kernel vs plain at full size")
+    log("[3/20] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -2799,7 +3096,7 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/17] example 4 on its default route (lattice), 600 steps")
+    log("[4/20] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -2807,7 +3104,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/17] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/20] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -2815,17 +3112,17 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/17] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/20] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/17] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/20] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/17] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
-    main_losses, delaunay_launches = run_path(
+    log("[8/20] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    (main_losses, delaunay_params), delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
     fallback_launches = {}
@@ -2837,17 +3134,17 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    log("[9/17] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    log("[9/20] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/17] the sharded paths as groups of ranks on the one card")
+    log("[10/20] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    log("[11/17] the CG family: example 8, the 898K plate, minimize")
+    log("[11/20] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
@@ -2856,23 +3153,22 @@ def main():
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    log("[12/17] multigrid: example 9 at 961x481")
+    log("[12/20] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    log("[13/17] node-space L-BFGS on example 4, 600 steps")
+    log("[13/20] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
-    log("[14/17] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+    log("[14/20] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
     phase_aux_898k(ht, counts, mesh898, dev, card)
-    del mesh898
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
-    log("[15/17] example 5: the 1000x500 plate, slope-timed "
+    log("[15/20] example 5: the 1000x500 plate, slope-timed "
         "value-and-grad and 2 x 200 L-BFGS steps")
     _, ex5_launches = run_path(counts, "example-5", (),
                                lambda: phase_example5(dev, card))
@@ -2880,12 +3176,29 @@ def main():
         raise AssertionError("example 5's plain lattice route launched a "
                              "kernel")
 
-    log("[16/17] the zoom line search and the two-loop L-BFGS on "
+    log("[16/20] the zoom line search and the two-loop L-BFGS on "
         "example 4")
     variants = phase_lbfgs_variants(ht, mesh4, dev, card, counts)
 
-    log("[17/17] utils: a checkpointed and resumed solve, check_gradients")
+    log("[17/20] utils: a checkpointed and resumed solve, check_gradients")
     utils_launches = phase_utils(ht, mesh4, dev, card, counts)
+
+    log("[18/20] examples 1-3 at their own sizes")
+    run_path(counts, "examples 1-3", (),
+             lambda: phase_examples_1d(ht, dev, card))
+
+    log("[19/20] point evaluation: 10^6 points on the 898K plate's "
+        "solution")
+    run_path(counts, "point evaluation", (),
+             lambda: phase_point_eval(ht, mesh898, delaunay_params, dev,
+                                      card))
+    arrays898 = [t.cpu().numpy() for t in mesh898.astuple()]
+    del mesh898, delaunay_params
+
+    log("[20/20] the native mesh loader: the 898K plate's host tables "
+        "both ways")
+    run_path(counts, "native loader", (),
+             lambda: phase_native(ht, arrays898, dev, card))
 
     # each entry's launches: (the path's counts, the wrapper's counter);
     # K6 and its row variant also count slice 9's paths

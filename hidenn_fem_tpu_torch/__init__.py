@@ -29,13 +29,16 @@ from .mesh.hybrid import generate_mesh_hybrid  # noqa: E402
 from .mesh.structured import (generate_mesh, proxy_plate_mesh,  # noqa: E402
                               rectangle_tri_zigzag)
 from .mesh.types import TriMesh  # noqa: E402
+from .models.bilinear2d import Bilinear2D  # noqa: E402
+from .models.linear1d import Linear1D  # noqa: E402
 from .models.structured_grid import (StructuredGrid,  # noqa: E402
                                      StructuredGridP1,
                                      generate_structured_grid)
 from .models.triangle_p1 import TriangleP1  # noqa: E402
 from .ops.elasticity import plane_stress_C, \
     von_mises_plane_stress  # noqa: E402
-from .ops.losses import PlaneStressEnergy  # noqa: E402
+from .ops.losses import (PlaneStressEnergy, bar_energy_1d,  # noqa: E402
+                         l2_loss)
 from .ops.quadrature import (interval_gauss_points,  # noqa: E402
                              interval_gauss_points_m11,
                              triangle_gauss_points)

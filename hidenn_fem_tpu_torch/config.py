@@ -1,13 +1,54 @@
-"""Problem configuration (port of ``PlateConfig`` from
-``hidenn_fem_tpu/config.py``): the example-4 recipe with the reference's
-values as defaults."""
+"""Problem configuration (port of ``hidenn_fem_tpu/config.py``): each
+example's recipe as a small dataclass with the reference's values as
+defaults."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
-__all__ = ["PlateConfig"]
+__all__ = ["Projection1DConfig", "Projection2DConfig", "Bar1DConfig",
+           "PlateConfig"]
+
+
+@dataclasses.dataclass
+class Projection1DConfig:
+    """Example-1 recipe: L2 projection of sin(2 pi x) on 100 nodes."""
+    n_nodes: int = 100
+    n_train: int = 1000
+    x0: float = 0.0
+    xN: float = 1.0
+    r_adapt: bool = True
+    learning_rate: float = 5e-3
+    epochs: int = 500
+
+
+@dataclasses.dataclass
+class Projection2DConfig:
+    """Example-2 recipe: L2 projection of sin(2 pi x) cos(2 pi y) on a
+    25x25 bilinear grid, minibatches of 1000 points."""
+    nx: int = 25
+    ny: int = 25
+    n_train_1d: int = 100
+    batch_size: int = 1000
+    r_adapt: bool = True
+    learning_rate: float = 5e-3
+    epochs: int = 5000
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class Bar1DConfig:
+    """Example-3 recipe: the 1D bar [0, 10] under two body-force bumps."""
+    length: float = 10.0
+    youngs_modulus: float = 175.0
+    u0: float = 0.0
+    uN: float = 0.0
+    n_nodes: int = 89
+    n_gauss: int = 2
+    r_adapt: bool = True
+    learning_rate: float = 1e-4
+    epochs: int = 4000
 
 
 @dataclasses.dataclass

@@ -10,11 +10,25 @@ of the tensors they are given.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "constant"]
 
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means the card (``cuda``)."""
     return torch.device("cuda" if device is None else device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A device copy of a tuple of host constants (a model's fixed grid
+    or mask, a quadrature rule), made once per (values, dtype, device).
+
+    A copy from pageable host memory waits for the card's stream to
+    drain, so one made on every call would serialize a training loop.
+    Every caller gets the same tensor: never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -10,9 +10,10 @@ to keep every TPU gather below its ~256K-row table cliff; on the card they
 are what the banded kernels K3-K5 (``ops/banded_energy.py``) walk.
 
 Everything here is host numpy, built once, with the JAX package's numpy
-algorithms: the tables are array-equal to the JAX package's (whose native
-loader is held equal to its numpy paths).  ``BandedAssembly`` holds them
-as int32 tensors; ``.to(device)`` moves them.
+algorithms, or its native library's (``mesh/native.py``, when built): the
+tables are array-equal to the JAX package's either way.
+``BandedAssembly`` holds them as int32 tensors; ``.to(device)`` moves
+them.
 """
 
 from __future__ import annotations
@@ -123,6 +124,22 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
     if ne == 0:
         return None
 
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+
+    from . import native
+    if k == 3 and native.available():
+        tb = native.banded_tables(connectivity, n_nodes, incidence,
+                                  window_limit, block_multiple)
+        if tb is None:
+            return None
+        if "re_estarts" in tb:
+            own = _ownership_intervals(tb["re_estarts"], tb["re_ew"], ne)
+            if own is not None:
+                tb["re_own_lo"], tb["re_own_hi"] = own
+        return BandedAssembly(**{name: v if isinstance(v, int) else t(v)
+                                 for name, v in tb.items()})
+
     # ---- forward tables: element blocks -> node windows
     fwd = None
     for b in _BLOCK_CANDIDATES:
@@ -178,9 +195,6 @@ def build_banded_assembly(connectivity: np.ndarray, n_nodes: int,
             break
     if bwd is None:
         return None
-
-    def t(a):
-        return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
 
     starts, conn_rel, wnode = fwd
     ct_starts, inc_rel, wct = bwd
@@ -303,11 +317,15 @@ def _greedy_match(a_all: np.ndarray, b_all: np.ndarray, ne: int):
     """Sequential first-come greedy matching over ordered candidate pairs:
     accept candidate i iff neither endpoint was claimed by an earlier
     accepted candidate.  The candidates' order is the quality lever (edge
-    lexsort order pairs nearly every triangle).  The loop runs on Python
-    lists and bytearrays, which index far faster than numpy scalars; the
-    JAX package's native loop gives the same result.
+    lexsort order pairs nearly every triangle).  The native library's loop
+    (``mesh/native.py``) runs when it is built; else the loop runs on
+    Python lists and bytearrays, which index far faster than numpy
+    scalars.  Both give the same result.
 
     Returns (accept [n_cand] bool, matched [ne] bool)."""
+    from . import native
+    if native.available():
+        return native.greedy_match(a_all, b_all, ne)
     a_list = np.asarray(a_all, dtype=np.int64).tolist()
     b_list = np.asarray(b_all, dtype=np.int64).tolist()
     accept = bytearray(len(a_list))

@@ -9,11 +9,11 @@ probe matvec per (color, displacement component): for probe ``z_c``
 (no two same-color nodes couple).  ``solve/linear.py:jacobi_diagonal``
 probes that way.
 
-The JAX package colors with its native library when that is built and
-with the vectorized Jones–Plassmann rounds below otherwise.  The port
-has no native loader yet, so ``color_nodes`` always runs the numpy
-rounds, whose colors are the JAX package's ``_greedy_color_numpy``'s
-array for array (the same ``default_rng(0)`` priorities).
+``color_nodes`` colors with the native library (``mesh/native.py``, a
+sequential greedy pass in node order) when that is built, and with the
+vectorized Jones–Plassmann rounds below otherwise, as the JAX package
+does; either path's colors are the JAX package's same path's array for
+array (the rounds take the same ``default_rng(0)`` priorities).
 """
 
 from __future__ import annotations
@@ -98,8 +98,11 @@ def _greedy_color_numpy(connectivity: np.ndarray, n_nodes: int
 
 def color_nodes(connectivity, n_nodes: int) -> np.ndarray:
     """Proper coloring [n_nodes] int32 of the element-edge adjacency
-    graph (host numpy; ``connectivity`` a tensor on any device or an
-    array)."""
+    graph (host; native when built, the numpy rounds otherwise;
+    ``connectivity`` a tensor on any device or an array)."""
+    from . import native
+    if native.available():
+        return native.greedy_color(_numpy(connectivity), int(n_nodes))
     return _greedy_color_numpy(_numpy(connectivity), int(n_nodes))
 
 

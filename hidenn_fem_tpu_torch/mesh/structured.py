@@ -1,6 +1,6 @@
 """Structured triangular mesh generation (port of
-``hidenn_fem_tpu/mesh/structured.py``; host-side numpy, the same arrays as
-the JAX package's numpy paths)."""
+``hidenn_fem_tpu/mesh/structured.py``; host-side numpy, or the native
+library where the JAX package uses it, with the same arrays)."""
 
 from __future__ import annotations
 
@@ -25,12 +25,16 @@ def rectangle_tri_zigzag(nx: int, ny: int, length: float, height: float,
     variant: "zigzag" (alternating diagonals by (i+j) parity), "up"
     (every quad split along n00-n11) or "down" (along n10-n01).  All
     triangles are counter-clockwise.  Returns (points [N,2] f64, cells
-    [Ne,3] int64), node index i*ny + j.
+    [Ne,3] int64, or int32 from the native library), node index i*ny + j.
     """
     xs = np.linspace(0.0, length, nx)
     ys = np.linspace(0.0, height, ny)
     xv, yv = np.meshgrid(xs, ys, indexing="ij")
     points = np.stack([xv.ravel(), yv.ravel()], axis=1)
+
+    from . import native
+    if variant in ("up", "down", "zigzag") and native.available():
+        return points, native.structured_cells(nx, ny, variant)
 
     i, j = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1), indexing="ij")
     i = i.ravel()
@@ -82,6 +86,9 @@ def _pack_unique(pairs: np.ndarray) -> np.ndarray:
 
 def unique_edges(cells: np.ndarray) -> np.ndarray:
     """All unique (sorted) element edges, deduplicated as int64 keys."""
+    from . import native
+    if native.available():
+        return native.unique_edges(cells)
     cells = np.ascontiguousarray(cells, dtype=np.int64)
     return _pack_unique(np.concatenate(
         [cells[:, [0, 1]], cells[:, [1, 2]], cells[:, [2, 0]]], axis=0))

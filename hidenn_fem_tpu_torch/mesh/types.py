@@ -29,8 +29,12 @@ def build_incidence_table(connectivity: np.ndarray,
     Entry [n, k] is the k-th index into the flattened [Ne*3] connectivity
     that references node n; -1 pads nodes of lower degree.  Lets the
     energy backward gather per-corner cotangents into node gradients in a
-    fixed order instead of scatter-adding them.
+    fixed order instead of scatter-adding them.  The native library builds
+    the same table when it is built (``mesh/native.py``).
     """
+    from . import native
+    if native.available():
+        return native.build_incidence_table(connectivity, n_nodes)
     flat = np.asarray(connectivity, dtype=np.int64).reshape(-1)
     order = np.argsort(flat, kind="stable")
     sorted_nodes = flat[order]

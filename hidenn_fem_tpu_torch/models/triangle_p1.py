@@ -147,6 +147,19 @@ class TriangleP1:
         u_nodes = flat_gather(self.u_full(params, mesh), conn)
         return self._grad_u(v, u_nodes)
 
+    def interpolate(self, params, mesh: TriMesh, x_ref, elem_id
+                    ) -> torch.Tensor:
+        """u_h [M, dim_u] at reference coords x_ref [M, 2] inside elements
+        elem_id [M] (no Jacobian work)."""
+        x_ref = torch.as_tensor(x_ref, dtype=self.dtype, device=mesh.device)
+        elem_id = torch.as_tensor(elem_id, device=mesh.device).long()
+        u_nodes = self.u_full(params, mesh)[
+            mesh.connectivity[elem_id].long()]             # [M, 3, dim_u]
+        xi = x_ref[:, 0:1]
+        eta = x_ref[:, 1:2]
+        return (xi * u_nodes[:, 0] + eta * u_nodes[:, 1]
+                + (1.0 - xi - eta) * u_nodes[:, 2])
+
     def apply_edge(self, params, mesh: TriMesh, xi, edge_id
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Evaluate on Neumann edges at xi in [0, 1]:

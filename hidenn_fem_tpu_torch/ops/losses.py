@@ -1,5 +1,12 @@
-"""Plane-stress total potential energy (port of ``PlaneStressEnergy`` and
-``mesh_quality_penalty`` from ``hidenn_fem_tpu/ops/losses.py``).
+"""Variational losses (port of ``hidenn_fem_tpu/ops/losses.py``): the L2
+projection loss, the 1D bar energy, and the plane-stress total potential
+energy with ``mesh_quality_penalty``.
+
+``bar_energy_1d`` takes du/dx as the partial in x of the model's forward
+(``autograd.grad`` with ``create_graph``, the JAX package's ``jax.jvp``),
+so the outer gradient reaches the params through the quadrature points
+as well; ``differentiable_geometry=False`` is the reference's detach of
+the quadrature geometry (quirk E5).
 
 ``total`` tries the routes in the JAX package's order: the gather-free
 lattice route when the mesh carries a ``LatticeRoute``
@@ -27,7 +34,9 @@ from typing import Callable, Optional
 
 import torch
 
+from ..device import constant
 from ..mesh.types import TriMesh
+from ..models.linear1d import _value_and_dx
 from ..models.triangle_p1 import TriangleP1
 from . import quadrature as quad
 from . import banded_energy
@@ -39,7 +48,8 @@ from .lattice_energy import (collar_energy, lattice_body_work,
                              lattice_domain_energy, lattice_total)
 from .lattice_slab import lattice_total_slab, slab_supported
 
-__all__ = ["PlaneStressEnergy", "mesh_quality_penalty"]
+__all__ = ["l2_loss", "bar_energy_1d", "PlaneStressEnergy",
+           "mesh_quality_penalty"]
 
 
 def mesh_quality_penalty(model, params, mesh) -> torch.Tensor:
@@ -55,6 +65,40 @@ def mesh_quality_penalty(model, params, mesh) -> torch.Tensor:
     area = 0.5 * det.abs()
     q = l2 / torch.clamp(4.0 * math.sqrt(3.0) * area, min=1e-30)
     return q.mean()
+
+
+# --------------------------------------------------------------------- L2
+def l2_loss(model, params, x, u_true) -> torch.Tensor:
+    """Mean-squared collocation loss (the L2-projection objective of
+    examples 1 and 2)."""
+    pred = model.apply(params, x)
+    return torch.mean((pred - u_true) ** 2)
+
+
+# ----------------------------------------------------------------- 1D bar
+def bar_energy_1d(model, params, n_gauss: int, b_force: Callable,
+                  E: float, differentiable_geometry: bool = True
+                  ) -> torch.Tensor:
+    """Total potential energy of a 1D bar, sum_q w_q (0.5 E u'^2 - b u),
+    by the [-1, 1] Gauss rule mapped onto each element.
+
+    Args:
+      differentiable_geometry: if True (default) r-adaptivity gradients
+        flow through the quadrature map; if False, reproduce the
+        reference's detach (quirk E5).
+    """
+    grid = model.grid(params)
+    xi, wi = (constant(tuple(a), model.dtype, grid.device)
+              for a in quad._leggauss(n_gauss))
+    if not differentiable_geometry:
+        grid = grid.detach()
+    x_i = grid[:-1, None]                    # [n_elem, 1]
+    x_ip1 = grid[1:, None]
+    xq = 0.5 * (x_ip1 - x_i) * xi + 0.5 * (x_ip1 + x_i)   # [n_elem, ng]
+    wq = 0.5 * (x_ip1 - x_i) * wi
+    u, du_dx = _value_and_dx(lambda x: model.apply(params, x), xq)
+    total = 0.5 * E * du_dx ** 2 - b_force(xq) * u
+    return torch.sum(wq * total)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,7 @@ from ..device import resolve_device
 __all__ = [
     "interval_gauss_points",
     "interval_gauss_points_m11",
+    "gauss_legendre_points_weights",
     "triangle_gauss_points",
     "triangle_weight_sum",
     "TRIANGLE_RULE_DEGREE",
@@ -54,6 +55,10 @@ def interval_gauss_points_m11(order: int = 1, dtype=torch.float32,
     """Raw Gauss-Legendre points/weights on [-1, 1] (weights sum to 2)."""
     x, w = _leggauss(order)
     return _tensor(x, dtype, device), _tensor(w, dtype, device)
+
+
+# the name the reference's examples import for the raw [-1, 1] rule
+gauss_legendre_points_weights = interval_gauss_points_m11
 
 
 def _triangle_rule_f64(order: int):

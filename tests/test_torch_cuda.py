@@ -1056,3 +1056,86 @@ def test_slope_time_scan_around_k6(dev):
     t = slope_time_scan(step, node.contiguous(), n1=5, n2=25, repeats=2)
     assert np.isfinite(t) and t > 0
     assert ls.launch_counts["lattice_stencil_vg"] - before == 3 * 30
+
+
+# ------------------------ slice 10: 1D/bilinear models, point evaluation
+def _example3_force(x):
+    import math
+    n1 = 4 * math.pi ** 2 * (x - 2.5) ** 2 - 2 * math.pi
+    n2 = 8 * math.pi ** 2 * (x - 7.5) ** 2 - 4 * math.pi
+    return (-n1 * torch.exp(-math.pi * (x - 2.5) ** 2)
+            - n2 * torch.exp(-math.pi * (x - 7.5) ** 2))
+
+
+def _vg(loss, params):
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    val = loss(p)
+    keys = sorted(p)
+    grads = torch.autograd.grad(val, [p[k] for k in keys])
+    return float(val.detach()), {k: g.cpu() for k, g in zip(keys, grads)}
+
+
+def test_1d_and_bilinear_models_on_the_card_match_the_cpu(dev):
+    """``Linear1D`` with the L2 loss and ``bar_energy_1d`` (both gradient
+    groups, through the double derivative), and ``Bilinear2D`` with the
+    L2 loss, on the card against the CPU from the same params: values
+    rtol 1e-5, gradients rtol 5e-4 with atol 1e-5 x max|g| (f32 sums in
+    another order)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 10, 500)
+    u = rng.normal(size=87) * 1e-3
+    inc = np.full(88, 10 / 88) * np.exp(0.2 * rng.normal(size=88))
+    pts = rng.uniform(0, 1, (400, 2))
+    u2 = rng.standard_normal((9, 7))
+    out = {}
+    for where in ("cpu", dev):
+        m1, p1 = pt.Linear1D.from_node_coords(
+            np.linspace(0, 10, 89), r_adapt=True, u0=0.0, uN=0.0,
+            device=where)
+        p1 = {"u": torch.tensor(u, dtype=torch.float32, device=where),
+              "x_increments": torch.tensor(inc, dtype=torch.float32,
+                                           device=where)}
+        xt = torch.tensor(x, dtype=torch.float32, device=where)
+        l2 = _vg(lambda p: pt.l2_loss(m1, p, xt, torch.sin(xt)), p1)
+        bar = _vg(lambda p: pt.bar_energy_1d(m1, p, 2, _example3_force,
+                                             E=175.0), p1)
+        m2, p2 = pt.Bilinear2D.create(np.linspace(0, 1, 9),
+                                      np.linspace(0, 1, 7), r_adapt=True,
+                                      device=where)
+        p2["u"] = torch.tensor(u2, dtype=torch.float32, device=where)
+        pq = torch.tensor(pts, dtype=torch.float32, device=where)
+        bil = _vg(lambda p: pt.l2_loss(m2, p, pq, pq[:, 0] * pq[:, 1]), p2)
+        out[str(where)] = (l2, bar, bil)
+    for (vc, gc), (vd, gd) in zip(out["cpu"], out[str(dev)]):
+        np.testing.assert_allclose(vd, vc, rtol=1e-5)
+        for k in gc:
+            _close(gd[k], gc[k])
+
+
+def test_evaluate_at_points_on_the_card_matches_the_cpu(dev):
+    """Point location and evaluation on the card (the bucket grid in
+    torch on the card) against the CPU on a holed plate: the same
+    elements and -1 set, values rtol 1e-6, NaN outside."""
+    from hidenn_fem_tpu_torch import postproc
+
+    rng = np.random.default_rng(1)
+    pts = np.stack([rng.uniform(-0.1, 2.1, 20000),
+                    rng.uniform(-0.1, 1.1, 20000)], axis=1)
+    out = {}
+    for where in ("cpu", dev):
+        mesh = pt.generate_mesh(nx=81, ny=41, device=where)
+        model = pt.TriangleP1()
+        params = model.init(torch.Generator().manual_seed(0), mesh,
+                            device=where)
+        eid, _ = postproc.locate_points(model.coords(params, mesh),
+                                        mesh.connectivity, pts)
+        assert eid.device.type == torch.device(where).type
+        val = postproc.evaluate_at_points(model, params, mesh, pts)
+        out[str(where)] = (eid.cpu().numpy(), val.cpu().numpy())
+    (ec, vc), (ed, vd) = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(ed, ec)
+    np.testing.assert_array_equal(np.isnan(vd), np.isnan(vc))
+    ok = ec >= 0
+    assert 0 < ok.sum() < len(ok)
+    np.testing.assert_allclose(vd[ok], vc[ok], rtol=1e-6, atol=1e-12)

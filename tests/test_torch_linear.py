@@ -4,7 +4,9 @@
 ``jacobi_pcg_solve``, ``radapt_cg_solve``), from the same numpy inputs.
 
 Tolerances:
-* colorings array-equal (the same Jones–Plassmann rounds and seed);
+* colorings array-equal, each path selected with ``HDNN_NO_NATIVE``:
+  the numpy Jones–Plassmann rounds (same seed) to JAX's rounds, and the
+  port's native pass to the JAX package's native library;
 * Adam: params rtol 1e-12 (f64) and 1e-6 (f32), each with atol rtol x
   max|params| (XLA may fuse the loss's polynomial into other roundings),
   after 20 steps; frozen groups bit for bit;
@@ -66,8 +68,23 @@ def _u0(n, seed=0):
 
 
 # ---------------------------------------------------------------- coloring
+@pytest.mark.parametrize("path", ["numpy", "native"])
 @pytest.mark.parametrize("which", ["plate21x11", "plate41x21", "delaunay"])
-def test_coloring_matches_jax(which):
+def test_coloring_matches_jax(which, path, monkeypatch):
+    """``color_nodes`` on each path equals the JAX package's same path:
+    the numpy rounds (``HDNN_NO_NATIVE=1``) JAX's rounds, the native pass
+    (the port's library built here, the JAX package's by
+    ``tests/conftest.py``) JAX's native colors."""
+    from hidenn_fem_tpu.mesh import native as jnative
+    from hidenn_fem_tpu_torch.mesh import native as tnative
+
+    if path == "numpy":
+        monkeypatch.setenv("HDNN_NO_NATIVE", "1")
+        assert not tnative.available()
+    else:
+        monkeypatch.delenv("HDNN_NO_NATIVE", raising=False)
+        tnative.build(verbose=False)
+        assert tnative.available() and jnative.available()
     if which == "delaunay":
         from hidenn_fem_tpu.mesh.delaunay import generate_mesh_delaunay
         mesh = generate_mesh_delaunay(lc=0.09)
@@ -75,12 +92,11 @@ def test_coloring_matches_jax(which):
         nx, ny = (21, 11) if which == "plate21x11" else (41, 21)
         mesh = ht.proxy_plate_mesh(nx=nx, ny=ny)
     conn = np.asarray(mesh.connectivity)
-    want = jcol._greedy_color_numpy(conn, mesh.n_nodes)
+    want = (jcol._greedy_color_numpy(conn, mesh.n_nodes) if path == "numpy"
+            else jnative.greedy_color(conn, mesh.n_nodes))
     got = tcol.color_nodes(torch.tensor(conn), mesh.n_nodes)
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
-    np.testing.assert_array_equal(
-        tcol._greedy_color_numpy(conn, mesh.n_nodes), want)
     assert tcol.check_coloring(torch.tensor(conn), got)
     assert got.max() + 1 <= 8
 

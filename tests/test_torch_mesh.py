@@ -11,6 +11,7 @@ import torch
 import hidenn_fem_tpu as ht
 import hidenn_fem_tpu_torch as pt
 from hidenn_fem_tpu.ops import quadrature as jq
+from hidenn_fem_tpu_torch import postproc
 from hidenn_fem_tpu_torch.mesh import structured as ps
 from hidenn_fem_tpu_torch.ops import quadrature as pq
 
@@ -149,6 +150,9 @@ NO_DEVICE_CALLS = {
         torch.Generator().manual_seed(0),
         pt.proxy_plate_mesh(nx=5, ny=3, device=CPU)),
     "triangle_gauss_points": lambda: pq.triangle_gauss_points(1),
+    "locate_points": lambda: postproc.locate_points(
+        np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]), np.array([[0, 1, 2]]),
+        np.array([[0.2, 0.2]])),
 }
 
 

@@ -38,6 +38,22 @@ Deliberate differences, and why:
   its ``count_collectives`` counts the port's own collective calls
   (by kind: ``all_reduce``, ``broadcast``) where the JAX package counts
   collective HLOs of a compiled program.
+* The 1D and bilinear models and the wrappers take a ``torch.Generator``
+  (``generator``) where the JAX package takes a ``seed`` or a PRNG
+  ``key`` (``Bilinear2D.create``/``init``, the structured and triangular
+  wrappers), and ``device``; ``Bilinear2D.node_mask`` takes ``device``.
+* ``postproc.locate_points`` finds the triangles without matplotlib (a
+  bucket grid and a barycentric test, in torch on the coordinates'
+  device) where the JAX package asks matplotlib's trifinder; it returns
+  tensors with the JAX package's contract.
+* ``plots`` needs matplotlib and the package's ``__init__`` never
+  imports it, as in the JAX package.
+* ``LatticeRoute``'s 16 windowed and chunked fill fields (``fw_*``,
+  ``bw_*``, ``ck_*``): the JAX package's TPU layout experiments for the
+  renumbered lattice's permutation fill, which its detection builds only
+  under ``HDNN_LATTICE_CHUNK=1`` (chunked) or never (windowed).  Both
+  copy the flat fill's rows; the port keeps the one flat fill and
+  ignores ``HDNN_LATTICE_CHUNK``.
 * Checkpoints (``utils.checkpoint``) are the port's own ``torch.save``
   format, ``ckpt_<step>.pt``, where the JAX package writes flax msgpack,
   ``ckpt_<step>.msgpack``: flax and msgpack may not be imported; the
@@ -56,8 +72,12 @@ MODULES = {
     "mesh.delaunay": "mesh.delaunay", "mesh.gmsh_backend":
     "mesh.gmsh_backend", "mesh.hybrid": "mesh.hybrid",
     "mesh.lattice": "mesh.lattice", "mesh.structured": "mesh.structured",
-    "mesh.types": "mesh.types", "models.structured_grid":
-    "models.structured_grid", "models.triangle_p1": "models.triangle_p1",
+    "mesh.types": "mesh.types", "mesh.native": "mesh.native",
+    "models.structured_grid": "models.structured_grid",
+    "models.triangle_p1": "models.triangle_p1",
+    "models.linear1d": "models.linear1d",
+    "models.bilinear2d": "models.bilinear2d",
+    "models.wrappers": "models.wrappers", "plots": "plots",
     "ops.assembly": "ops.assembly", "ops.banded_energy": "ops.banded_energy",
     "ops.elasticity": "ops.elasticity", "ops.lattice_energy":
     "ops.lattice_energy", "ops.lattice_slab": "ops.lattice_slab",
@@ -77,15 +97,9 @@ MODULES = {
     "utils.debug",
 }
 
-# JAX names the port does not have yet, by ROADMAP Queue A item
-NOT_YET_PORTED = {
-    "config": {"Projection1DConfig", "Projection2DConfig",       # item 9
-               "Bar1DConfig"},
-    "ops.losses": {"l2_loss", "bar_energy_1d"},                  # item 9
-    "ops.quadrature": {"gauss_legendre_points_weights"},         # item 9
-    "postproc": {"derivative_1d_per_element",                    # item 9
-                 "locate_points", "evaluate_at_points"},         # item 10
-}
+# JAX names the port does not have yet, by ROADMAP Queue A item (none:
+# the port covers the whole JAX package)
+NOT_YET_PORTED = {}
 # JAX names with no torch counterpart by design (module doc)
 NO_COUNTERPART = {"parallel.sharding": {"mesh_shardings"},
                   "parallel": {"mesh_shardings"}}
@@ -97,20 +111,28 @@ JAX_ONLY_PARAMS = {
     ("ops.lattice_slab", "structured_domain_slab"): {"interpret"},
     ("models.triangle_p1", "TriangleP1.init"): {"key"},
     ("models.structured_grid", "StructuredGridP1.init"): {"key"},
-    # Queue A item 12: the windowed and chunked lattice fills
     ("mesh.lattice", "LatticeRoute"): {
         "fw_rel", "fw_starts", "bw_rel", "bw_starts", "ck_fwd_rowA",
         "ck_fwd_off", "ck_fwd_live", "ck_fwd_fix_rows", "ck_fwd_fix_idx",
         "ck_bwd_rowA", "ck_bwd_off", "ck_bwd_fix_rows", "ck_bwd_fix_idx",
         "ck_k", "fw_width", "bw_width"},
+    ("models.bilinear2d", "Bilinear2D.init"): {"key"},
+    ("models.bilinear2d", "Bilinear2D.create"): {"seed"},
+    ("models.wrappers", "PiecewiseLinearShapeNN2DStructured"): {"seed"},
+    ("models.wrappers", "PiecewiseLinearShapeNN2D"): {"seed"},
 }
-# public methods only the JAX package has: ROADMAP Queue A item 10
-JAX_ONLY_METHODS = {("models.triangle_p1", "TriangleP1"): {"interpolate"}}
+# public methods only the JAX package has (none)
+JAX_ONLY_METHODS = {}
 # keyword parameters the port adds (module doc)
 PORT_EXTRA_PARAMS = {"device", "dtype"}
 PORT_EXTRA = {
     ("models.triangle_p1", "TriangleP1.init"): {"generator"},
     ("models.structured_grid", "StructuredGridP1.init"): {"generator"},
+    ("models.bilinear2d", "Bilinear2D.init"): {"generator"},
+    ("models.bilinear2d", "Bilinear2D.create"): {"generator"},
+    ("models.wrappers", "PiecewiseLinearShapeNN2DStructured"): {
+        "generator"},
+    ("models.wrappers", "PiecewiseLinearShapeNN2D"): {"generator"},
     ("models.structured_grid", "StructuredGridP1"): {"backend"},
     ("ops.banded_energy", "banded_element_energy"): {"row_start"},
     ("parallel.multihost", "initialize_multihost"): {"backend"},

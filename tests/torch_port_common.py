@@ -79,6 +79,31 @@ def to_torch(params_np, dtype=torch.float32, requires_grad=False):
     return p
 
 
+# the dtype pairs of the f32 and f64 comparisons: (JAX dtype, torch dtype)
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "f64": (jnp.float64, torch.float64)}
+
+
+def set_both(jax_params, port_params, dt, **arrays):
+    """Put the same numpy arrays into a JAX and a port params dict, in
+    the dtypes of ``DTYPES[dt]``."""
+    jdt, tdt = DTYPES[dt]
+    for k, v in arrays.items():
+        jax_params[k] = jnp.asarray(v, jdt)
+        port_params[k] = torch.tensor(np.asarray(v), dtype=tdt)
+
+
+def value_and_grads(loss, params):
+    """(loss value, {key: gradient}) of ``loss(params)`` for a port params
+    dict, by autograd on detached copies."""
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    val = loss(p)
+    keys = sorted(p)
+    return val.detach(), dict(zip(keys, torch.autograd.grad(
+        val, [p[k] for k in keys])))
+
+
 def assert_close(actual, expected, rtol, atol=0.0, what=""):
     np.testing.assert_allclose(np.asarray(actual, dtype=np.float64),
                                np.asarray(expected, dtype=np.float64),

@@ -22,13 +22,17 @@ u = 0 (``898k_delaunay_aux``: K4 each matvec, flat P^T, K6 in the
 V-cycle).  For each window it prints the wall time per call (per
 iteration for the solver windows, with each kernel's launches per
 iteration), the device-busy time likewise (the union of kernel
-intervals), the idle share, each kernel's device µs per call by name
+intervals), the idle share, the kernel launches per call (all CUDA
+kernels the profiler saw), each kernel's device µs per call by name
 (``key_averages()``), and the top operators by device and by host time.
 The ``pt_layouts`` window times the generic background's P^T alone in
 both layouts, flat and windowed (device µs per call), on the 922K proxy
 plate and the 898K Delaunay plate.  Each window's Chrome trace goes to
 ``<out>/<window>/`` (``utils.profiling.trace_to``); ``--cases`` picks
-windows by name.
+windows by name.  The ``ex1_epoch``, ``ex2_epoch`` and ``ex3_epoch``
+windows profile examples 1-3 at their own sizes per training epoch
+(plain torch: the kernel launches an epoch and the idle share are what
+they show).
 
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
@@ -149,8 +153,11 @@ def _window(name, fn, calls, out_dir, card, iters=1):
         wall = (time.perf_counter() - t0) * 1e3 / (calls * iters)
     busy = _busy_ms(prof) / (calls * iters)
     unit = "call" if iters == 1 else "iteration"
+    launched = sum(e.count for _, e in _kernel_events(prof))
     print(f"== {name}: {wall:.4f} ms/{unit} wall, {busy:.4f} ms/{unit} "
-          f"device busy, idle share {1 - busy / wall:.3f} [{card}]")
+          f"device busy, idle share {1 - busy / wall:.3f}, "
+          f"{launched / (calls * iters):.1f} kernel launches/{unit} "
+          f"[{card}]")
     if iters > 1:
         launched = {k: (v - before[k]) / (calls * iters)
                     for k, v in _launch_counts().items() if v > before[k]}
@@ -238,6 +245,33 @@ def _aux(mesh, dev, lattice_bg, iters=10):
     loss, u0, args, pre = _aux_setup(mesh, dev, lattice_bg)
     return lambda: ht.aux_pcg_solve(loss, u0, args, pre=pre,
                                     max_iters=iters, tol=0.0)
+
+
+def _example_epochs(which, dev, epochs=20):
+    """``epochs`` training epochs of example 1, 2 or 3 at its own size, as
+    the example runs them (plain torch, no kernel)."""
+    from hidenn_fem_tpu_torch.config import Projection2DConfig
+
+    if which == 2:
+        from examples.example2_torch import main
+        return lambda: main(Projection2DConfig(epochs=epochs), device=dev)
+    if which == 1:
+        model, params = ht.Linear1D.from_node_coords(
+            np.linspace(0, 1, 100), r_adapt=True, device=dev)
+        x = torch.linspace(0, 1, 1000, device=dev)
+        u = torch.sin(2 * np.pi * x)
+        loss = lambda p: ht.l2_loss(model, p, x, u)  # noqa: E731
+        lr = 5e-3
+    else:
+        from examples.example3_torch import b_force
+        model, params = ht.Linear1D.from_node_coords(
+            np.linspace(0, 10, 89), r_adapt=True, u0=0.0, uN=0.0,
+            device=dev)
+        loss = lambda p: ht.bar_energy_1d(  # noqa: E731
+            model, p, 2, b_force, E=175.0)
+        lr = 1e-4
+    return lambda: ht.minimize(loss, params, method="adam",
+                               num_steps=epochs, learning_rate=lr)
 
 
 def _pt_layouts(meshes, dev, card, calls=20):
@@ -462,6 +496,12 @@ def main():
         if args.cases and name not in args.cases:
             continue
         _window(f"{name}_iteration", make(), 3, args.out, card, iters=10)
+    for which in (1, 2, 3):
+        name = f"ex{which}_epoch"
+        if args.cases and name not in args.cases:
+            continue
+        _window(name, _example_epochs(which, dev), 3, args.out, card,
+                iters=20)
     if not args.cases or "pt_layouts" in args.cases:
         _pt_layouts((("922K proxy plate", _proxy()),
                      ("898K Delaunay plate", _delaunay())), dev, card)
