@@ -187,6 +187,31 @@ Phases (each raises on failure, and the script then exits non-zero):
     tables alone (``TriMesh.from_arrays`` on its arrays) built with it and
     with ``HDNN_NO_NATIVE=1``, every table array-equal, the four host
     times printed.
+21. The captured step (``solve/drivers.py``: the first call and a
+    warm-up eager, then one CUDA graph a step, replayed) against the
+    eager loop, from the same inputs, in turns eager, captured, captured,
+    eager: example 4 on the lattice route (K6) and on the gather route
+    (K1, K2, ``incidence_sum``), 600 steps each; example 6, 600 steps
+    (history 10); the 898K Delaunay plate on the banded route (K4), 50
+    steps.  Where the two eager runs are bit-equal the captured history
+    and params must be too (else the first differing step is named and
+    the run held to the f32 spread rule), every launch count equal; ms
+    per step of each run, and the steady-state step of each mode
+    profiled (wall, device busy, idle share).  Then the two-loop
+    L-BFGS's reordered history copies at the 922K-class plate's size
+    against one whole direction.
+22. Figure parity (``tests/test_figure_parity.py`` on the card): the
+    81x41 proxy plate with the reference numerics, 600 captured L-BFGS
+    steps from u0 = 1e-5 N(0,1), against the reference implementation's
+    run stored in ``tests/data/reference_snapshot_81x41.npz``: the final
+    loss within rtol 2e-3, the peak von Mises stress within 2% and within
+    one element diameter of the reference's, the displacement extrema
+    within 2%, the median von Mises difference under 5% of the peak.
+
+Every ``run_lbfgs``/``run_optimizer`` solve of phases 4-22 (and those
+inside the linear solvers' r-adaptive epochs) replays a captured step on
+the card, except the zoom line search and the gloo ranks of phase 10,
+which stay eager loops; the launch counts count each replay.
 
 Phases 1-19 run with ``HDNN_NO_NATIVE=1``: the host tables and the
 coloring take the numpy paths whether or not an earlier run left a native
@@ -194,7 +219,7 @@ library in ``hidenn_fem_tpu_torch/csrc/build/``, so every run takes the
 same path and phase 11b holds the colors to the JAX package's numpy
 rounds.  Phase 20 alone turns the library on.
 
-Each path of phases 4-20 (and K8's timed A/B) runs with every launch
+Each path of phases 4-22 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
 whose residual turns non-finite fails.  The last three lines of standard output
@@ -3045,6 +3070,250 @@ def phase_native(ht, arrays, dev, card):
         os.environ["HDNN_NO_NATIVE"] = "1"
 
 
+# Phase 21: the captured step against the eager loop.  Each route runs
+# from the same inputs in turns eager, captured, captured, eager; where the
+# two eager runs are bit-equal the captured history and params must be
+# too, else the first differing step is named and the captured run is
+# held to the eager one by the f32 spread rule.  The steady state (a
+# solve's step after its first call, warm-up and capture) is profiled in
+# CAPTURE_WINDOW steps, CAPTURE_CALLS times.
+CAPTURE_WINDOW = 10
+CAPTURE_CALLS = 3
+# Phase 22: the figure parity of tests/test_figure_parity.py on the card,
+# against the reference implementation's run stored in the repo
+FIGURE_SNAPSHOT = "tests/data/reference_snapshot_81x41.npz"
+FIGURE_LOSS_RTOL = 2e-3
+FIGURE_FIELD_RTOL = 2e-2
+
+
+def flat_params(params):
+    return params if isinstance(params, torch.Tensor) else torch.cat(
+        [params[k].reshape(-1) for k in sorted(params)])
+
+
+def steady_window(run_steps, steps):
+    """(wall ms, device-busy ms per step, idle share, kernels per step) of
+    ``run_steps()`` (``steps`` steps of one solve's steady state) under
+    the profiler, CAPTURE_CALLS calls after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_port import _busy_ms, _kernel_events
+
+    run_steps()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CAPTURE_CALLS):
+            run_steps()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / (CAPTURE_CALLS * steps)
+    busy = _busy_ms(prof) / (CAPTURE_CALLS * steps)
+    kernels = sum(e.count for _, e in _kernel_events(prof)) / (
+        CAPTURE_CALLS * steps)
+    return wall, busy, 1.0 - busy / wall, kernels
+
+
+def phase_capture(ht, counts, route, loss, params, args, steps,
+                  memory_size, card):
+    """Phase 21 on one route: ``steps`` L-BFGS steps eager
+    (``drivers._solve(capture=False)``) and captured (``run_lbfgs``) from
+    the same inputs, in turns; bits, launches, ms per step and the
+    steady state's idle share of both."""
+    from hidenn_fem_tpu_torch.solve import drivers
+    from tools.profile_torch_port import steady_steps
+
+    def run(capture):
+        torch.cuda.synchronize()
+        counts.reset()
+        t0 = time.perf_counter()
+        if capture:
+            p, h = ht.run_lbfgs(loss, params, num_steps=steps,
+                                memory_size=memory_size, loss_args=args)
+        else:
+            p, h = drivers._solve(loss, params, ht.lbfgs(
+                memory_size=memory_size), steps, args, capture=False)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        return flat_params(p), h, ms, counts.read()
+
+    e1, c1, c2, e2 = (run(c) for c in (False, True, True, False))
+    if not torch.isfinite(c1[1]).all():
+        raise AssertionError(f"{route}: non-finite captured history")
+    for a, b, what in ((e1, e2, "eager vs eager"),
+                       (c1, c2, "captured vs captured"),
+                       (c1, e1, "captured vs eager")):
+        same = torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+        if same:
+            msg = "bit-equal (history and params)"
+        elif torch.equal(a[1], b[1]):
+            msg = "histories bit-equal, final params differ"
+        else:
+            msg = ("first differing step "
+                   f"{int(torch.nonzero(a[1] != b[1])[0, 0])}")
+        log(f"  {route}: {what}: {msg}")
+        if what == "captured vs eager" and not same:
+            if torch.equal(e1[1], e2[1]) and torch.equal(e1[0], e2[0]):
+                raise AssertionError(f"{route}: the captured run is not "
+                                     "bit-equal to the eager run, which is "
+                                     "deterministic")
+            check_close(f"{route} captured vs eager history", c1[1], e1[1],
+                        F32_SPREAD_RTOL, 0.0)
+    if c1[3] != e1[3]:
+        raise AssertionError(f"{route}: launches {c1[3]} captured vs "
+                             f"{e1[3]} eager")
+    log(f"  {route}: launches in each run {e1[3]}")
+    log(f"  {route}: {steps} steps, whole run ms/step eager "
+        f"{e1[2]:.4f} / {e2[2]:.4f}, captured {c1[2]:.4f} / {c2[2]:.4f} "
+        "(the captured runs include the first call, the warm-up and the "
+        f"capture) [{card}]")
+    out = {}
+    for capture in (False, True):
+        tag = "captured" if capture else "eager"
+        out[tag] = steady_window(steady_steps(
+            loss, params, args, ht.lbfgs(memory_size=memory_size), capture,
+            CAPTURE_WINDOW), CAPTURE_WINDOW)
+        wall, busy, idle, kernels = out[tag]
+        log(f"  {route}: steady-state {tag} step (profiled, "
+            f"{CAPTURE_CALLS} x {CAPTURE_WINDOW} steps): {wall:.4f} ms "
+            f"wall, {busy:.4f} ms device busy, idle share {idle:.3f}, "
+            f"{kernels:.1f} kernels a step, "
+            f"{1e3 * (wall - busy) / kernels:.2f} us idle a kernel "
+            f"[{card}]")
+    return out
+
+
+def two_loop_copies(mesh, dev, card, m=100):
+    """The two-loop L-BFGS's reordered history (``S[order]``,
+    ``Y[order]``: one copy of each [m, P] memory a step, which the
+    capture needs) against one whole two-loop direction, at ``mesh``'s
+    P, device ms per call (CUDA events)."""
+    from hidenn_fem_tpu_torch.solve import optimizers as topt
+
+    p = 4 * mesh.n_nodes
+    opt = topt.TwoLoopLBFGS(memory_size=m)
+    x = torch.randn(p, device=dev)
+    state = opt.init(x)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state.diff_params_memory.normal_(generator=gen)
+    state.diff_updates_memory.normal_(generator=gen)
+    state.weights_memory.fill_(1e-3)
+    state = state._replace(count=m)
+    order = torch.arange(m, device=dev)
+    copies = cuda_ms(lambda: (state.diff_params_memory[order],
+                              state.diff_updates_memory[order]), iters=5,
+                     warmup=1)
+    g = torch.randn(p, device=dev)
+
+    def direction():
+        state.device_count.fill_(m)
+        opt.direction(g, state, x)
+    whole = cuda_ms(direction, iters=5, warmup=1)
+    log(f"  two-loop L-BFGS at P = {p} (the 922K-class plate), m = {m}: "
+        f"the two reordered history copies {copies:.4f} ms of a "
+        f"{whole:.4f} ms direction ({100 * copies / whole:.1f}%; "
+        f"{2 * 2 * m * p * 4 / 1e9:.2f} GB moved by the copies) [{card}]")
+    return copies, whole
+
+
+def capture_cases(ht, mesh4, mesh898, dev):
+    """Phase 21's routes: route -> (loss, params, loss args, steps,
+    memory size, kernels that must launch)."""
+    from hidenn_fem_tpu_torch.config import PlateConfig
+
+    cfg = PlateConfig()
+    energy4 = plate_energy(ht, cfg, ht.TriangleP1(u_fixed=0.0))
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+
+    def plate(mesh):
+        u0 = 1e-5 * np.random.default_rng(0).standard_normal(
+            (mesh.n_nodes, 2))
+        return ht.params_from_numpy(
+            {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
+    gather4 = dataclasses.replace(mesh4, lattice=None)
+    grid = ht.generate_structured_grid(holes=tuple(HOLES), nx=1000, ny=500,
+                                       device=dev)
+    model6 = ht.StructuredGridP1()
+    return {
+        "example 4, lattice route": (
+            energy4.total, plate(mesh4), (mesh4,), cfg.lbfgs_steps, 100,
+            ("lattice_stencil_vg",)),
+        "example 4, gather route": (
+            energy4.total, plate(gather4), (gather4,), cfg.lbfgs_steps,
+            100, ("element_energy_fwd", "element_energy_bwd",
+                  "incidence_sum")),
+        "example 6": (
+            model6.total, model6.init(np.random.default_rng(0), grid,
+                                      device=dev), (grid,), 600, 10,
+            ("lattice_stencil_vg",)),
+        "898K Delaunay, banded route": (
+            energy.total, plate(mesh898), (mesh898,), 50, 100,
+            ("banded_vg",)),
+    }
+
+
+def phase_figure_parity(ht, dev, card):
+    """Phase 22: tests/test_figure_parity.py on the card: the 81x41 proxy
+    plate, reference numerics, 600 captured L-BFGS steps from
+    u0 = 1e-5 N(0,1) (np.random.default_rng(0)), against the reference
+    implementation's run (FIGURE_SNAPSHOT), with that test's bounds."""
+    import os
+
+    snap = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), FIGURE_SNAPSHOT))
+    mesh = ht.proxy_plate_mesh(nx=81, ny=41, device=dev)
+    model = ht.TriangleP1(compat="reference")
+    energy = ht.PlaneStressEnergy(model=model, compat="reference")
+    u0 = 1e-5 * np.random.default_rng(0).standard_normal((mesh.n_nodes, 2))
+    params = ht.params_from_numpy(
+        {"coords": mesh.coords.cpu().numpy(), "u": u0}, device=dev)
+    t0 = time.perf_counter()
+    params, losses = ht.run_lbfgs(energy.total, params, num_steps=600,
+                                  loss_args=(mesh,))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    final, want = float(losses[-1]), float(snap["final_loss"])
+    checks = [("final loss", final, want, FIGURE_LOSS_RTOL)]
+    _, grad_u = model.element_fields(params, mesh)
+    g = grad_u.double().cpu().numpy()
+    exx, eyy = g[:, 0, 0], g[:, 1, 1]
+    exy = 0.5 * (g[:, 0, 1] + g[:, 1, 0])
+    E, nu = 10e9, 0.3
+    sxx = E / (1 - nu ** 2) * (exx + nu * eyy)
+    syy = E / (1 - nu ** 2) * (eyy + nu * exx)
+    sxy = E / (1 + nu) * exy
+    vm = np.sqrt(sxx ** 2 - sxx * syy + syy ** 2 + 3 * sxy ** 2)
+    vm_ref = np.asarray(snap["von_mises"], np.float64)
+    checks.append(("max von Mises", vm.max(), vm_ref.max(),
+                   FIGURE_FIELD_RTOL))
+    u = model.u_full(params, mesh).double().cpu().numpy()
+    u_ref = np.asarray(snap["u_full"], np.float64)
+    checks.append(("max |u_x|", np.abs(u[:, 0]).max(),
+                   np.abs(u_ref[:, 0]).max(), FIGURE_FIELD_RTOL))
+    checks.append(("max |u|", np.linalg.norm(u, axis=1).max(),
+                   np.linalg.norm(u_ref, axis=1).max(), FIGURE_FIELD_RTOL))
+    for what, got, ref, rtol in checks:
+        rel = abs(got - ref) / abs(ref)
+        log(f"  figure parity: {what} {got!r} vs the reference run "
+            f"{ref!r}: rel {rel:.3e} (limit {rtol})")
+        if rel > rtol:
+            raise AssertionError(f"figure parity: {what} off the reference")
+    conn = mesh.connectivity.cpu().numpy()
+    cent = model.coords(params, mesh).double().cpu().numpy()[conn].mean(1)
+    cent_ref = np.asarray(snap["coords"], np.float64)[
+        np.asarray(snap["connectivity"])].mean(1)
+    d = float(np.linalg.norm(cent[vm.argmax()] - cent_ref[vm_ref.argmax()]))
+    h = 2.0 / 80.0
+    med = float(np.median(np.abs(vm - vm_ref)))
+    log(f"  figure parity: peak von Mises {d:.3e} from the reference's "
+        f"(limit {2.0 * h}, one element diameter); median |vm - vm_ref| "
+        f"{med:.6e} (limit {0.05 * vm_ref.max():.6e}); 600 steps in "
+        f"{seconds:.3f} s with the capture [{card}]")
+    if d > 2.0 * h or med > 0.05 * vm_ref.max():
+        raise AssertionError("figure parity: the von Mises field is off "
+                             "the reference's")
+
+
 def main():
     import os
 
@@ -3062,7 +3331,7 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/20] environment")
+    log("[1/22] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -3072,7 +3341,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/20] build")
+    log("[2/22] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -3082,7 +3351,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/20] kernel vs plain at full size")
+    log("[3/22] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -3096,7 +3365,7 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/20] example 4 on its default route (lattice), 600 steps")
+    log("[4/22] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -3104,7 +3373,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/20] example 4 on the gather route (lattice stripped), 600 steps")
+    log("[5/22] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -3112,16 +3381,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/20] example 6: 1000x500 structured plate, 600 steps")
+    log("[6/22] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/20] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    log("[7/22] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/20] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    log("[8/22] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     (main_losses, delaunay_params), delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -3134,17 +3403,17 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    log("[9/20] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    log("[9/22] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/20] the sharded paths as groups of ranks on the one card")
+    log("[10/22] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    log("[11/20] the CG family: example 8, the 898K plate, minimize")
+    log("[11/22] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
@@ -3153,22 +3422,22 @@ def main():
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    log("[12/20] multigrid: example 9 at 961x481")
+    log("[12/22] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    log("[13/20] node-space L-BFGS on example 4, 600 steps")
+    log("[13/22] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
-    log("[14/20] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+    log("[14/22] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
     phase_aux_898k(ht, counts, mesh898, dev, card)
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
-    log("[15/20] example 5: the 1000x500 plate, slope-timed "
+    log("[15/22] example 5: the 1000x500 plate, slope-timed "
         "value-and-grad and 2 x 200 L-BFGS steps")
     _, ex5_launches = run_path(counts, "example-5", (),
                                lambda: phase_example5(dev, card))
@@ -3176,29 +3445,47 @@ def main():
         raise AssertionError("example 5's plain lattice route launched a "
                              "kernel")
 
-    log("[16/20] the zoom line search and the two-loop L-BFGS on "
+    log("[16/22] the zoom line search and the two-loop L-BFGS on "
         "example 4")
     variants = phase_lbfgs_variants(ht, mesh4, dev, card, counts)
 
-    log("[17/20] utils: a checkpointed and resumed solve, check_gradients")
+    log("[17/22] utils: a checkpointed and resumed solve, check_gradients")
     utils_launches = phase_utils(ht, mesh4, dev, card, counts)
 
-    log("[18/20] examples 1-3 at their own sizes")
+    log("[18/22] examples 1-3 at their own sizes")
     run_path(counts, "examples 1-3", (),
              lambda: phase_examples_1d(ht, dev, card))
 
-    log("[19/20] point evaluation: 10^6 points on the 898K plate's "
+    log("[19/22] point evaluation: 10^6 points on the 898K plate's "
         "solution")
     run_path(counts, "point evaluation", (),
              lambda: phase_point_eval(ht, mesh898, delaunay_params, dev,
                                       card))
     arrays898 = [t.cpu().numpy() for t in mesh898.astuple()]
-    del mesh898, delaunay_params
+    del delaunay_params
 
-    log("[20/20] the native mesh loader: the 898K plate's host tables "
+    log("[20/22] the native mesh loader: the 898K plate's host tables "
         "both ways")
     run_path(counts, "native loader", (),
              lambda: phase_native(ht, arrays898, dev, card))
+
+    log("[21/22] the captured step against the eager loop")
+    capture_routes = capture_cases(ht, mesh4, mesh898, dev)
+    captured = {}
+    for route, (loss, params, args, steps, m, needs) in \
+            capture_routes.items():
+        captured[route], _ = run_path(
+            counts, f"{route} captured vs loop", needs,
+            lambda: phase_capture(ht, counts, route, loss, params, args,
+                                  steps, m, card))
+    del mesh898, capture_routes
+    two_loop_copies(mesh922, dev, card)
+
+    log("[22/22] figure parity: the 81x41 proxy plate against the "
+        "reference run, 600 captured steps")
+    # the reference numerics take the plain route: no kernel of the path
+    run_path(counts, "figure parity", (),
+             lambda: phase_figure_parity(ht, dev, card))
 
     # each entry's launches: (the path's counts, the wrapper's counter);
     # K6 and its row variant also count slice 9's paths

@@ -12,9 +12,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..mesh.types import TriMesh
 from ..ops.assembly import flat_gather
 
@@ -69,10 +70,18 @@ class TriangleP1:
             # a Python scalar reaches the device as a kernel argument,
             # with no host-to-device copy (which would synchronize)
             fixed = float(self.u_fixed)
+        elif isinstance(self.u_fixed, torch.Tensor) \
+                and self.u_fixed.device == u.device:
+            fixed = torch.broadcast_to(self.u_fixed.to(self.dtype),
+                                       (mesh.n_nodes, self.dim_u))
         else:
+            # host values: copied to the device once (``constant``), not
+            # on every call, so a captured step holds no host copy
+            host = np.asarray(self.u_fixed.cpu() if isinstance(
+                self.u_fixed, torch.Tensor) else self.u_fixed, np.float64)
             fixed = torch.broadcast_to(
-                torch.as_tensor(self.u_fixed, dtype=self.dtype,
-                                device=u.device),
+                constant(tuple(host.ravel().tolist()), self.dtype,
+                         u.device).view(host.shape),
                 (mesh.n_nodes, self.dim_u))
         return torch.where(mesh.dirichlet_mask[:, None], fixed, u)
 

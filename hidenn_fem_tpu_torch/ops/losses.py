@@ -34,7 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..device import constant
+from ..device import constant, resolve_device
 from ..mesh.types import TriMesh
 from ..models.linear1d import _value_and_dx
 from ..models.triangle_p1 import TriangleP1
@@ -99,6 +99,17 @@ def bar_energy_1d(model, params, n_gauss: int, b_force: Callable,
     u, du_dx = _value_and_dx(lambda x: model.apply(params, x), xq)
     total = 0.5 * E * du_dx ** 2 - b_force(xq) * u
     return torch.sum(wq * total)
+
+
+_HOST = torch.device("cpu")
+
+
+def _on_device(t: torch.Tensor, device=None) -> torch.Tensor:
+    """A small host table on ``device`` (the card unless given), copied
+    there once (``constant``) and not on every call: a copy from pageable
+    host memory synchronizes, which a captured optimizer step may not."""
+    return constant(tuple(t.reshape(-1).tolist()), t.dtype,
+                    resolve_device(device)).view(t.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,25 +184,24 @@ class PlaneStressEnergy:
 
     # ------------------------------------------------------------- tables
     def C(self, device=None) -> torch.Tensor:
-        return plane_stress_C(self.E, self.nu, dtype=self.model.dtype,
-                              device=device)
+        return _on_device(plane_stress_C(self.E, self.nu,
+                                         dtype=self.model.dtype,
+                                         device=_HOST), device)
 
     def _domain_rule(self, device=None):
         pts, w = quad.triangle_gauss_points(self.gauss_order,
                                             dtype=self.model.dtype,
-                                            device=device)
+                                            device=_HOST)
         if self.compat == "reference" and self.gauss_order == 4:
             w = 0.5 * w  # quirk E7: reference double-scales the 4-pt rule
-        return pts, w
+        return _on_device(pts, device), _on_device(w, device)
 
     def _edge_rule(self, device=None):
-        if self.compat == "reference":
-            # quirk E3: raw [-1,1] points used as edge coordinates
-            return quad.interval_gauss_points_m11(
-                self.gauss_order_1d, dtype=self.model.dtype, device=device)
-        return quad.interval_gauss_points(self.gauss_order_1d,
-                                          dtype=self.model.dtype,
-                                          device=device)
+        # quirk E3 (reference): raw [-1,1] points used as edge coordinates
+        rule = (quad.interval_gauss_points_m11 if self.compat == "reference"
+                else quad.interval_gauss_points)
+        return tuple(_on_device(t, device) for t in rule(
+            self.gauss_order_1d, dtype=self.model.dtype, device=_HOST))
 
     def _default_traction(self, x: torch.Tensor) -> torch.Tensor:
         t_x = torch.full((x.shape[0],), self.F_total / self.traction_length,

@@ -3,19 +3,47 @@
 and the strategies ``alternating_solve``, ``two_phase_solve`` and
 ``solve_with_checkpointing``.
 
-The JAX package compiles a whole solve into one ``lax.scan``; here it is a
-Python loop around one ``torch.autograd.grad`` per step.  The loop reads
-nothing back from the device unless ``tol`` is set, so the host runs
-ahead and the card stays busy.  The loss history holds the value at the
-params *before* each update, as in the JAX drivers.  The zoom line search
-is the exception: it reads every trial point's value and slope, and its
-last trial's value and gradient start the next step (the JAX package's
-``optax.value_and_grad_from_state``), so a step costs the search's trial
-points and no more.
+The JAX package compiles a whole solve into one ``lax.scan`` inside one
+``jit``.  Here a step (one ``torch.autograd.grad`` through the loss, the
+optimizer's update and ``x += step``) is one body, ``_step``, on a static
+leaf that holds the flat params, and ``_Stepper`` drives it.  On the card
+the stepper runs the body eagerly for the optimizer's first call (its
+``count == 0`` branch) and once more as a warm-up on a side stream with
+``torch.cuda.set_sync_debug_mode("error")`` (a step that reads the device
+from the host raises there), then records one step in a CUDA graph and
+replays it for every later step: the host launches one graph a step
+instead of the step's hundred-odd kernels.  The loss history is written
+on the device by the step itself, at the step's device count, so nothing
+is read back until the end unless ``tol`` is set; with ``tol`` the step
+also writes whether the gradient's infinity norm fell below it, and the
+host reads that one flag after each step and stops replaying (the JAX
+package's ``lax.cond`` mask), padding the history with the last value.
+The loss history holds the value at the params *before* each update, as
+in the JAX drivers.  The kernels' launch counters (and the collective
+counters of ``parallel.sharding``) count each replay: the launches
+recorded at capture, times the replays.
+
+Not captured, each decided before the first step from a stated fact:
+* tensors on the CPU: CUDA graphs exist only on the card, and the same
+  body runs eagerly there;
+* an optimizer without ``capturable = True``: the zoom line search
+  (``ZoomLBFGS``) reads every trial point's value and slope on the host,
+  and its last trial's value and gradient start the next step (the JAX
+  package's ``optax.value_and_grad_from_state``), so it stays a loop
+  (``_linesearch_steps``) whose step costs the search's trial points and
+  no more;
+* a process whose default ``torch.distributed`` group runs on gloo (the
+  sharded paths with several ranks on one card): gloo's collectives run
+  on the host and cannot be recorded; one rank on NCCL is captured;
+* fewer than three steps in all (the first call and the warm-up are
+  eager, so nothing would be replayed).
+A step that makes a host sync, or a capture that fails, raises: no path
+falls back to the loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -53,36 +81,177 @@ class MinimizeResult(tuple):
 
 def _value_and_grad(loss_fn: Callable, like, loss_args: tuple):
     """x -> (loss, gradient) of ``loss_fn(params, *loss_args)`` on the
-    flat vector of params shaped as ``like``."""
+    flat vector of params shaped as ``like``; ``x`` is differentiated
+    in place when it is a leaf that requires grad (the static leaf of
+    ``_Stepper``), else through a fresh leaf."""
     def vg(x):
-        xg = x.detach().requires_grad_(True)
+        xg = x if x.is_leaf and x.requires_grad else \
+            x.detach().requires_grad_(True)
         loss = loss_fn(unravel_params(xg, like), *loss_args)
         (g,) = torch.autograd.grad(loss, xg)
         return loss.detach(), g
     return vg
 
 
-def _steps(vg, optimizer, x, state, num_steps: int,
-           tol: Optional[float] = None):
-    """``num_steps`` updates of the flat vector ``x``; returns (x, state,
-    per-step losses).  ``tol`` stops once the gradient's infinity norm
-    drops below it (one device read per step)."""
-    losses = []
-    for _ in range(num_steps):
-        loss, g = vg(x)
-        step, state = optimizer.update(g, state, x)
-        x = x + step
-        losses.append(loss)
-        if tol is not None and float(g.abs().max()) < tol:
-            break
-    return x, state, losses
+def _leaf(params) -> torch.Tensor:
+    """The static leaf of a solve: a copy of the flat params that the
+    steps update in place."""
+    return ravel_params(params).detach().clone().requires_grad_(True)
+
+
+def _step(vg, optimizer, leaf, state):
+    """One step on the static ``leaf``, updated in place; returns (loss,
+    gradient, state)."""
+    loss, g = vg(leaf)
+    x = leaf.detach()
+    step, state = optimizer.update(g, state, x)
+    x.add_(step)
+    return loss, g, state
+
+
+def _counters() -> tuple:
+    """The kernels' launch counters and the collective counters, which a
+    replay must move as the captured launches did."""
+    from ..ops import banded_energy, element_energy, lattice_slab, \
+        window_gather
+    from ..parallel import sharding
+    return (element_energy.launch_counts, lattice_slab.launch_counts,
+            banded_energy.launch_counts, window_gather.launch_counts,
+            sharding.collective_counts)
+
+
+def _capturable(optimizer, device: torch.device) -> bool:
+    """Whether the steps of ``optimizer`` on ``device`` are captured (the
+    module doc's list of what is not)."""
+    if device.type != "cuda" or not getattr(optimizer, "capturable", False):
+        return False
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_backend() == "gloo")
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """``set_sync_debug_mode("error")`` over the block: a step that waits
+    for the device from the host raises, with what it means here."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        raise RuntimeError(
+            "the optimizer step synchronizes with the host (a read of a "
+            "device value, a copy from pageable memory), so it cannot be "
+            "captured in a CUDA graph; see solve/drivers.py") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class _Stepper:
+    """The steps of ``optimizer`` on the static ``leaf``: eager, or on the
+    card captured once and replayed (module doc).
+
+    The body writes the step's loss into ``hist[t // every]`` (``t``: the
+    stepper's device count of steps; ``every > 1`` keeps the last loss of
+    each run of ``every`` steps, as ``alternating_solve`` records them)
+    when ``n_hist`` is given, and with ``tol`` whether max|g| < tol into
+    ``stop``.  ``state`` is the optimizer's state with its host count
+    current after every ``run``."""
+
+    def __init__(self, vg, optimizer, leaf, state, n_hist=None, every=1,
+                 tol=None, capture=None):
+        self.vg, self.optimizer, self.leaf, self.state = (vg, optimizer,
+                                                          leaf, state)
+        self.n_hist, self.every, self.tol = n_hist, every, tol
+        self.hist = None
+        dev = leaf.device
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        self.capture = (_capturable(optimizer, dev) if capture is None
+                        else capture)
+        self.eager_steps = 0
+        self.graph = self.side = self.per_replay = None
+
+    def _body(self):
+        loss, g, state = _step(self.vg, self.optimizer, self.leaf,
+                               self.state)
+        if self.n_hist is not None:
+            if self.hist is None:
+                self.hist = torch.empty(self.n_hist, dtype=loss.dtype,
+                                        device=loss.device)
+            i = self.t if self.every == 1 else torch.div(
+                self.t, self.every, rounding_mode="floor")
+            self.hist.index_copy_(0, i.view(1), loss.view(1))
+        self.t.add_(1)
+        if self.tol is not None:
+            self.stop.copy_(g.abs().max() < self.tol)
+        return state
+
+    def _eager(self):
+        if self.capture and self.eager_steps == 1:
+            # the warm-up, on the stream the capture will use
+            cur = torch.cuda.current_stream(self.leaf.device)
+            self.side = torch.cuda.Stream(self.leaf.device)
+            self.side.wait_stream(cur)
+            with torch.cuda.stream(self.side), _no_host_sync():
+                self.state = self._body()
+            cur.wait_stream(self.side)
+        else:
+            self.state = self._body()
+        self.eager_steps += 1
+
+    def _capture(self):
+        counters = _counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.side):
+            self._body()            # recorded, not run: the state stands
+        self.per_replay = [{k: c[k] - b[k] for k in c}
+                           for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.update(b)
+        self.graph = graph
+
+    def run(self, n: int) -> int:
+        """Up to ``n`` steps (fewer when ``tol`` stops them); returns how
+        many ran."""
+        done = replays = 0
+        while done < n:
+            if self.graph is not None:
+                self.graph.replay()
+                replays += 1
+            elif self.capture and self.eager_steps >= 2:
+                self._capture()
+                continue
+            else:
+                self._eager()
+            done += 1
+            if self.tol is not None and bool(self.stop):    # one read
+                break
+        if replays:
+            self.state = self.optimizer.advance(self.state, replays)
+            for c, d in zip(_counters(), self.per_replay):
+                for k, v in d.items():
+                    c[k] += v * replays
+        return done
+
+    def history(self, done: int) -> torch.Tensor:
+        """The losses of ``done`` steps, padded with the last one to
+        ``n_hist`` (the JAX ``tol`` drivers' history)."""
+        if self.hist is None:
+            return torch.empty(0)
+        if done < self.n_hist:
+            self.hist[done:] = self.hist[done - 1]
+        return self.hist
 
 
 def _linesearch_steps(vg, optimizer, x, state, num_steps: int,
                       tol: Optional[float] = None):
-    """``_steps`` for a line-search optimizer (``ZoomLBFGS``): the value
-    and gradient at ``x`` come from the state when the last search left
-    finite ones there (optax's ``value_and_grad_from_state``)."""
+    """``num_steps`` updates of ``x`` by a line-search optimizer
+    (``ZoomLBFGS``), an eager loop; returns (x, state, per-step losses).
+    The value and gradient at ``x`` come from the state when the last
+    search left finite ones there (optax's ``value_and_grad_from_state``);
+    ``tol`` stops once the gradient's infinity norm drops below it."""
     losses = []
     for _ in range(num_steps):
         ls = state.linesearch
@@ -99,15 +268,6 @@ def _linesearch_steps(vg, optimizer, x, state, num_steps: int,
     return x, state, losses
 
 
-def _history(losses, num_steps: int) -> torch.Tensor:
-    """The losses, padded with the last one to ``num_steps``."""
-    history = torch.stack(losses)
-    if history.shape[0] < num_steps:
-        history = torch.cat([history, history[-1:].expand(
-            num_steps - history.shape[0])])
-    return history
-
-
 def _params_out(x, like):
     final = unravel_params(x, like)
     if isinstance(final, torch.Tensor):
@@ -122,19 +282,38 @@ def run_optimizer(loss_fn: Callable, params, optimizer,
     ``num_steps`` on ``loss_fn(params, *loss_args)``; returns
     (final params, per-step loss history [num_steps]).  ``params`` is a
     dict of tensors or a bare tensor, and the final params come back in
-    the same form.
+    the same form.  On the card the steady-state step is captured in a
+    CUDA graph and replayed (module doc).
 
     ``tol``: stop once the gradient's infinity norm drops below it; the
     history is then padded with the last value (one device read per
     step).
     """
-    x = ravel_params(params).detach()
-    state = optimizer.init(x, like=params)
+    return _solve(loss_fn, params, optimizer, num_steps, loss_args, tol)
+
+
+def _solve(loss_fn, params, optimizer, num_steps, loss_args=(), tol=None,
+           capture=None):
+    """``run_optimizer``; ``capture=False`` runs the same steps eagerly on
+    the card (how ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold
+    a captured solve to the loop)."""
     vg = _value_and_grad(loss_fn, params, tuple(loss_args))
-    run = (_linesearch_steps if isinstance(optimizer, _opt.ZoomLBFGS)
-           else _steps)
-    x, _, losses = run(vg, optimizer, x, state, num_steps, tol)
-    return _params_out(x, params), _history(losses, num_steps)
+    if isinstance(optimizer, _opt.ZoomLBFGS):
+        x = ravel_params(params).detach()
+        state = optimizer.init(x, like=params)
+        x, _, losses = _linesearch_steps(vg, optimizer, x, state,
+                                         num_steps, tol)
+        history = torch.stack(losses)
+        if history.shape[0] < num_steps:
+            history = torch.cat([history, history[-1:].expand(
+                num_steps - history.shape[0])])
+        return _params_out(x, params), history
+    leaf = _leaf(params)
+    stepper = _Stepper(vg, optimizer, leaf,
+                       optimizer.init(leaf.detach(), like=params),
+                       n_hist=num_steps, tol=tol, capture=capture)
+    done = stepper.run(num_steps)
+    return _params_out(leaf.detach(), params), stepper.history(done)
 
 
 def run_lbfgs(loss_fn: Callable, params, num_steps: int = 600,
@@ -212,20 +391,22 @@ def alternating_solve(loss_fn: Callable, params, outer_epochs: int = 500,
     ``u_key`` with ``coord_key`` frozen, then ``coord_steps`` Adam steps
     (rate ``coord_lr``) on ``coord_key`` with ``u_key`` frozen; each Adam
     keeps its moments across epochs.  Returns (params, the last
-    coordinate-step loss of each epoch [outer_epochs]).
+    coordinate-step loss of each epoch [outer_epochs]).  On the card the
+    u-step and the coordinate step are each captured once and replayed
+    (two graphs on one static leaf).
     """
     opt_u = _opt.freeze_groups(_opt.adam(u_lr), [coord_key])
     opt_c = _opt.freeze_groups(_opt.adam(coord_lr), [u_key])
-    x = ravel_params(params).detach()
-    state_u = opt_u.init(x, like=params)
-    state_c = opt_c.init(x, like=params)
+    leaf = _leaf(params)
+    x = leaf.detach()
     vg = _value_and_grad(loss_fn, params, ())
-    losses = []
+    u_phase = _Stepper(vg, opt_u, leaf, opt_u.init(x, like=params))
+    c_phase = _Stepper(vg, opt_c, leaf, opt_c.init(x, like=params),
+                       n_hist=outer_epochs, every=coord_steps)
     for _ in range(outer_epochs):
-        x, state_u, _ = _steps(vg, opt_u, x, state_u, u_steps)
-        x, state_c, lc = _steps(vg, opt_c, x, state_c, coord_steps)
-        losses.append(lc[-1])
-    return _params_out(x, params), torch.stack(losses)
+        u_phase.run(u_steps)
+        c_phase.run(coord_steps)
+    return _params_out(x, params), c_phase.history(outer_epochs)
 
 
 def solve_with_checkpointing(loss_fn: Callable, params, optimizer,
@@ -242,7 +423,10 @@ def solve_with_checkpointing(loss_fn: Callable, params, optimizer,
     into ``checkpoint_dir`` and, with ``metrics_path``, a metrics line
     (loss, wall per step, quadrature-point evaluations per second).  With
     ``resume`` it starts from ``latest_checkpoint(checkpoint_dir)``.
-    Returns (params, [per-chunk loss histories]).
+    Returns (params, [per-chunk loss histories]).  On the card the step
+    captured in the first chunk is replayed in every later one; the
+    optimizer state's host count stays current, so each checkpoint
+    records it.
     """
     from ..utils import checkpoint as _ckpt
     from ..utils import metrics as _metrics
@@ -255,8 +439,10 @@ def solve_with_checkpointing(loss_fn: Callable, params, optimizer,
         if latest is not None:
             params, opt_state, start_step, _ = _ckpt.restore_checkpoint(
                 latest, params, opt_state)
-            x = ravel_params(params).detach()
+    leaf = _leaf(params)
     vg = _value_and_grad(loss_fn, params, ())
+    stepper = _Stepper(vg, optimizer, leaf, opt_state,
+                       n_hist=max(num_steps - start_step, 0))
 
     os.makedirs(checkpoint_dir, exist_ok=True)
     writer = (_metrics.MetricsWriter(metrics_path) if metrics_path
@@ -267,16 +453,17 @@ def solve_with_checkpointing(loss_fn: Callable, params, optimizer,
         while step_i < num_steps:
             chunk = min(checkpoint_every, num_steps - step_i)
             t0 = time.perf_counter()
-            x, opt_state, losses = _steps(vg, optimizer, x, opt_state,
-                                          chunk)
-            losses = torch.stack(losses)
+            stepper.run(chunk)
+            a = step_i - start_step
+            losses = stepper.hist[a:a + chunk]
             last = float(losses[-1])        # sync
             wall = (time.perf_counter() - t0) / chunk
             step_i += chunk
             all_losses.append(losses)
             _ckpt.save_checkpoint(
                 os.path.join(checkpoint_dir, f"ckpt_{step_i}{_ckpt.SUFFIX}"),
-                unravel_params(x, params), opt_state, step=step_i)
+                unravel_params(leaf.detach(), params), stepper.state,
+                step=step_i)
             if writer:
                 writer.write(_metrics.solve_metrics(
                     step_i, last, wall_per_step=wall,
@@ -284,7 +471,7 @@ def solve_with_checkpointing(loss_fn: Callable, params, optimizer,
     finally:
         if writer:
             writer.close()
-    return _params_out(x, params), all_losses
+    return _params_out(leaf.detach(), params), all_losses
 
 
 def two_phase_solve(loss_fn: Callable, params, adam_steps: int = 1000,

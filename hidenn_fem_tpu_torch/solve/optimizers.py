@@ -34,10 +34,24 @@ with ``scale_init_precond=False``); a pair with s.y <= 1e-10
 (torch LBFGS's curvature guard) is stored as zeros, its R diagonal is
 patched to 1 and gamma keeps its last accepted value.  The products run
 in full float32: TF32 is off package-wide (``hidenn_fem_tpu_torch``).
+
+Capture.  ``CompactLBFGS``, ``TwoLoopLBFGS``, ``Adam`` and
+``FreezeGroups`` say ``capturable = True``: after their first call, an
+``update`` is safe to record in a CUDA graph and replay (the drivers do,
+``solve/drivers.py``).  Their states hold two counts: ``count``, a host
+integer (branched on only for the first call, and kept for checkpoints),
+and ``device_count``, the same count as an int64 tensor on the params'
+device, from which every history slot and order and Adam's bias
+corrections are taken.  Every state tensor is a buffer updated in place
+(``copy_``, ``index_copy_``), so the tensors of a state stay the same
+objects from call to call; ``advance(state, n)`` adds ``n`` replayed
+calls to the host count.  ``ZoomLBFGS`` reads every trial point on the
+host and is not capturable.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -73,6 +87,7 @@ def unravel_params(flat: torch.Tensor, like):
 
 class CompactLBFGSState(NamedTuple):
     count: int                 # update calls so far
+    device_count: torch.Tensor  # the same count, int64 on the device
     prev_flat: torch.Tensor    # [P] previous flat params
     prev_grad: torch.Tensor    # [P] previous flat gradient
     SY: torch.Tensor           # [2m, P]: rows 0..m-1 = s_i, m..2m-1 = y_i
@@ -81,9 +96,20 @@ class CompactLBFGSState(NamedTuple):
     gamma: torch.Tensor        # last accepted identity scale
 
 
+def _advance(state, n: int):
+    """``state`` with ``n`` more calls on its host count (replays)."""
+    return state._replace(count=state.count + n)
+
+
+def _device_count(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=x.device)
+
+
 class CompactLBFGS:
     """The L-BFGS direction H g (``scale_by_compact_lbfgs``), optionally
     followed by a fixed step ``-learning_rate * H g``."""
+
+    capturable = True
 
     def __init__(self, memory_size: int = 100,
                  learning_rate: float | None = None,
@@ -96,19 +122,23 @@ class CompactLBFGS:
 
     def init(self, x: torch.Tensor, like=None) -> CompactLBFGSState:
         m, p = self.m, x.numel()
-        z = torch.zeros((p,), dtype=x.dtype, device=x.device)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
         return CompactLBFGSState(
-            count=0, prev_flat=z, prev_grad=z,
-            SY=torch.zeros((2 * m, p), dtype=x.dtype, device=x.device),
-            STY=torch.zeros((m, m), dtype=x.dtype, device=x.device),
-            YTY=torch.zeros((m, m), dtype=x.dtype, device=x.device),
+            count=0, device_count=_device_count(x), prev_flat=zeros(p),
+            prev_grad=zeros(p), SY=zeros(2 * m, p), STY=zeros(m, m),
+            YTY=zeros(m, m),
             gamma=torch.ones((), dtype=x.dtype, device=x.device))
+
+    advance = staticmethod(_advance)
 
     def update(self, g: torch.Tensor, state: CompactLBFGSState,
                x: torch.Tensor) -> Tuple[torch.Tensor, CompactLBFGSState]:
         m = self.m
         c = state.count
-        slot = (c - 1) % m
+        k = state.device_count
+        slot = torch.remainder(k - 1, m).view(1)
         if c == 0:
             s = torch.zeros_like(x)
             y = torch.zeros_like(g)
@@ -120,19 +150,19 @@ class CompactLBFGS:
         s = torch.where(accept, s, 0.0)
         y = torch.where(accept, y, 0.0)
         SY = state.SY                   # history updated in place
-        SY[slot] = s
-        SY[m + slot] = y
+        SY.index_copy_(0, slot, s[None])
+        SY.index_copy_(0, slot + m, y[None])
 
         # one pass over the history: columns are (.y, .s, .g) products
         B = SY @ torch.stack([y, s, g], dim=1)              # [2m, 3]
         s_dot_y, u = B[:m, 0], B[:m, 2]                     # S.y, S.g
         y_dot_y, y_dot_s, v = B[m:, 0], B[m:, 1], B[m:, 2]
         STY = state.STY
-        STY[:, slot] = s_dot_y
-        STY[slot, :] = y_dot_s
+        STY.index_copy_(1, slot, s_dot_y[:, None])
+        STY.index_copy_(0, slot, y_dot_s[None])
         YTY = state.YTY
-        YTY[:, slot] = y_dot_y
-        YTY[slot, :] = y_dot_y
+        YTY.index_copy_(1, slot, y_dot_y[:, None])
+        YTY.index_copy_(0, slot, y_dot_y[None])
 
         sy = torch.dot(s, y)
         yy = torch.dot(y, y)
@@ -149,7 +179,7 @@ class CompactLBFGS:
                                 state.gamma)
 
         # chronological (oldest-first) view of the circular buffer
-        order = (c + torch.arange(m, device=g.device)) % m
+        order = torch.remainder(k + torch.arange(m, device=g.device), m)
         A = STY[order][:, order]
         YY = YTY[order][:, order]
         d = torch.diagonal(A)
@@ -165,14 +195,16 @@ class CompactLBFGS:
                                            upper=False)[:, 0]
 
         coef = torch.zeros((2 * m,), dtype=g.dtype, device=g.device)
-        coef[order] = w2
-        coef[m + order] = -gamma * w1
+        coef.index_copy_(0, order, w2)
+        coef.index_copy_(0, order + m, -gamma * w1)
         hg = gamma * g + coef @ SY                          # one pass
         step = hg if self.learning_rate is None else \
             -self.learning_rate * hg
-        return step, CompactLBFGSState(
-            count=c + 1, prev_flat=x, prev_grad=g, SY=SY, STY=STY,
-            YTY=YTY, gamma=gamma)
+        state.prev_flat.copy_(x)
+        state.prev_grad.copy_(g)
+        state.gamma.copy_(gamma)
+        k.add_(1)
+        return step, state._replace(count=c + 1)
 
 
 def scale_by_compact_lbfgs(memory_size: int = 100,
@@ -212,6 +244,7 @@ def lbfgs(memory_size: int = 100, max_linesearch_steps: int = 20,
 class LBFGSState(NamedTuple):
     """optax's ``ScaleByLBFGSState`` on flat vectors."""
     count: int                          # update calls so far
+    device_count: torch.Tensor          # the same count, int64 on device
     params: torch.Tensor                # [P] previous flat params
     updates: torch.Tensor               # [P] previous flat gradient
     diff_params_memory: torch.Tensor    # [m, P] s_i
@@ -230,8 +263,13 @@ class TwoLoopLBFGS:
     s.y == 0 (no curvature guard: a pair with s.y < 0 is kept, unlike
     ``CompactLBFGS``); gamma = s.y / y.y of the newest pair (1 when
     y.y == 0), or min(1, 1/|g|) on the first call.  2m dot products and
-    2m axpys per call, in sequence; the history is updated in place, so a
-    state is consumed by the update that takes it."""
+    2m axpys per call, in sequence, over the history's rows taken oldest
+    first by one ``index_select`` of each [m, P] memory on the device
+    count (a copy of both memories per call, so that the loops' row
+    indices are the same on every call); the history is updated in place,
+    so a state is consumed by the update that takes it."""
+
+    capturable = True
 
     def __init__(self, memory_size: int = 100, learning_rate: float = 1.0):
         if memory_size < 1:
@@ -241,54 +279,53 @@ class TwoLoopLBFGS:
 
     def init(self, x: torch.Tensor, like=None) -> LBFGSState:
         m, p = self.m, x.numel()
-        z = torch.zeros((p,), dtype=x.dtype, device=x.device)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
         return LBFGSState(
-            count=0, params=z, updates=z,
-            diff_params_memory=torch.zeros((m, p), dtype=x.dtype,
-                                           device=x.device),
-            diff_updates_memory=torch.zeros((m, p), dtype=x.dtype,
-                                            device=x.device),
-            weights_memory=torch.zeros((m,), dtype=x.dtype,
-                                       device=x.device))
+            count=0, device_count=_device_count(x), params=zeros(p),
+            updates=zeros(p), diff_params_memory=zeros(m, p),
+            diff_updates_memory=zeros(m, p), weights_memory=zeros(m))
+
+    advance = staticmethod(_advance)
 
     def direction(self, g: torch.Tensor, state: LBFGSState,
                   x: torch.Tensor) -> Tuple[torch.Tensor, LBFGSState]:
         """(H g, new state): optax's ``scale_by_lbfgs`` update."""
-        m, c = self.m, state.count
+        m, c, k = self.m, state.count, state.device_count
         S, Y, W = (state.diff_params_memory, state.diff_updates_memory,
                    state.weights_memory)
-        prev = (c - 1) % m
+        prev = torch.remainder(k - 1, m).view(1)
         if c > 0:
             s = x - state.params
             y = g - state.updates
             sy = torch.dot(y, s)
-            S[prev] = s
-            Y[prev] = y
-            W[prev] = torch.where(sy == 0.0, 0.0, 1.0 / sy)
-        else:
-            S[prev] = 0.0
-            Y[prev] = 0.0
-            W[prev] = 0.0
-        if c > 0:
+            S.index_copy_(0, prev, s[None])
+            Y.index_copy_(0, prev, y[None])
+            W.index_copy_(0, prev, torch.where(sy == 0.0, 0.0,
+                                               1.0 / sy).view(1))
             yy = torch.dot(y, y)
             gamma = torch.where(yy > 0.0, sy / yy, 1.0)
         else:
+            S.index_fill_(0, prev, 0.0)
+            Y.index_fill_(0, prev, 0.0)
+            W.index_fill_(0, prev, 0.0)
             gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
         # oldest first; the first loop runs newest first
-        order = [(c % m + i) % m for i in range(m)]
+        order = torch.remainder(k + torch.arange(m, device=g.device), m)
+        So, Yo, Wo = S[order], Y[order], W[order]
         vec, alphas = g, [None] * m
         for i in reversed(range(m)):
-            j = order[i]
-            alphas[i] = W[j] * torch.dot(S[j], vec)
-            vec = vec + (-alphas[i]) * Y[j]
+            alphas[i] = Wo[i] * torch.dot(So[i], vec)
+            vec = vec + (-alphas[i]) * Yo[i]
         vec = gamma * vec
         for i in range(m):
-            j = order[i]
-            beta = W[j] * torch.dot(Y[j], vec)
-            vec = vec + (alphas[i] - beta) * S[j]
-        return vec, LBFGSState(count=c + 1, params=x, updates=g,
-                               diff_params_memory=S, diff_updates_memory=Y,
-                               weights_memory=W)
+            beta = Wo[i] * torch.dot(Yo[i], vec)
+            vec = vec + (alphas[i] - beta) * So[i]
+        state.params.copy_(x)
+        state.updates.copy_(g)
+        k.add_(1)
+        return vec, state._replace(count=c + 1)
 
     def update(self, g: torch.Tensor, state: LBFGSState, x: torch.Tensor
                ) -> Tuple[torch.Tensor, LBFGSState]:
@@ -532,21 +569,41 @@ def _key_ranges(like) -> dict:
 
 class AdamState(NamedTuple):
     count: int                 # update calls so far
+    device_count: torch.Tensor  # the same count, int64 on the device
     mu: torch.Tensor           # [P] first moment
     nu: torch.Tensor           # [P] second moment
     lr: torch.Tensor | float   # learning rate: a scalar or a [P] vector
 
 
+@functools.lru_cache(maxsize=None)
+def _bias_corrections(b: float, dtype: torch.dtype, device: torch.device
+                      ) -> torch.Tensor:
+    """optax's bias correction ``1 - b**count`` for count = 0, 1, ..., in
+    the moments' numpy precision, as the host computes it one count at a
+    time, on ``device``: the table ends at the first count where it is
+    exactly 1, which it stays for every later count (so a lookup clamps
+    its index to the end).  Entry 0 (no call yet) is never read."""
+    f = np.float64 if dtype == torch.float64 else np.float32
+    out = [f(0)]
+    while out[-1] != f(1):
+        out.append(f(1) - f(b) ** f(len(out)))
+    return torch.tensor(np.asarray(out, dtype=f), dtype=dtype,
+                        device=device)
+
+
 class Adam:
     """optax's ``adam``: b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
     bias-corrected moments, step ``-lr * mu_hat / (sqrt(nu_hat) + eps)``
-    in optax's order of operations (the bias corrections ``1 - b**count``
-    in the moments' precision, as optax computes them).  With
-    ``group_lrs`` each top-level key of the params takes its own rate,
-    which for an elementwise method is exactly optax's
-    ``multi_transform`` of one Adam per group."""
+    in optax's order of operations.  The bias corrections ``1 - b**count``
+    are computed in the moments' precision, as optax computes them, once
+    into a table on the device (``_bias_corrections``), and each moment is
+    divided by its table entry at the device count.  With ``group_lrs``
+    each top-level key of the params takes its own rate, which for an
+    elementwise method is exactly optax's ``multi_transform`` of one Adam
+    per group."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    capturable = True
 
     def __init__(self, learning_rate: float = 1e-3, group_lrs=None):
         self.learning_rate = learning_rate
@@ -560,22 +617,26 @@ class Adam:
                 if k not in self.group_lrs:
                     raise KeyError(f"no learning rate for group {k!r}")
                 lr[a:b] = self.group_lrs[k]
-        return AdamState(count=0, mu=torch.zeros_like(x),
-                         nu=torch.zeros_like(x), lr=lr)
+        return AdamState(count=0, device_count=_device_count(x),
+                         mu=torch.zeros_like(x), nu=torch.zeros_like(x),
+                         lr=lr)
+
+    advance = staticmethod(_advance)
 
     def update(self, g: torch.Tensor, state: AdamState, x: torch.Tensor
                ) -> Tuple[torch.Tensor, AdamState]:
         b1, b2 = self.b1, self.b2
-        mu = (1 - b1) * g + b1 * state.mu
-        nu = (1 - b2) * (g * g) + b2 * state.nu
-        count = state.count + 1
-        # optax's bias corrections 1 - b**count, in the moments' precision
-        f = np.float64 if g.dtype == torch.float64 else np.float32
-        mu_hat = mu / float(f(1) - f(b1) ** f(count))
-        nu_hat = nu / float(f(1) - f(b2) ** f(count))
+        mu = state.mu.copy_((1 - b1) * g + b1 * state.mu)
+        nu = state.nu.copy_((1 - b2) * (g * g) + b2 * state.nu)
+        k = state.device_count.add_(1)
+        c1 = _bias_corrections(b1, g.dtype, g.device)
+        c2 = _bias_corrections(b2, g.dtype, g.device)
+        # take, not c1[k]: a 0-dim index would be read on the host
+        mu_hat = mu / torch.take(c1, k.clamp(max=c1.shape[0] - 1))
+        nu_hat = nu / torch.take(c2, k.clamp(max=c2.shape[0] - 1))
         lr = state.lr
         step = (mu_hat / (torch.sqrt(nu_hat) + self.eps)) * (-lr)
-        return step, AdamState(count=count, mu=mu, nu=nu, lr=lr)
+        return step, state._replace(count=state.count + 1)
 
 
 class FreezeGroups:
@@ -587,11 +648,19 @@ class FreezeGroups:
         self.inner = inner
         self.frozen = set(frozen_keys)
 
+    @property
+    def capturable(self) -> bool:
+        return getattr(self.inner, "capturable", False)
+
     def init(self, x: torch.Tensor, like=None):
         ranges = [r for k, r in _key_ranges(like).items()
                   if k not in self.frozen]
         active = {k: like[k] for k in sorted(like) if k not in self.frozen}
         return ranges, self.inner.init(self._take(x, ranges), like=active)
+
+    def advance(self, state, n: int):
+        ranges, inner_state = state
+        return ranges, self.inner.advance(inner_state, n)
 
     @staticmethod
     def _take(v, ranges):

@@ -11,7 +11,9 @@ with atol 1e-5 x max|grad| on cotangents and gradients (coordinate
 gradients are sums of cancelling terms; see tests/test_torch_losses.py).
 Where two kernels must add the same terms in the same order (K5 and the
 fused K4, K5 over its two kinds of window, K6 and K7, two launches of one
-kernel) the check is bit for bit.
+kernel) the check is bit for bit.  The drivers' captured step (one CUDA
+graph a step, replayed) is held bit for bit to the same steps run
+eagerly on the card, on every route where two eager runs are bit-equal.
 """
 
 import dataclasses
@@ -1139,3 +1141,210 @@ def test_evaluate_at_points_on_the_card_matches_the_cpu(dev):
     ok = ec >= 0
     assert 0 < ok.sum() < len(ok)
     np.testing.assert_allclose(vd[ok], vc[ok], rtol=1e-6, atol=1e-12)
+
+
+# ------------------------------ the captured optimizer step (CUDA graphs)
+def _plate_case(mesh, dev, seed=0, **energy_kw):
+    u0 = 1e-5 * np.random.default_rng(seed).standard_normal(
+        (mesh.n_nodes, 2))
+    params = pt.params_from_numpy({"coords": mesh.coords.cpu().numpy(),
+                                   "u": u0}, device=dev)
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1(), **energy_kw)
+    return energy.total, params, (mesh,)
+
+
+def _capture_case(name, dev):
+    """(drive, kernels that must launch) of one captured path: ``drive()``
+    returns (params, history) through the public drivers."""
+    from tools.profile_torch_port import without_recompute
+
+    lat = pt.proxy_plate_mesh(nx=33, ny=17, device=dev)
+    steps = 20
+    if name in ("lattice", "gather", "banded", "banded_k5", "hybrid",
+                "renumbered"):
+        mesh, needs = {
+            "lattice": (lat, ("lattice_stencil_vg",)),
+            "gather": (dataclasses.replace(lat, lattice=None),
+                       ("element_energy_fwd", "element_energy_bwd",
+                        "incidence_sum")),
+            "hybrid": (pt.generate_mesh_hybrid(
+                lc=0.05, holes=((0.6, 0.5, 0.22),), device=dev), ()),
+            "renumbered": (pt.generate_mesh(
+                nx=33, ny=17, holes=((0.6, 0.5, 0.22),), device=dev), ()),
+        }.get(name, (None, ("banded_vg",)))
+        if mesh is None:
+            mesh = pt.generate_mesh_delaunay(lc=0.09, device=dev)
+            paired = _banded_tables(mesh, 4, dev)
+            if name == "banded_k5":
+                paired = without_recompute(paired, True)
+                needs = ("banded_bwd",)
+            mesh = dataclasses.replace(
+                mesh, banded=_banded_tables(mesh, 3, dev),
+                banded_paired=paired)
+        loss, params, args = _plate_case(mesh, dev)
+        return (lambda: pt.run_lbfgs(loss, params, num_steps=steps,
+                                     memory_size=10, loss_args=args),
+                needs)
+    if name == "structured":
+        grid = generate_structured_grid(holes=((1.0, 0.5, 0.2),), nx=33,
+                                        ny=17, device=dev)
+        model = StructuredGridP1()
+        p = model.init(np.random.default_rng(0), grid, device=dev)
+        return (lambda: pt.run_lbfgs(model.total, p, num_steps=steps,
+                                     memory_size=10, loss_args=(grid,)),
+                ("lattice_stencil_vg",))
+    loss, params, args = _plate_case(lat, dev)
+    if name == "two_loop":
+        from hidenn_fem_tpu_torch.solve import optimizers as topt
+        return (lambda: pt.run_optimizer(
+            loss, params, topt.lbfgs(memory_size=10, mode="scan"), steps,
+            loss_args=args), ("lattice_stencil_vg",))
+    if name == "adam_per_group":
+        return (lambda: pt.minimize(loss, params, method="adam",
+                                    num_steps=steps, loss_args=args,
+                                    group_lrs={"u": 1e-6,
+                                               "coords": 1e-7}),
+                ("lattice_stencil_vg",))
+    if name == "alternating":
+        return (lambda: pt.alternating_solve(
+            lambda p: loss(p, lat), params, outer_epochs=4, u_steps=5,
+            coord_steps=4), ("lattice_stencil_vg",))
+    if name == "node_space":
+        return (lambda: pt.lbfgs_node_space(
+            pt.PlaneStressEnergy(model=pt.TriangleP1()), params, lat,
+            num_steps=steps), ("lattice_stencil_vg",))
+    if name == "bar_1d":          # example 3's loss: a double backward
+        m1, p1 = pt.Linear1D.from_node_coords(
+            np.linspace(0, 10, 89), r_adapt=True, u0=0.0, uN=0.0,
+            device=dev)
+        return (lambda: pt.minimize(
+            lambda p: pt.bar_energy_1d(m1, p, 2, _example3_force, E=175.0),
+            p1, method="adam", num_steps=steps, learning_rate=1e-4), ())
+    if name == "bilinear":
+        m2, p2 = pt.Bilinear2D.create(np.linspace(0, 1, 9),
+                                      np.linspace(0, 1, 7), r_adapt=True,
+                                      device=dev)
+        pq = torch.rand((400, 2), generator=torch.Generator().manual_seed(
+            0)).to(dev)
+        return (lambda: pt.minimize(
+            lambda p: pt.l2_loss(m2, p, pq, pq[:, 0] * pq[:, 1]), p2,
+            method="adam", num_steps=steps, learning_rate=1e-3), ())
+    raise ValueError(name)
+
+
+def _launched(before):
+    from hidenn_fem_tpu_torch.solve import drivers
+    return [{k: c[k] - b[k] for k in c}
+            for c, b in zip(drivers._counters(), before)]
+
+
+def _drive(drive, monkeypatch, capture):
+    """One run of ``drive`` with the capture on or off; returns (flat
+    params, history, every counter's launches)."""
+    from hidenn_fem_tpu_torch.solve import drivers
+
+    with monkeypatch.context() as mp:
+        if not capture:
+            mp.setattr(drivers, "_capturable", lambda *a: False)
+        before = [dict(c) for c in drivers._counters()]
+        params, hist = drive()
+        torch.cuda.synchronize()
+    flat = params if isinstance(params, torch.Tensor) else torch.cat(
+        [params[k].reshape(-1) for k in sorted(params)])
+    return flat, hist, _launched(before)
+
+
+@pytest.mark.parametrize("name", [
+    "lattice", "gather", "banded", "banded_k5", "hybrid", "renumbered",
+    "structured", "two_loop", "adam_per_group", "alternating",
+    "node_space", "bar_1d", "bilinear"])
+def test_captured_step_matches_the_eager_step(dev, monkeypatch, name):
+    """Each path through the drivers, captured (one CUDA graph a step,
+    replayed) against the same steps run eagerly on the card, from the
+    same inputs: where two eager runs are bit-equal (every kernel route;
+    the kernels sum without atomics) the captured history and params are
+    bit-equal too, else within the f32 spread rule (5e-3); every counter
+    moves as the eager run's (the captured launches times the replays),
+    and each kernel of the path launched."""
+    drive, needs = _capture_case(name, dev)
+    e1, e2, cap = (_drive(drive, monkeypatch, c)
+                   for c in (False, False, True))
+    assert torch.isfinite(cap[1]).all()
+    assert cap[2] == e1[2], (cap[2], e1[2])
+    launched = {k: v for c in cap[2] for k, v in c.items()}
+    for k in needs:
+        assert launched[k] > 0, k
+    if name in ("lattice", "gather", "banded", "banded_k5", "structured",
+                "two_loop", "adam_per_group", "alternating",
+                "node_space"):
+        assert torch.equal(e1[0], e2[0]) and torch.equal(e1[1], e2[1])
+    if torch.equal(e1[0], e2[0]) and torch.equal(e1[1], e2[1]):
+        assert torch.equal(cap[1], e1[1]) and torch.equal(cap[0], e1[0])
+    else:
+        _close(cap[1], e1[1], rtol=5e-3, atol_scale=0.0)
+
+
+def _gmax_sequence(loss, params, args, opt, steps):
+    """max|g| of each step of an eager run, from the same inputs."""
+    from hidenn_fem_tpu_torch.solve import drivers
+
+    vg = drivers._value_and_grad(loss, params, args)
+    leaf = drivers._leaf(params)
+    state = opt.init(leaf.detach(), like=params)
+    out = []
+    for _ in range(steps):
+        _, g, state = drivers._step(vg, opt, leaf, state)
+        out.append(float(g.abs().max()))
+    return out
+
+
+def test_captured_tol_stops_at_the_eager_step(dev, monkeypatch):
+    """``tol`` on the lattice route, set between two gradient norms of
+    the run so the stop falls after the capture: the captured run (one
+    flag read a replay) stops at the eager run's step, with the same
+    bits and the same padding."""
+    from hidenn_fem_tpu_torch.solve import optimizers as topt
+
+    lat = pt.proxy_plate_mesh(nx=33, ny=17, device=dev)
+    loss, params, args = _plate_case(lat, dev, E=1.0, F_total=1e-2)
+    gm = _gmax_sequence(loss, params, args, topt.lbfgs(memory_size=10), 40)
+    j = next(j for j in range(5, 40) if gm[j] < min(gm[:j]))
+    tol = 0.5 * (gm[j] + min(gm[:j]))
+    drive = lambda: pt.run_lbfgs(loss, params, num_steps=40,  # noqa: E731
+                                 memory_size=10, tol=tol, loss_args=args)
+    (pe, he, ne), (pc, hc, nc) = (_drive(drive, monkeypatch, c)
+                                  for c in (False, True))
+    assert torch.equal(hc, he) and torch.equal(pc, pe) and nc == ne
+    assert torch.all(hc[j:] == hc[j]) and hc[j] != hc[j - 1]
+    assert ne[1]["lattice_stencil_vg"] == j + 1
+
+
+def test_steady_state_step_makes_no_host_sync(dev):
+    """After the first call, a step (value-and-grad through K6, the
+    compact L-BFGS update, the history write) runs under
+    ``set_sync_debug_mode("error")``; a loss that reads the device from
+    the host makes ``run_lbfgs`` raise instead of falling back."""
+    from hidenn_fem_tpu_torch.solve import drivers
+    from hidenn_fem_tpu_torch.solve import optimizers as topt
+
+    lat = pt.proxy_plate_mesh(nx=33, ny=17, device=dev)
+    loss, params, args = _plate_case(lat, dev)
+    opt = topt.lbfgs(memory_size=10)
+    leaf = drivers._leaf(params)
+    stepper = drivers._Stepper(drivers._value_and_grad(loss, params, args),
+                               opt, leaf, opt.init(leaf.detach()),
+                               n_hist=8, capture=False)
+    stepper.run(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepper.run(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stepper.state.count == 5
+
+    def reads(p, mesh):
+        e = loss(p, mesh)
+        return e * (1.0 + 0.0 * float(e))
+    with pytest.raises(RuntimeError, match="synchronizes with the host"):
+        pt.run_lbfgs(reads, params, num_steps=5, loss_args=args)

@@ -54,6 +54,10 @@ Deliberate differences, and why:
   under ``HDNN_LATTICE_CHUNK=1`` (chunked) or never (windowed).  Both
   copy the flat fill's rows; the port keeps the one flat fill and
   ignores ``HDNN_LATTICE_CHUNK``.
+* ``ops.pallas_energy`` (``element_energy_pallas``, ``ROWS``) has no
+  module in the port: its kernels K1/K2 live in ``ops/element_energy.py``
+  with the gather fused (``element_energy``).  The ``ops`` package loads
+  its exports on first use, since an eager import there is circular.
 * Checkpoints (``utils.checkpoint``) are the port's own ``torch.save``
   format, ``ckpt_<step>.pt``, where the JAX package writes flax msgpack,
   ``ckpt_<step>.msgpack``: flax and msgpack may not be imported; the
@@ -78,6 +82,7 @@ MODULES = {
     "models.linear1d": "models.linear1d",
     "models.bilinear2d": "models.bilinear2d",
     "models.wrappers": "models.wrappers", "plots": "plots",
+    "ops": "ops", "models": "models",
     "ops.assembly": "ops.assembly", "ops.banded_energy": "ops.banded_energy",
     "ops.elasticity": "ops.elasticity", "ops.lattice_energy":
     "ops.lattice_energy", "ops.lattice_slab": "ops.lattice_slab",
@@ -118,6 +123,10 @@ JAX_ONLY_PARAMS = {
         "ck_k", "fw_width", "bw_width"},
     ("models.bilinear2d", "Bilinear2D.init"): {"key"},
     ("models.bilinear2d", "Bilinear2D.create"): {"seed"},
+    ("models", "TriangleP1.init"): {"key"},
+    ("models", "StructuredGridP1.init"): {"key"},
+    ("models", "Bilinear2D.init"): {"key"},
+    ("models", "Bilinear2D.create"): {"seed"},
     ("models.wrappers", "PiecewiseLinearShapeNN2DStructured"): {"seed"},
     ("models.wrappers", "PiecewiseLinearShapeNN2D"): {"seed"},
 }
@@ -134,6 +143,11 @@ PORT_EXTRA = {
         "generator"},
     ("models.wrappers", "PiecewiseLinearShapeNN2D"): {"generator"},
     ("models.structured_grid", "StructuredGridP1"): {"backend"},
+    ("models", "TriangleP1.init"): {"generator"},
+    ("models", "StructuredGridP1.init"): {"generator"},
+    ("models", "Bilinear2D.init"): {"generator"},
+    ("models", "Bilinear2D.create"): {"generator"},
+    ("models", "StructuredGridP1"): {"backend"},
     ("ops.banded_energy", "banded_element_energy"): {"row_start"},
     ("parallel.multihost", "initialize_multihost"): {"backend"},
     ("parallel", "initialize_multihost"): {"backend"},

@@ -1,7 +1,10 @@
 """Where the time of the PyTorch port's solve goes, on a CUDA card.
 
-Profiles (``torch.profiler``, CPU and CUDA activities) a window of L-BFGS
-steps and of energy value-and-grad calls, after a warm-up, on: the
+Profiles (``torch.profiler``, CPU and CUDA activities) windows of energy
+value-and-grad calls and of L-BFGS steps in a solve's steady state,
+eager and captured (``*_lbfgs10_eager``, ``*_lbfgs10_captured``: the
+drivers' step run eagerly, or recorded once in a CUDA graph and
+replayed; ``steady_steps``), after a warm-up, on: the
 example-4 plate on its default route (the lattice route, stencil kernel
 K6) and on the gather route (lattice stripped: K1, K2, incidence_sum);
 the 922K-class plate on the lattice route; example 6's 1000x500
@@ -170,15 +173,32 @@ def _window(name, fn, calls, out_dir, card, iters=1):
     print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
 
 
+def steady_steps(loss, params, loss_args, optimizer, capture, steps=10):
+    """A closure that runs ``steps`` steps of ``optimizer`` on ``loss`` from
+    ``params`` through the drivers' stepper (``solve/drivers.py``), the
+    steps of one solve carried on from call to call: on the card its
+    first call runs the optimizer's first call and the warm-up eagerly
+    and, with ``capture``, records the step and replays it; every later
+    call is the steady state alone (replays, or eager steps)."""
+    from hidenn_fem_tpu_torch.solve import drivers
+
+    vg = drivers._value_and_grad(loss, params, tuple(loss_args))
+    leaf = drivers._leaf(params)
+    stepper = drivers._Stepper(
+        vg, optimizer, leaf, optimizer.init(leaf.detach(), like=params),
+        capture=capture)
+    return lambda: stepper.run(steps)
+
+
 def _case(loss, params, data, memory_size=100):
     def vg():
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         v = loss(p, data)
         torch.autograd.grad(v, [p["coords"], p["u"]])
 
-    def steps():
-        ht.run_lbfgs(loss, params, num_steps=10, memory_size=memory_size,
-                     loss_args=(data,))
+    def steps(capture):
+        return steady_steps(loss, params, (data,),
+                            ht.lbfgs(memory_size=memory_size), capture)
     return vg, steps
 
 
@@ -248,8 +268,11 @@ def _aux(mesh, dev, lattice_bg, iters=10):
 
 
 def _example_epochs(which, dev, epochs=20):
-    """``epochs`` training epochs of example 1, 2 or 3 at its own size, as
-    the example runs them (plain torch, no kernel)."""
+    """``epochs`` training epochs of example 1, 2 or 3 at its own size
+    (plain torch, no kernel): example 2 as the example runs them (its own
+    eager loop over minibatches), examples 1 and 3 as ``minimize``'s Adam
+    steps in the steady state of one solve (``steady_steps``: captured
+    and replayed)."""
     from hidenn_fem_tpu_torch.config import Projection2DConfig
 
     if which == 2:
@@ -270,8 +293,8 @@ def _example_epochs(which, dev, epochs=20):
         loss = lambda p: ht.bar_energy_1d(  # noqa: E731
             model, p, 2, b_force, E=175.0)
         lr = 1e-4
-    return lambda: ht.minimize(loss, params, method="adam",
-                               num_steps=epochs, learning_rate=lr)
+    return steady_steps(loss, params, (), ht.adam(lr), capture=True,
+                        steps=epochs)
 
 
 def _pt_layouts(meshes, dev, card, calls=20):
@@ -491,7 +514,10 @@ def main():
             continue
         vg, steps = make()
         _window(f"{name}_value_and_grad", vg, 20, args.out, card)
-        _window(f"{name}_lbfgs10", steps, 2, args.out, card)
+        _window(f"{name}_lbfgs10_eager", steps(False), 2, args.out, card,
+                iters=10)
+        _window(f"{name}_lbfgs10_captured", steps(True), 2, args.out, card,
+                iters=10)
     for name, make in solvers.items():
         if args.cases and name not in args.cases:
             continue
