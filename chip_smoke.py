@@ -106,7 +106,8 @@ Phases (each raises on failure, and the script then exits non-zero):
     one-process ``mg_pcg_solve`` and of JAX's and within 5e-4 x max|u| of
     the one-process solution (the JAX test's bounds), the ``all_reduce``
     calls equal to ``count_collectives``' census; ms and K6 / K6-row
-    launches per iteration by the slope between the two starts.
+    launches per call of the loop body by the slope between the two
+    starts.
 
 11. The CG family (``solve/linear.py``): a. example 8
     (``examples/example8_linear_solve_torch.py``: the 81x41 proxy plate on
@@ -149,8 +150,9 @@ Phases (each raises on failure, and the script then exits non-zero):
     own size (gather route) and 2 epochs of ``radapt_aux_solve`` on its
     mesh (the energies fall, the pins stay).  Each solve from rest counts
     its launches exactly (K6: the levels' gradients once and a V-cycle
-    before the loop and each iteration; the fine kernel once and each
-    iteration) and prints its set-up seconds and ms per iteration.
+    before the loop and each call of the loop body; the fine kernel once
+    and each call: the iterations rounded up to ``READ_EVERY``) and
+    prints its set-up seconds and ms per iteration.
 
 15. Example 5 (``examples/example5_scaling_torch.py``) at its own size:
     the 1000x500 plate with the three holes (922,250 elements; the hole
@@ -208,10 +210,31 @@ Phases (each raises on failure, and the script then exits non-zero):
     one element diameter of the reference's, the displacement extrema
     within 2%, the median von Mises difference under 5% of the peak.
 
-Every ``run_lbfgs``/``run_optimizer`` solve of phases 4-22 (and those
+23. The linear solvers' while loops (``solve/loop.py``: an eager
+    warm-up, then one iteration recorded in a CUDA graph and replayed, the
+    stop flag read every ``READ_EVERY`` replays) against the same body run
+    eagerly, in turns eager, captured, captured, eager, to relres 1e-6:
+    the 898K Delaunay plate's ``cg_solve`` and ``jacobi_pcg_solve`` from
+    rest capped at CG_CAP (K4), example 9's 961x481 ``mg_pcg_solve`` from
+    its noise start (K6), ``aux_pcg_solve`` from rest on example 10's
+    961x481 plate on both backgrounds (K6) and on the 898K plate (K4 and
+    K6).  Where the two eager solves are bit-equal the captured ones must
+    be too, every launch count equal, one graph recorded; the energies
+    and iteration counts held to the JAX constants of phases 11, 12 and
+    14.  For each: whole-solve ms of every run and the host seconds spent
+    recording the graph; the steady-state iteration of both modes (the
+    difference between tol-0 solves capped at SOLVER_CAPS: host-clock ms,
+    device-busy ms and kernels by name from the profiler, idle share,
+    launches); the captured solve at each READ_EVERY_SWEEP period (bits
+    equal to the shipped period's, ms).
+
+Every ``run_lbfgs``/``run_optimizer`` solve of phases 4-23 (and those
 inside the linear solvers' r-adaptive epochs) replays a captured step on
-the card, except the zoom line search and the gloo ranks of phase 10,
-which stay eager loops; the launch counts count each replay.
+the card, and so does every linear solve's iteration (CG, Jacobi-PCG,
+MG-PCG, aux-PCG, the one-rank NCCL sharded MG), except the zoom line
+search and the gloo ranks of phase 10, which stay eager loops; the
+launch counts count each replay, the solvers' masked calls past the stop
+included.
 
 Phases 1-19 run with ``HDNN_NO_NATIVE=1``: the host tables and the
 coloring take the numpy paths whether or not an earlier run left a native
@@ -219,14 +242,16 @@ library in ``hidenn_fem_tpu_torch/csrc/build/``, so every run takes the
 same path and phase 11b holds the colors to the JAX package's numpy
 rounds.  Phase 20 alone turns the library on.
 
-Each path of phases 4-22 (and K8's timed A/B) runs with every launch
+Each path of phases 4-23 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
-whose residual turns non-finite fails.  The last three lines of standard output
+whose residual turns non-finite fails.  Each phase's header prints the
+seconds since the start.  The last three lines of standard output
 are the kernels' JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, ...}``.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -2003,9 +2028,10 @@ def phase_multigrid(ht, ls, dev, card, counts):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k6 = ls.launch_counts["lattice_stencil_vg"] - before
-    log(f"  warm MG-PCG: {iters} iterations in {seconds:.3f} s, "
-        f"{1e3 * seconds / iters:.3f} ms per iteration; {k6} K6 launches, "
-        f"{k6 / iters:.1f} per iteration [{card}]")
+    calls = loop_calls(iters, 40)
+    log(f"  warm MG-PCG: {iters} iterations ({calls} calls of the loop "
+        f"body) in {seconds:.3f} s, {1e3 * seconds / iters:.3f} ms per "
+        f"iteration; {k6} K6 launches, {k6 / calls:.1f} per call [{card}]")
 
     # the port's own CG on the same system from the same start.  That
     # start's first residual is the noise's, so a relative residual of
@@ -2120,9 +2146,10 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
     """A solve from rest on a prebuilt preconditioner, timed on the host
     clock, with its launches counted exactly: the levels' gradients at
     zero once, a V-cycle (7 level operators a level, 24 on the coarsest:
-    K6 each) before the loop and each iteration, and the fine gradient at
-    the start and once an iteration on ``fine``'s kernel (None: the hybrid
-    route, no kernel).  Returns (solution, history, seconds)."""
+    K6 each) before the loop and each call of the loop body (the
+    iterations, and the masked calls past the stop), and the fine
+    gradient at the start and once a call on ``fine``'s kernel (None: the
+    hybrid route, no kernel).  Returns (solution, history, seconds)."""
     mesh = args[1]
     u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=mesh.coords.device)}
     torch.cuda.synchronize()
@@ -2135,14 +2162,16 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
     seconds = time.perf_counter() - t0
     launched = {k: v for k, v in counts.read().items() if v}
     iters, n_lev = len(h), len(pre.levels)
-    want = {"lattice_stencil_vg": n_lev + (iters + 1)
+    calls = loop_calls(iters, AUX_MAX_ITERS)
+    want = {"lattice_stencil_vg": n_lev + (calls + 1)
             * (7 * (n_lev - 1) + 24)}
     if fine is not None:
-        want[fine] = want.get(fine, 0) + 1 + iters
-    log(f"  {name} from rest: {iters} iterations to {h[-1]:.6e} in "
-        f"{seconds:.3f} s, {1e3 * seconds / iters:.3f} ms per iteration; "
-        f"launches {launched} (expected {want}), per iteration "
-        + ", ".join(f"{k} {v / iters:.2f}" for k, v in launched.items())
+        want[fine] = want.get(fine, 0) + 1 + calls
+    log(f"  {name} from rest: {iters} iterations ({calls} calls of the "
+        f"loop body) to {h[-1]:.6e} in {seconds:.3f} s, "
+        f"{1e3 * seconds / iters:.3f} ms per iteration; launches "
+        f"{launched} (expected {want}), per call "
+        + ", ".join(f"{k} {v / calls:.2f}" for k, v in launched.items())
         + f" [{card}]")
     if launched != want:
         raise AssertionError(f"{name}: launches {launched}, expected "
@@ -2417,7 +2446,7 @@ def mg_inputs(dev):
 def _sharded_mg_run(dmesh, counts, grid, model, params, engine):
     """One sharded MG-PCG solve on this rank (set-up included, timed):
     its solution, history, launch counts, the all_reduce calls it issued
-    and count_collectives' census for the iterations it ran."""
+    and count_collectives' census for the loop body's calls."""
     from hidenn_fem_tpu_torch.parallel import sharded_mg, sharding
 
     torch.cuda.synchronize()
@@ -2430,9 +2459,9 @@ def _sharded_mg_run(dmesh, counts, grid, model, params, engine):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     iters = int((hist > 0).sum())
-    census = sharded_mg.count_collectives(model, grid, params,
-                                          n_devices=dmesh.size,
-                                          engine=engine, max_iters=iters)
+    census = sharded_mg.count_collectives(
+        model, grid, params, n_devices=dmesh.size, engine=engine,
+        max_iters=loop_calls(iters, SHARDED_MG_MAX_ITERS))
     return {"u": sol["u"].cpu(), "hist": hist.cpu(), "seconds": seconds,
             "launches": counts.read(),
             "all_reduce": sharding.collective_counts["all_reduce"],
@@ -2802,8 +2831,8 @@ def check_sharded_mg(ranks, refs, world, backend, card):
     MG_ITERS_SPREAD iterations of the one-process solve and of JAX's, and
     within MG_U_RTOL x max|u| of the one-process solution; K6 over a row
     window launched; the all_reduce calls equal to count_collectives'
-    census.  Per engine, ms and launches per iteration by the slope
-    between the two starts (the set-up is the same in both).  Returns
+    census.  Per engine, ms and launches per call of the loop body by the
+    slope between the two starts (the set-up is the same in both).  Returns
     the launch counts of every run summed over the ranks."""
     total, by = {}, {}
     for engine, start in SHARDED_MG_RUNS:
@@ -2845,7 +2874,8 @@ def check_sharded_mg(ranks, refs, world, backend, card):
     for engine in ("all", "replicated_coarse"):
         (i1, s1, l1), (i0, s0, l0) = by[(engine, "rest")], \
             by[(engine, "noise")]
-        di = i1 - i0
+        di = (loop_calls(i1, SHARDED_MG_MAX_ITERS)
+              - loop_calls(i0, SHARDED_MG_MAX_ITERS))
         if di <= 0:
             raise AssertionError(f"sharded MG {engine}: the solve from rest "
                                  "took no more iterations than the one "
@@ -2853,8 +2883,9 @@ def check_sharded_mg(ranks, refs, world, backend, card):
         per = {k: (l1[k] - l0[k]) / di for k in
                ("lattice_stencil_vg", "lattice_stencil_vg_rows")}
         log(f"  sharded MG {engine}, {world} rank(s) ({backend}): "
-            f"{1e3 * (s1 - s0) / di:.3f} ms per iteration (slope between "
-            f"the starts, ranks sharing one card); per iteration on rank "
+            f"{1e3 * (s1 - s0) / di:.3f} ms per call of the loop body "
+            f"(slope between the starts, ranks sharing one card; one "
+            f"iteration a call, masked past the stop); per call on rank "
             f"0: K6 {per['lattice_stencil_vg']:.2f}, K6 over a row window "
             f"{per['lattice_stencil_vg_rows']:.2f} launches [{card}]")
     return total
@@ -3314,6 +3345,282 @@ def phase_figure_parity(ht, dev, card):
                              "the reference's")
 
 
+# Phase 23: the linear solvers' captured while loops (solve/loop.py)
+# against the same body run eagerly.  The steady state of an iteration is
+# the difference between two solves at tol 0 capped at SOLVER_CAPS (the
+# same set-up and capture in both; the caps far enough apart that the
+# iterations between them take several times the set-up's host-time
+# spread); READ_EVERY_SWEEP are the host-read periods timed against the
+# shipped one.
+SOLVER_CAPS = {"cg": ((10, 40), (20, 420)), "mg": ((5, 25), (10, 210)),
+               "aux": ((5, 25), (10, 210))}
+# (the profiled and the eager host-clock solves' caps, the captured
+# host-clock solves' caps)
+STEADY_RUNS = 3
+READ_EVERY_SWEEP = (1, 2, 4, 8)
+
+
+def loop_calls(iters, max_iters):
+    """Calls of a solver's loop body for ``iters`` iterations
+    (``solve/loop.py``): rounded up to ``READ_EVERY``, at most
+    ``max_iters``; every call launches its kernels, masked or not."""
+    from hidenn_fem_tpu_torch.solve import loop
+
+    k = loop.READ_EVERY
+    return min(k * -(-iters // k), max_iters)
+
+
+@contextlib.contextmanager
+def solver_loop(capture=True, every=None):
+    """The solvers' loops captured (the default) or eager, with
+    ``loop.READ_EVERY`` set to ``every`` when given."""
+    from hidenn_fem_tpu_torch.solve import loop
+
+    saved = loop.capturable, loop.READ_EVERY
+    if not capture:
+        loop.capturable = lambda device: False
+    if every is not None:
+        loop.READ_EVERY = every
+    try:
+        yield loop
+    finally:
+        loop.capturable, loop.READ_EVERY = saved
+
+
+def solver_run(counts, solve, capture, max_iters, tol, every=None):
+    """One solve ``solve(max_iters, tol) -> (u, history)``, host-timed:
+    (u, history, seconds, launches, graphs recorded, seconds recording)."""
+    with solver_loop(capture, every) as loop:
+        torch.cuda.synchronize()
+        counts.reset()
+        graphs, rec = loop.captures["graphs"], loop.captures["seconds"]
+        t0 = time.perf_counter()
+        u, h = solve(max_iters, tol)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return (u, h, seconds, counts.read(),
+                loop.captures["graphs"] - graphs,
+                loop.captures["seconds"] - rec)
+
+
+def solver_steady(counts, solve, capture, pcaps, hcaps):
+    """One iteration of the steady state, from the difference between
+    solves at tol 0: on the host clock between solves capped at ``hcaps``
+    (captured: after one untimed solve, each the least of STEADY_RUNS
+    runs taken in turns, as the set-up's host time varies by tens of ms)
+    and under the profiler between solves
+    capped at ``pcaps`` (device busy, kernels by name); the idle share is
+    that of the host-clock iteration (the profiler's own cost inflates a
+    replay's wall); launches by the counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.profile_torch_port import _busy_ms, _kernel_events, kernel_us
+
+    if capture:     # the first captured solves pay the graphs' pools
+        solver_run(counts, solve, capture, hcaps[0], 0.0)
+    runs = [[solver_run(counts, solve, capture, m, 0.0) for m in hcaps]
+            for _ in range(STEADY_RUNS if capture else 1)]
+    host = [1e3 * min(r[i][2] for r in runs) for i in range(2)]
+    launches = [sum(runs[0][i][3].values()) for i in range(2)]
+    profiled = []
+    for m in pcaps:
+        with solver_loop(capture), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve(m, 0.0)
+            torch.cuda.synchronize()
+        profiled.append((_busy_ms(prof),
+                         sum(e.count for _, e in _kernel_events(prof)),
+                         kernel_us(prof, 1)))
+    dh, dp = hcaps[1] - hcaps[0], pcaps[1] - pcaps[0]
+    host_ms = (host[1] - host[0]) / dh
+    busy, kernels = ((b - a) / dp for a, b in zip(profiled[0][:2],
+                                                  profiled[1][:2]))
+    top = sorted(((v - profiled[0][2].get(k, 0.0)) / dp, k)
+                 for k, v in profiled[1][2].items())[::-1][:6]
+    return {"host_ms": host_ms, "busy_ms": busy,
+            "idle": 1.0 - busy / host_ms, "kernels": kernels,
+            "launches": (launches[1] - launches[0]) / dh, "top_us": top}
+
+
+def phase_solver_loop(counts, name, solve, max_iters, check, needs, caps,
+                      card):
+    """Phase 23 on one solve: eager, captured, captured, eager to tol 1e-6
+    (bits, launches, whole-solve ms, the capture's cost), ``check`` on the
+    captured solution (JAX's values), the steady state of both modes, and
+    the captured solve at each READ_EVERY_SWEEP (bits and ms)."""
+    from hidenn_fem_tpu_torch.solve import loop
+
+    e1, c1, c2, e2 = (solver_run(counts, solve, c, max_iters, 1e-6)
+                      for c in (False, True, True, False))
+    h = check_hist(name, c1[1])
+    n = len(h)
+    calls = loop_calls(n, max_iters)
+    for a, b, what in ((e1, e2, "eager vs eager"),
+                       (c1, c2, "captured vs captured"),
+                       (c1, e1, "captured vs eager")):
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        log(f"  {name}: {what}: "
+            + ("bit-equal (solution and history)" if same else "differ"))
+        if what == "captured vs eager" and not same:
+            if torch.equal(e1[0], e2[0]) and torch.equal(e1[1], e2[1]):
+                raise AssertionError(f"{name}: the captured solve is not "
+                                     "bit-equal to the eager solve, which "
+                                     "is deterministic")
+            check_close(f"{name} captured vs eager history", c1[1], e1[1],
+                        F32_SPREAD_RTOL, 0.0)
+    if c1[3] != e1[3] or (c1[4], e1[4]) != (1, 0):
+        raise AssertionError(f"{name}: launches {c1[3]} and graphs {c1[4]} "
+                             f"captured vs {e1[3]} and {e1[4]} eager")
+    for k in needs:
+        if c1[3][k] == 0:
+            raise AssertionError(f"{k} was not launched by {name}")
+    check(c1[0], n)
+    log(f"  {name}: {n} iterations, {calls} calls of the loop body "
+        f"(READ_EVERY {loop.READ_EVERY}); launches {c1[3]}; whole solve "
+        f"ms eager {1e3 * e1[2]:.3f} / {1e3 * e2[2]:.3f}, captured "
+        f"{1e3 * c1[2]:.3f} / {1e3 * c2[2]:.3f} (the captured solves "
+        f"include the warm-up and recording the graph: {1e3 * c1[5]:.3f} "
+        f"/ {1e3 * c2[5]:.3f} ms) [{card}]")
+    out = {"iters": n, "calls": calls, "eager_s": (e1[2], e2[2]),
+           "captured_s": (c1[2], c2[2]), "record_s": (c1[5], c2[5])}
+    if caps is not None:
+        for capture in (False, True):
+            tag = "captured" if capture else "eager"
+            hcaps = caps[1] if capture else caps[0]
+            st = out[tag] = solver_steady(counts, solve, capture, caps[0],
+                                          hcaps)
+            log(f"  {name}: steady-state {tag} iteration (tol-0 solves "
+                f"of {hcaps[0]} and {hcaps[1]} on the host clock, "
+                f"{caps[0][0]} and {caps[0][1]} profiled): "
+                f"{st['host_ms']:.4f} ms on "
+                f"the host clock, {st['busy_ms']:.4f} ms device busy, idle "
+                f"share {st['idle']:.3f}; {st['kernels']:.1f} kernels and "
+                f"{st['launches']:.2f} port-kernel launches an iteration; "
+                "device us an iteration by kernel: " + ", ".join(
+                    f"{k} {us:.1f}" for us, k in st["top_us"])
+                + f" [{card}]")
+    sweep = {}
+    for every in READ_EVERY_SWEEP + READ_EVERY_SWEEP[::-1]:
+        u, hk, seconds, _, _, _ = solver_run(counts, solve, True,
+                                             max_iters, 1e-6, every)
+        if not (torch.equal(u, c1[0]) and torch.equal(hk, c1[1])):
+            raise AssertionError(f"{name}: READ_EVERY {every} changes the "
+                                 "solve's bits")
+        sweep.setdefault(every, []).append(1e3 * seconds)
+    log(f"  {name}: captured solve ms by READ_EVERY (two runs each, in "
+        "turns; bit-equal): " + ", ".join(
+            f"{k}: {v[0]:.3f} / {v[1]:.3f}" for k, v in sweep.items())
+        + f" [{card}]")
+    out["sweep"] = sweep
+    return out
+
+
+def solver_cases(ht, counts, mesh898, dev, card):
+    """Phase 23's solves: name -> (solve(max_iters, tol) -> (u, history),
+    max_iters, check(u, iterations), kernels that must launch, steady-state
+    caps or None).  Hierarchies and preconditioners are built here, once;
+    the energies are held to the JAX constants of phases 11, 12 and 14."""
+    from hidenn_fem_tpu_torch.mesh import coloring
+
+    energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+
+    args898 = (mesh898.coords, mesh898)
+    z898 = {"u": torch.zeros((mesh898.n_nodes, 2), device=dev)}
+    colors = coloring.color_nodes(mesh898.connectivity, mesh898.n_nodes)
+
+    def capped_898k(want, what):
+        def check(u, n):
+            with torch.no_grad():
+                e = float(loss({"u": u}, *args898))
+            check_ref(f"898K {what} energy after {n} iterations (captured)",
+                      e, want[0], F32_SPREAD_RTOL, want[1])
+        return check
+
+    def krylov(fn, **kw):
+        def solve(m, tol):
+            sol, h = fn(loss, z898, args898, max_iters=m, tol=tol, **kw)
+            return sol["u"], h
+        return solve
+
+    grid, model, starts = mg_inputs(dev)
+    with torch.no_grad():
+        levels = ht.build_hierarchy(model, grid,
+                                    model.coords(starts["noise"], grid))
+
+    def mg_solve(m, tol):
+        sol, h = ht.mg_pcg_solve(model, grid, starts["noise"], max_iters=m,
+                                 tol=tol, levels=levels)
+        return sol["u"], h
+
+    def mg_check(u, n):
+        if abs(n - JAX_MG_ITERS) > MG_ITERS_SPREAD:
+            raise AssertionError(f"captured MG-PCG: {n} iterations, JAX "
+                                 f"{JAX_MG_ITERS}")
+        with torch.no_grad():
+            e = float(model({"coords": starts["noise"]["coords"], "u": u},
+                            grid))
+        check_ref("961x481 MG-PCG energy (captured)", e, JAX_MG_ENERGY[0],
+                  SOLVE_RTOL, JAX_MG_ENERGY[1])
+
+    aux = aux_loss(ht)
+    bg = ht.StructuredGridP1(E=10e9, nu=0.3)
+    proxy = ht.proxy_plate_mesh(nx=961, ny=481, device=dev)
+
+    def aux_case(mesh, key, lattice_bg, colors=None):
+        args = (mesh.coords, mesh)
+        u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+        t0 = time.perf_counter()
+        pre = ht.build_aux_preconditioner(aux, u0, args, mesh, bg_model=bg,
+                                          node_colors=colors,
+                                          lattice_bg=lattice_bg)
+        torch.cuda.synchronize()
+        log(f"  aux-PCG {key}: set-up {time.perf_counter() - t0:.3f} s "
+            f"[{card}]")
+        check_aux_setup(key, pre)
+        (want_it, f32, f64) = JAX_AUX[(key, "rest")]
+
+        def solve(m, tol):
+            sol, h = ht.aux_pcg_solve(aux, u0, args, pre=pre, max_iters=m,
+                                      tol=tol)
+            return sol["u"], h
+
+        def check(u, n):
+            check_aux_iters(f"aux-PCG {key} from rest (captured)", n,
+                            want_it)
+            with torch.no_grad():
+                e = float(aux({"u": u}, *args))
+            check_ref(f"aux-PCG {key} energy from rest (captured)", e, f32,
+                      SOLVE_RTOL, f64)
+        return solve, check
+
+    cases = {
+        "898K cg_solve": (krylov(ht.cg_solve), CG_CAP,
+                          capped_898k(JAX_898K_CG, "cg_solve"),
+                          ("banded_vg",), SOLVER_CAPS["cg"]),
+        "898K jacobi_pcg_solve": (
+            krylov(ht.jacobi_pcg_solve, node_colors=colors), CG_CAP,
+            capped_898k(JAX_898K_PCG, "jacobi_pcg_solve"), ("banded_vg",),
+            None),
+        "961x481 mg_pcg_solve": (mg_solve, 40, mg_check,
+                                 ("lattice_stencil_vg",), SOLVER_CAPS["mg"]),
+    }
+    for name, mesh, key, lattice_bg, c in (
+            ("961x481 aux_pcg_solve, lattice-aligned background", proxy,
+             "lattice", True, None),
+            ("961x481 aux_pcg_solve, generic background", proxy, "generic",
+             False, None),
+            ("898K aux_pcg_solve", mesh898, "delaunay", True, colors)):
+        solve, check = aux_case(mesh, key, lattice_bg, c)
+        needs = ("lattice_stencil_vg",) + (("banded_vg",) if key ==
+                                           "delaunay" else ())
+        cases[name] = (solve, AUX_MAX_ITERS, check, needs,
+                       SOLVER_CAPS["aux"])
+    return cases
+
+
 def main():
     import os
 
@@ -3331,7 +3638,12 @@ def main():
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
     counts = Counts(ee, ls, be, wg)
-    log("[1/22] environment")
+    t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"{title} (t = {time.perf_counter() - t_start:.1f} s)")
+
+    phase("[1/23] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -3341,7 +3653,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    log("[2/22] build")
+    phase("[2/23] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -3351,7 +3663,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    log("[3/22] kernel vs plain at full size")
+    phase("[3/23] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -3365,7 +3677,7 @@ def main():
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
 
     mesh4 = example4_mesh(ht, dev)
-    log("[4/22] example 4 on its default route (lattice), 600 steps")
+    phase("[4/23] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd"),
@@ -3373,7 +3685,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    log("[5/22] example 4 on the gather route (lattice stripped), 600 steps")
+    phase("[5/23] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
@@ -3381,16 +3693,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    log("[6/22] example 6: 1000x500 structured plate, 600 steps")
+    phase("[6/23] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd"),
              lambda: phase_example6(dev, card))
 
-    log("[7/22] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    phase("[7/23] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",),
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    log("[8/22] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    phase("[8/23] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     (main_losses, delaunay_params), delaunay_launches = run_path(
         counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
@@ -3403,17 +3715,17 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    log("[9/22] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    phase("[9/23] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
     if any(hybrid_launches.values()):
         raise AssertionError("the hybrid route launched a kernel")
 
-    log("[10/22] the sharded paths as groups of ranks on the one card")
+    phase("[10/23] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    log("[11/22] the CG family: example 8, the 898K plate, minimize")
+    phase("[11/23] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
@@ -3422,22 +3734,22 @@ def main():
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    log("[12/22] multigrid: example 9 at 961x481")
+    phase("[12/23] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    log("[13/22] node-space L-BFGS on example 4, 600 steps")
+    phase("[13/23] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
-    log("[14/22] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+    phase("[14/23] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
     phase_aux_898k(ht, counts, mesh898, dev, card)
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
-    log("[15/22] example 5: the 1000x500 plate, slope-timed "
+    phase("[15/23] example 5: the 1000x500 plate, slope-timed "
         "value-and-grad and 2 x 200 L-BFGS steps")
     _, ex5_launches = run_path(counts, "example-5", (),
                                lambda: phase_example5(dev, card))
@@ -3445,18 +3757,18 @@ def main():
         raise AssertionError("example 5's plain lattice route launched a "
                              "kernel")
 
-    log("[16/22] the zoom line search and the two-loop L-BFGS on "
+    phase("[16/23] the zoom line search and the two-loop L-BFGS on "
         "example 4")
     variants = phase_lbfgs_variants(ht, mesh4, dev, card, counts)
 
-    log("[17/22] utils: a checkpointed and resumed solve, check_gradients")
+    phase("[17/23] utils: a checkpointed and resumed solve, check_gradients")
     utils_launches = phase_utils(ht, mesh4, dev, card, counts)
 
-    log("[18/22] examples 1-3 at their own sizes")
+    phase("[18/23] examples 1-3 at their own sizes")
     run_path(counts, "examples 1-3", (),
              lambda: phase_examples_1d(ht, dev, card))
 
-    log("[19/22] point evaluation: 10^6 points on the 898K plate's "
+    phase("[19/23] point evaluation: 10^6 points on the 898K plate's "
         "solution")
     run_path(counts, "point evaluation", (),
              lambda: phase_point_eval(ht, mesh898, delaunay_params, dev,
@@ -3464,12 +3776,12 @@ def main():
     arrays898 = [t.cpu().numpy() for t in mesh898.astuple()]
     del delaunay_params
 
-    log("[20/22] the native mesh loader: the 898K plate's host tables "
+    phase("[20/23] the native mesh loader: the 898K plate's host tables "
         "both ways")
     run_path(counts, "native loader", (),
              lambda: phase_native(ht, arrays898, dev, card))
 
-    log("[21/22] the captured step against the eager loop")
+    phase("[21/23] the captured step against the eager loop")
     capture_routes = capture_cases(ht, mesh4, mesh898, dev)
     captured = {}
     for route, (loss, params, args, steps, m, needs) in \
@@ -3478,14 +3790,22 @@ def main():
             counts, f"{route} captured vs loop", needs,
             lambda: phase_capture(ht, counts, route, loss, params, args,
                                   steps, m, card))
-    del mesh898, capture_routes
+    del capture_routes
     two_loop_copies(mesh922, dev, card)
 
-    log("[22/22] figure parity: the 81x41 proxy plate against the "
+    phase("[22/23] figure parity: the 81x41 proxy plate against the "
         "reference run, 600 captured steps")
     # the reference numerics take the plain route: no kernel of the path
     run_path(counts, "figure parity", (),
              lambda: phase_figure_parity(ht, dev, card))
+
+    phase("[23/23] the linear solvers' captured while loops against the "
+        "eager loop")
+    for name, (solve, max_iters, check, needs, caps) in solver_cases(
+            ht, counts, mesh898, dev, card).items():
+        phase_solver_loop(counts, name, solve, max_iters, check, needs,
+                          caps, card)
+    del mesh898
 
     # each entry's launches: (the path's counts, the wrapper's counter);
     # K6 and its row variant also count slice 9's paths
@@ -3515,6 +3835,7 @@ def main():
         if k["launches"] is None:
             launches, counter = path_launches[k["name"]]
             k["launches"] = launches[counter]
+    phase("done")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

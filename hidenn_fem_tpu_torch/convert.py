@@ -163,7 +163,7 @@ def aux_from_numpy(pre, device=None):
                               tractions=m.tractions)
     arrays = {f.name: t(getattr(pre, f.name))
               for f in dataclasses.fields(_AuxPrecond)
-              if f.name not in ("levels", "grid", "bg_model", "ptw_width",
+              if f.init and f.name not in ("levels", "grid", "bg_model", "ptw_width",
                                 "omega", "lat_kind", "lat_nx", "lat_ny")}
     return _AuxPrecond(levels=levels, grid=grid, bg_model=bg,
                        ptw_width=int(pre.ptw_width), omega=float(pre.omega),

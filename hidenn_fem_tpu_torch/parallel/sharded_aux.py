@@ -15,8 +15,10 @@ The composition of the sharded energies (``parallel/sharding.py``,
   and the background V-cycle compute the same values on every rank with
   no communication.
 
-Every rank then takes the same stop decision from the same scalars, so
-no rank leaves the loop while another waits in a collective, and the
+Every rank then reads the same stop flag, computed from the same
+scalars, after the same number of iterations (``solve/loop.py``: one NCCL
+rank records the iteration in a CUDA graph, gloo ranks run it eagerly),
+so no rank leaves the loop while another waits in a collective, and the
 histories are equal across ranks.  The sharded matvec equals the
 single-device one up to float reassociation, so iteration counts and
 solutions follow the single-device ``aux_pcg_solve``.

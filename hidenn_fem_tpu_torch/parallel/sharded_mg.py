@@ -26,11 +26,17 @@ the bytes, because gloo runs only ``all_reduce`` and ``broadcast`` on CUDA
 tensors, and the groups that share one card are gloo groups.
 
 The JAX package runs the levels under GSPMD, which turns the stencil's
-slices into halo permutes, and compiles the PCG loop; here the loop is
-Python, the PCG vectors are replicated, and every rank takes the same
-stop decision from the same bit-equal scalars (one read an iteration), as
-``parallel/sharded_aux.py`` does.  A solve issues one ``all_reduce`` for
-each level operator on a sharded level and no other collective.
+slices into halo permutes, and compiles the PCG loop.  Here the PCG
+vectors are replicated and the iteration is the single-device solvers'
+masked body (``solve/linear.py``) around ``solve/multigrid.py``'s
+V-cycle with the pad counts: one NCCL rank or several record it in a
+CUDA graph and replay it, gloo ranks (the groups that share one card)
+run it eagerly (``solve/loop.py``).  Every rank reads the same stop flag,
+computed from bit-equal all-reduced scalars, after the same number of
+iterations (``loop.READ_EVERY``), so no rank leaves the loop while
+another waits in a collective, as in ``parallel/sharded_aux.py``.  A
+solve issues one ``all_reduce`` for each level operator on a sharded
+level and no other collective.
 
 Set-up (each level's probed diagonal and ``lmax``, ``solve/multigrid.py``'s
 ``_setup_level``) runs whole on every rank with no collective: it is a
@@ -55,30 +61,14 @@ from ..ops.lattice_slab import (lattice_stencil_vg_rows,
                                 lattice_stencil_vg_rows_plain,
                                 structured_stencil)
 from ..solve import multigrid as mg
+from ..solve.linear import _pcg
 from .sharded_slab import row_window
 from .sharding import DeviceMesh, all_reduce, device_mesh
 
 __all__ = ["mg_pcg_solve_sharded", "mg_pcg_solve_all_sharded",
            "build_sharded_hierarchy", "count_collectives"]
 
-_TINY = 1e-30
 _NU, _COARSE_DEGREE, _POWER_ITERS = 3, 24, 30
-
-
-def _unpad_rows(a: torch.Tensor, k: int) -> torch.Tensor:
-    """Drop |k| dead rows: k > 0 prepended (slice the front), k < 0
-    appended (slice the back), 0 none."""
-    if k == 0:
-        return a
-    return a[k:] if k > 0 else a[:k]
-
-
-def _pad0_rows(a: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact adjoint of ``_unpad_rows``: zero rows on the matching side."""
-    if k == 0:
-        return a
-    z = a.new_zeros((abs(k),) + tuple(a.shape[1:]))
-    return torch.cat([z, a] if k > 0 else [a, z], dim=0)
 
 
 def _pad(grid: StructuredGrid, coords, u, n: int):
@@ -168,26 +158,11 @@ def _level_ops(model, levels, flags, dmesh: DeviceMesh):
     return out
 
 
-def _vcycle(ops, levels, ks, b, nu, coarse_degree, _l=0):
-    """One V(nu, nu) cycle over the padded levels: level ``_l``'s
-    operator ``ops[_l]``, its signed pad count ``ks[_l]``."""
-    lev, op = levels[_l], ops[_l]
-    if _l == len(levels) - 1:
-        return mg._cheb_smooth(op, lev, b, torch.zeros_like(b),
-                               coarse_degree)
-    x = mg._cheb_smooth(op, lev, b, torch.zeros_like(b), nu)
-    rc = _pad0_rows(mg._restrict(_unpad_rows(b - op(x), ks[_l])),
-                    ks[_l + 1])
-    xc = _vcycle(ops, levels, ks, rc, nu, coarse_degree, _l + 1)
-    corr = _pad0_rows(mg.prolong(_unpad_rows(xc, ks[_l + 1])), ks[_l])
-    x = x + lev.free * corr
-    return mg._cheb_smooth(op, lev, b, x, nu)
-
-
 def _solve(model, levels, ks, flags, gridP, coordsP, uP, dmesh,
            max_iters: int, tol: float, nu: int, coarse_degree: int):
-    """MG-PCG on the padded fine lattice (the JAX package's loop):
-    returns (padded solution, relres history [max_iters])."""
+    """MG-PCG on the padded fine lattice (the JAX package's loop, the
+    body of ``solve/linear.py``): returns (padded solution, relres
+    history [max_iters])."""
     # the right-hand side, once a solve: the total energy's gradient at
     # the start, computed whole on every rank (no collective)
     u = uP.detach().clone().requires_grad_(True)
@@ -195,38 +170,11 @@ def _solve(model, levels, ks, flags, gridP, coordsP, uP, dmesh,
         (g0,) = torch.autograd.grad(
             model({"coords": coordsP, "u": u}, gridP), u)
     ops = _level_ops(model, levels, flags, dmesh)
-    fine_op = ops[0]
-
-    def precond(r):
-        return _vcycle(ops, levels, ks, r, nu, coarse_degree)
-
-    r = -g0
-    z = precond(r)
-    p = z
-    x = torch.zeros_like(uP)
-    rz = torch.sum(r * z)
-    rr0 = torch.sum(r * r)
-    rr = rr0
-    hist = torch.zeros((max_iters,), dtype=rr0.dtype, device=rr0.device)
-    thresh = (tol * tol) * rr0
-    i = 0
-    # one stop decision an iteration, from scalars bit-equal on every rank
-    while i < max_iters and bool(rr > thresh):
-        Ap = fine_op(p)
-        pAp = torch.sum(p * Ap)
-        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
-                            torch.zeros_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.clamp_min(rz, _TINY)
-        p = z + beta * p
-        rz = rz_new
-        rr = torch.sum(r * r)
-        hist[i] = torch.sqrt(rr / torch.clamp_min(rr0, _TINY))
-        i += 1
-    return uP.detach() + x, hist
+    x, hist = _pcg(lambda v: {"u": ops[0](v["u"])},
+                   lambda r: {"u": mg._vcycle(ops, levels, r["u"], nu,
+                                              coarse_degree, ks)},
+                   mg._udot, {"u": -g0}, max_iters, tol)
+    return uP.detach() + x["u"], hist
 
 
 def mg_pcg_solve_all_sharded(model, grid: StructuredGrid, params,
@@ -256,7 +204,7 @@ def mg_pcg_solve_all_sharded(model, grid: StructuredGrid, params,
     u, hist = _solve(model, levels, ks, flags, gridP, coordsP, uP, dmesh,
                      int(max_iters), float(tol), int(nu),
                      int(coarse_degree))
-    return {"coords": params["coords"], "u": _unpad_rows(u, ks[0])}, hist
+    return {"coords": params["coords"], "u": mg._unpad_rows(u, ks[0])}, hist
 
 
 def _replicated_coarse(model, grid: StructuredGrid, coords, u,
@@ -278,12 +226,13 @@ def _replicated_coarse(model, grid: StructuredGrid, coords, u,
 def count_collectives(model, grid: StructuredGrid, params,
                       n_devices: int = 8, engine: str = "all",
                       max_iters: int = 4) -> dict:
-    """The collectives one rank issues in a sharded MG solve that runs
-    ``max_iters`` iterations (nu 3, coarse degree 24), by kind, derived
-    from the hierarchy without running it: one ``all_reduce`` for each
-    level operator on a sharded level, that is for each level's affine
-    part, each fine matvec (one an iteration) and the V-cycles (one
-    before the loop and one an iteration; 2 nu + 1 level operators on
+    """The collectives one rank issues in a sharded MG solve whose loop
+    calls its body ``max_iters`` times (the iterations run, and the
+    masked calls past the stop: ``solve/loop.py``; nu 3, coarse degree
+    24), by kind, derived from the hierarchy without running it: one
+    ``all_reduce`` for each level operator on a sharded level, that is
+    for each level's affine part, each fine matvec (one a call) and the
+    V-cycles (one before the loop and one a call; 2 nu + 1 level operators on
     every level but the coarsest, ``coarse_degree`` there).  The set-up,
     the right-hand side and the stop reads issue none.  The JAX package
     counts the collective HLOs of its compiled program instead, where
@@ -342,4 +291,4 @@ def mg_pcg_solve_sharded(model, grid: StructuredGrid, params,
     u, hist = _solve(model, levels, ks, flags, gridP, coordsP, uP, dmesh,
                      int(max_iters), float(tol), int(nu),
                      int(coarse_degree))
-    return {"coords": params["coords"], "u": _unpad_rows(u, ks[0])}, hist
+    return {"coords": params["coords"], "u": mg._unpad_rows(u, ks[0])}, hist

@@ -27,9 +27,13 @@ or hybrid route, the background is the fine node lattice itself: P^T is a
 reshape (kind "reshape", with tiny bilinear tables for a hybrid mesh's
 rim nodes) or a permutation gather (kind "perm").
 
-The JAX package runs the PCG loop as one compiled ``while_loop``; here it
-is a Python loop whose stop test is one read from the device an
-iteration, and the history holds zeros past the stop.
+The JAX package runs the PCG loop as one compiled ``while_loop``.  Here
+the iteration is ``solve/linear.py``'s masked body, which
+``solve/loop.py`` records once in a CUDA graph on the card and replays,
+reading the stop flag once every ``loop.READ_EVERY`` iterations; the
+background levels' operators and the windowed P^T's gather index are
+built before the first iteration, and the history holds zeros past the
+stop.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 from ..models.structured_grid import StructuredGrid, StructuredGridP1
 from ..ops.assembly import weighted_incidence_gather_sum
 from . import multigrid as mg
-from .linear import _grad, _tree_axpy, jacobi_diagonal
+from .linear import _grad, _pcg, _tree_axpy, jacobi_diagonal
 
 __all__ = ["build_aux_preconditioner", "aux_pcg_solve", "radapt_aux_solve"]
 
@@ -88,6 +92,16 @@ class _AuxPrecond:
     aff_ids: Optional[torch.Tensor] = None      # [A] flat padded bg ids
     aff_inc: Optional[torch.Tensor] = None      # [A*D] rim-relative (R: none)
     aff_w: Optional[torch.Tensor] = None        # [A, D]
+    # [BB, R, D] fine-node ids of the windowed P^T's gather (N: the zero
+    # row), derived from the window tables once, not on every application
+    ptw_idx: Optional[torch.Tensor] = dataclasses.field(init=False,
+                                                        default=None)
+
+    def __post_init__(self):
+        if self.ptw_rel is not None:
+            object.__setattr__(self, "ptw_idx", torch.where(
+                self.ptw_rel == self.ptw_width, self.free.shape[0],
+                self.ptw_starts[:, None, None] + self.ptw_rel))
 
 
 def _np(t) -> np.ndarray:
@@ -485,12 +499,10 @@ def _generic_pt(pre: _AuxPrecond, rf: torch.Tensor) -> torch.Tensor:
     the windowed layout when the set-up selected it, else the flat one."""
     nb_nx, nb_ny = pre.grid.nx, pre.grid.ny
     r_pad = _zero_row(rf)
-    if pre.ptw_rel is not None:
+    if pre.ptw_idx is not None:
         # each background-row block reads the fine rows [start, start +
         # width) and, for the sentinel, the zero row: one batched gather
-        idx = torch.where(pre.ptw_rel == pre.ptw_width, rf.shape[0],
-                          pre.ptw_starts[:, None, None] + pre.ptw_rel)
-        out = torch.sum(pre.ptw_w[..., None] * r_pad[idx], dim=2)
+        out = torch.sum(pre.ptw_w[..., None] * r_pad[pre.ptw_idx], dim=2)
         return out.reshape(-1, 2)[:nb_nx * nb_ny].reshape(nb_nx, nb_ny, 2)
     # the fine-node incidence gather (sentinel N: the zero row)
     return weighted_incidence_gather_sum(
@@ -498,9 +510,16 @@ def _generic_pt(pre: _AuxPrecond, rf: torch.Tensor) -> torch.Tensor:
         pre.pt_w).reshape(nb_nx, nb_ny, 2)
 
 
-def _apply_aux(bg_model, pre: _AuxPrecond, r, g0s=None):
-    """M^{-1} r (module doc); [N, 2] in and out."""
+def _apply_aux(bg_model, pre: _AuxPrecond, r, ops=None):
+    """M^{-1} r (module doc); [N, 2] in and out.  ``ops``: the background
+    levels' operators (``multigrid._level_ops``), built once a solve."""
     nb_nx, nb_ny = pre.grid.nx, pre.grid.ny
+    if ops is None:
+        ops = mg._level_ops(bg_model, pre.levels)
+
+    def vcycle(b):
+        return mg._vcycle(ops, pre.levels, b, nu=3, coarse_degree=24)
+
     rf = r * pre.free
     if pre.lat_kind == "reshape":
         # the lattice prefix is the background's core: P^T is a reshape
@@ -518,7 +537,7 @@ def _apply_aux(bg_model, pre: _AuxPrecond, r, g0s=None):
             r_bg = r_bg.reshape(-1, 2).index_add(
                 0, pre.aff_ids, contrib.to(rf.dtype)).reshape(nb_nx, nb_ny,
                                                               2)
-        z_bg = mg.vcycle(bg_model, pre.levels, r_bg, g0s=g0s)
+        z_bg = vcycle(r_bg)
         zf = z_bg[:nx, :ny].reshape(-1, 2)
         if pre.rim_corners is not None:
             zc = z_bg.reshape(-1, 2)[pre.rim_corners].reshape(-1, 4, 2)
@@ -531,11 +550,10 @@ def _apply_aux(bg_model, pre: _AuxPrecond, r, g0s=None):
         nx, ny = pre.lat_nx, pre.lat_ny
         r_bg = _pad_to(_zero_row(rf)[pre.lat_inv].reshape(nx, ny, 2),
                        nb_nx, nb_ny)
-        z_bg = mg.vcycle(bg_model, pre.levels, r_bg, g0s=g0s)
+        z_bg = vcycle(r_bg)
         zf = z_bg[:nx, :ny].reshape(-1, 2)[pre.lat_pos]
         return pre.free * (pre.omega * pre.dinv * r + zf)
-    z_bg = mg.vcycle(bg_model, pre.levels, _generic_pt(pre, rf),
-                     g0s=g0s).reshape(-1, 2)
+    z_bg = vcycle(_generic_pt(pre, rf)).reshape(-1, 2)
     # P z_bg: four weighted corner rows per fine node
     z_coarse = weighted_incidence_gather_sum(z_bg, pre.p_idx.reshape(-1, 4),
                                              pre.p_w)
@@ -551,41 +569,18 @@ def _aux_pcg(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
         gv = _grad(loss_fn, _tree_axpy(1.0, v, params), loss_args)
         return {k: gv[k] - g0[k] for k in gv}
 
-    g0s = mg.level_g0s(bg_model, pre.levels)     # loop-invariant
+    ops = mg._level_ops(bg_model, pre.levels)     # loop-invariant
 
     def precond(rt):
-        return {u_key: _apply_aux(bg_model, pre, rt[u_key], g0s=g0s)}
+        return {u_key: _apply_aux(bg_model, pre, rt[u_key], ops)}
 
     def dot(a, b):
         return torch.sum(a[u_key] * b[u_key])
 
-    r = {k: -g for k, g in g0.items()}
-    z = precond(r)
-    p = z
-    x = {k: torch.zeros_like(v) for k, v in params.items()}
-    rs0 = dot(r, r)
-    rz = dot(r, z)
-    rs = rs0
-    hist = torch.zeros((max_iters,), dtype=rs0.dtype, device=rs0.device)
-    thresh = (tol * tol) * rs0
-    i = 0
-    # one read from the device per iteration: the stop test (identical on
-    # every rank of a sharded solve, whose matvecs are all-reduced)
-    while i < max_iters and bool(rs > thresh):
-        Ap = matvec(p)
-        pAp = dot(p, Ap)
-        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
-                            torch.zeros_like(pAp))
-        x = _tree_axpy(alpha, p, x)
-        r = _tree_axpy(-alpha, Ap, r)
-        z = precond(r)
-        rz_new = dot(r, z)
-        beta = rz_new / torch.clamp_min(rz, _TINY)
-        p = {k: z[k] + beta * p[k] for k in z}
-        rz = rz_new
-        rs = dot(r, r)
-        hist[i] = torch.sqrt(rs / torch.clamp_min(rs0, _TINY))
-        i += 1
+    # the stop flag is identical on every rank of a sharded solve, whose
+    # matvecs are all-reduced
+    x, hist = _pcg(matvec, precond, dot, {k: -g for k, g in g0.items()},
+                   max_iters, tol)
     return {k: params[k] + x[k] for k in params}, hist
 
 

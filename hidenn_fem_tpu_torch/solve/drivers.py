@@ -6,35 +6,34 @@ and the strategies ``alternating_solve``, ``two_phase_solve`` and
 The JAX package compiles a whole solve into one ``lax.scan`` inside one
 ``jit``.  Here a step (one ``torch.autograd.grad`` through the loss, the
 optimizer's update and ``x += step``) is one body, ``_step``, on a static
-leaf that holds the flat params, and ``_Stepper`` drives it.  On the card
-the stepper runs the body eagerly for the optimizer's first call (its
-``count == 0`` branch) and once more as a warm-up on a side stream with
-``torch.cuda.set_sync_debug_mode("error")`` (a step that reads the device
-from the host raises there), then records one step in a CUDA graph and
-replays it for every later step: the host launches one graph a step
-instead of the step's hundred-odd kernels.  The loss history is written
-on the device by the step itself, at the step's device count, so nothing
-is read back until the end unless ``tol`` is set; with ``tol`` the step
-also writes whether the gradient's infinity norm fell below it, and the
-host reads that one flag after each step and stops replaying (the JAX
-package's ``lax.cond`` mask), padding the history with the last value.
-The loss history holds the value at the params *before* each update, as
-in the JAX drivers.  The kernels' launch counters (and the collective
-counters of ``parallel.sharding``) count each replay: the launches
-recorded at capture, times the replays.
+leaf that holds the flat params, and ``_Stepper`` drives it through
+``solve/loop.py``'s ``Replayer``, which the linear solvers' while loops
+share.  On the card the optimizer's first call (its ``count == 0``
+branch) and one warm-up (on a side stream, under
+``torch.cuda.set_sync_debug_mode("error")``) run eagerly; then one step
+is recorded in a CUDA graph and replayed for every later step: the host
+launches one graph a step instead of the step's hundred-odd kernels.
+The loss history is written on the device by the step itself, at the
+step's device count, so nothing is read back until the end unless
+``tol`` is set; with ``tol`` the step also writes whether the gradient's
+infinity norm fell below it, and the host reads that one flag after each
+step and stops replaying (the JAX package's ``lax.cond`` mask), padding
+the history with the last value.  The loss history holds the value at
+the params *before* each update, as in the JAX drivers.  The kernels'
+launch counters (and the collective counters of ``parallel.sharding``)
+count each replay: the launches recorded at capture, times the replays.
 
 Not captured, each decided before the first step from a stated fact:
-* tensors on the CPU: CUDA graphs exist only on the card, and the same
-  body runs eagerly there;
+* what ``solve/loop.py`` does not capture: tensors on the CPU (the same
+  body runs eagerly there) and a process whose default
+  ``torch.distributed`` group runs on gloo (one rank on NCCL is
+  captured);
 * an optimizer without ``capturable = True``: the zoom line search
   (``ZoomLBFGS``) reads every trial point's value and slope on the host,
   and its last trial's value and gradient start the next step (the JAX
   package's ``optax.value_and_grad_from_state``), so it stays a loop
   (``_linesearch_steps``) whose step costs the search's trial points and
   no more;
-* a process whose default ``torch.distributed`` group runs on gloo (the
-  sharded paths with several ranks on one card): gloo's collectives run
-  on the host and cannot be recorded; one rank on NCCL is captured;
 * fewer than three steps in all (the first call and the warm-up are
   eager, so nothing would be replayed).
 A step that makes a host sync, or a capture that fails, raises: no path
@@ -43,13 +42,13 @@ falls back to the loop.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Callable, Optional
 
 import torch
 
+from . import loop as _loop
 from . import optimizers as _opt
 from .optimizers import lbfgs, ravel_params, unravel_params
 
@@ -109,47 +108,16 @@ def _step(vg, optimizer, leaf, state):
     return loss, g, state
 
 
-def _counters() -> tuple:
-    """The kernels' launch counters and the collective counters, which a
-    replay must move as the captured launches did."""
-    from ..ops import banded_energy, element_energy, lattice_slab, \
-        window_gather
-    from ..parallel import sharding
-    return (element_energy.launch_counts, lattice_slab.launch_counts,
-            banded_energy.launch_counts, window_gather.launch_counts,
-            sharding.collective_counts)
-
-
 def _capturable(optimizer, device: torch.device) -> bool:
     """Whether the steps of ``optimizer`` on ``device`` are captured (the
     module doc's list of what is not)."""
-    if device.type != "cuda" or not getattr(optimizer, "capturable", False):
-        return False
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_backend() == "gloo")
-
-
-@contextlib.contextmanager
-def _no_host_sync():
-    """``set_sync_debug_mode("error")`` over the block: a step that waits
-    for the device from the host raises, with what it means here."""
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    except RuntimeError as e:
-        raise RuntimeError(
-            "the optimizer step synchronizes with the host (a read of a "
-            "device value, a copy from pageable memory), so it cannot be "
-            "captured in a CUDA graph; see solve/drivers.py") from e
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+    return getattr(optimizer, "capturable", False) and _loop.capturable(
+        device)
 
 
 class _Stepper:
     """The steps of ``optimizer`` on the static ``leaf``: eager, or on the
-    card captured once and replayed (module doc).
+    card captured once and replayed (module doc; ``solve/loop.py``).
 
     The body writes the step's loss into ``hist[t // every]`` (``t``: the
     stepper's device count of steps; ``every > 1`` keeps the last loss of
@@ -167,10 +135,10 @@ class _Stepper:
         dev = leaf.device
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self.stop = torch.zeros((), dtype=torch.bool, device=dev)
-        self.capture = (_capturable(optimizer, dev) if capture is None
-                        else capture)
-        self.eager_steps = 0
-        self.graph = self.side = self.per_replay = None
+        if capture is None:
+            capture = _capturable(optimizer, dev)
+        # the optimizer's first call and the warm-up run eagerly
+        self.loop = _loop.Replayer(self._body, dev, capture, eager=2)
 
     def _body(self):
         loss, g, state = _step(self.vg, self.optimizer, self.leaf,
@@ -187,52 +155,20 @@ class _Stepper:
             self.stop.copy_(g.abs().max() < self.tol)
         return state
 
-    def _eager(self):
-        if self.capture and self.eager_steps == 1:
-            # the warm-up, on the stream the capture will use
-            cur = torch.cuda.current_stream(self.leaf.device)
-            self.side = torch.cuda.Stream(self.leaf.device)
-            self.side.wait_stream(cur)
-            with torch.cuda.stream(self.side), _no_host_sync():
-                self.state = self._body()
-            cur.wait_stream(self.side)
-        else:
-            self.state = self._body()
-        self.eager_steps += 1
-
-    def _capture(self):
-        counters = _counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.side):
-            self._body()            # recorded, not run: the state stands
-        self.per_replay = [{k: c[k] - b[k] for k in c}
-                           for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
-            c.update(b)
-        self.graph = graph
-
     def run(self, n: int) -> int:
         """Up to ``n`` steps (fewer when ``tol`` stops them); returns how
         many ran."""
-        done = replays = 0
+        done = 0
         while done < n:
-            if self.graph is not None:
-                self.graph.replay()
-                replays += 1
-            elif self.capture and self.eager_steps >= 2:
-                self._capture()
-                continue
-            else:
-                self._eager()
+            state = self.loop()
+            if state is not None:           # an eager step
+                self.state = state
             done += 1
             if self.tol is not None and bool(self.stop):    # one read
                 break
+        replays = self.loop.settle()
         if replays:
             self.state = self.optimizer.advance(self.state, replays)
-            for c, d in zip(_counters(), self.per_replay):
-                for k, v in d.items():
-                    c[k] += v * replays
         return done
 
     def history(self, done: int) -> torch.Tensor:

@@ -18,13 +18,23 @@ Fixed (Dirichlet) degrees of freedom need no special casing: the masked
 parameter reconstruction gives them exactly-zero gradients, so every
 Krylov vector stays in the free subspace.
 
-The JAX package stops the loop inside a ``while_loop``.  Here the loop
-is Python and its stop test (``i < max_iters``, ``rs > tol^2 rs0``,
-``rs > atol^2``, evaluated on the device in the residual's dtype) is one
-read from the device per iteration; everything else stays on the device.
-The history has ``max_iters`` entries and holds zeros for iterations
-never run.  Params are dicts of tensors; leaves are taken in sorted-key
-order, as ``jax.tree.leaves`` orders a dict.
+The JAX package runs the iterations inside a ``while_loop``.  Here one
+iteration is one body, ``_pcg``'s, that updates static tensors in place
+and masks itself: it computes JAX's condition (``i < max_iters``,
+``rs > tol^2 rs0``, ``rs > atol^2``, on the device in the residual's
+dtype) into a device flag, and once the flag is false a call changes no
+carried tensor and no history entry, bit for bit.  ``solve/loop.py``
+runs it: on the card one iteration is recorded in a CUDA graph after an
+eager warm-up and replayed, and the host reads the flag once every
+``loop.READ_EVERY`` iterations (the CPU runs the same body eagerly, with
+the same reads); a solve allowed fewer than ``loop.MIN_CAPTURED``
+iterations stays eager.  The calls past the stop are masked device work
+and launch their kernels like any other (the launch counters count
+them).  The multigrid and auxiliary-space solvers run the same body.
+The Jacobi diagonal's colored probing is set-up and stays eager.  The
+history has ``max_iters`` entries and holds zeros for iterations never
+run.  Params are dicts of tensors; leaves are taken in sorted-key order,
+as ``jax.tree.leaves`` orders a dict.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+from . import loop as _loop
 
 __all__ = ["cg_solve", "radapt_cg_solve", "jacobi_diagonal",
            "jacobi_pcg_solve"]
@@ -62,6 +74,58 @@ def _grad(loss_fn: Callable, params: dict, loss_args: tuple) -> dict:
             for k, leaf, g in zip(keys, leaves, grads)}
 
 
+def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
+         atol: float = 0.0):
+    """The JAX package's PCG ``while_loop`` from x = 0 and the residual
+    ``r`` (a dict of tensors; ``matvec``, ``precond`` map such dicts and
+    ``dot`` two of them to a 0-dim tensor), one masked body run by
+    ``loop.while_loop`` (module doc).  Returns (x, relres history
+    [max_iters])."""
+    z = precond(r)
+    # carried in place: p must not share storage with r (precond may be
+    # the identity)
+    p = {k: v.clone() for k, v in z.items()}
+    x = {k: torch.zeros_like(v) for k, v in r.items()}
+    rs0 = dot(r, r)
+    rz = dot(r, z)
+    rs = rs0.clone()
+    # hist[max_iters] takes the masked iterations' writes
+    hist = torch.zeros((max_iters + 1,), dtype=rs0.dtype, device=rs0.device)
+    thresh = (tol * tol) * rs0
+    i = torch.zeros((), dtype=torch.int64, device=rs0.device)
+
+    def cond():
+        return (i < max_iters) & (rs > thresh) & (rs > atol * atol)
+    active = cond()
+
+    def body():
+        Ap = matvec(p)
+        pAp = dot(p, Ap)
+        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
+                            torch.zeros_like(pAp))
+        x_new = _tree_axpy(alpha, p, x)
+        r_new = _tree_axpy(-alpha, Ap, r)
+        z = precond(r_new)
+        rz_new = dot(r_new, z)
+        beta = rz_new / torch.clamp_min(rz, _TINY)
+        p_new = {k: z[k] + beta * p[k] for k in z}
+        rs_new = dot(r_new, r_new)
+        # past the stop every carried tensor keeps its bits
+        for old, new in ((x, x_new), (r, r_new), (p, p_new)):
+            for k in old:
+                torch.where(active, new[k], old[k], out=old[k])
+        for old, new in ((rz, rz_new), (rs, rs_new)):
+            torch.where(active, new, old, out=old)
+        hist.index_copy_(0, torch.where(active, i, max_iters).view(1),
+                         torch.sqrt(rs_new / torch.clamp_min(rs0, _TINY)
+                                    ).view(1))
+        i.add_(active.to(i.dtype))
+        active.copy_(cond())
+
+    _loop.while_loop(body, active, max_iters, rs0.device)
+    return x, hist[:max_iters]
+
+
 def _cg(loss_fn, max_iters: int, tol: float, params: dict,
         loss_args: tuple, dinv=None, atol: float = 0.0):
     params = {k: v.detach() for k, v in params.items()}
@@ -74,32 +138,8 @@ def _cg(loss_fn, max_iters: int, tol: float, params: dict,
     def precond(r):
         return r if dinv is None else {k: dinv[k] * r[k] for k in r}
 
-    r = {k: -g for k, g in g0.items()}
-    z = precond(r)
-    p = z
-    x = {k: torch.zeros_like(v) for k, v in params.items()}
-    rs0 = _tree_dot(r, r)
-    rz = _tree_dot(r, z)
-    rs = rs0
-    hist = torch.zeros((max_iters,), dtype=rs0.dtype, device=rs0.device)
-    thresh = (tol * tol) * rs0
-    i = 0
-    # one read from the device per iteration: the stop test
-    while i < max_iters and bool((rs > thresh) & (rs > atol * atol)):
-        Ap = matvec(p)
-        pAp = _tree_dot(p, Ap)
-        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
-                            torch.zeros_like(pAp))
-        x = _tree_axpy(alpha, p, x)
-        r = _tree_axpy(-alpha, Ap, r)
-        z = precond(r)
-        rz_new = _tree_dot(r, z)
-        beta = rz_new / torch.clamp_min(rz, _TINY)
-        p = {k: z[k] + beta * p[k] for k in z}
-        rs = _tree_dot(r, r)
-        hist[i] = torch.sqrt(rs / torch.clamp_min(rs0, _TINY))
-        rz = rz_new
-        i += 1
+    x, hist = _pcg(matvec, precond, _tree_dot,
+                   {k: -g for k, g in g0.items()}, max_iters, tol, atol)
     return {k: params[k] + x[k] for k in params}, hist
 
 

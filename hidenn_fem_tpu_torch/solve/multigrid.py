@@ -29,10 +29,17 @@ DOFs and hole interiors probe a zero diagonal, which the guarded
 ``1/diag`` freezes; prolongation is masked to the free DOFs.
 
 The JAX package builds the hierarchy and runs the PCG loop as compiled
-programs; here they are Python loops.  The PCG stop test is one read from
-the device per iteration, and each level's Chebyshev coefficients are
-computed once on the host (from ``lmax``, in the level's dtype) at
-set-up.
+programs.  Here the hierarchy is a Python loop and the PCG iteration is
+``solve/linear.py``'s masked body (``_pcg``), which ``solve/loop.py``
+records once in a CUDA graph on the card and replays, reading the stop
+flag on the host once every ``loop.READ_EVERY`` iterations.  Everything
+the graph reads is built before the first iteration: each level's
+operator (its pinned coordinates, stencil weights and gradient at zero:
+``_level_ops``) and each level's Chebyshev coefficients, computed once on
+the host from ``lmax_host`` in the level's dtype and baked into the
+graph, which is therefore replayed only within the solve that recorded
+it (a new hierarchy, as ``radapt_mg_solve`` builds every epoch, is a new
+capture).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from ..models.structured_grid import StructuredGrid
 from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
                                 structured_stencil)
+from .linear import _pcg
 
 __all__ = ["coarsen_grid", "prolong", "build_hierarchy", "vcycle",
            "mg_pcg_solve", "radapt_mg_solve"]
@@ -172,6 +180,16 @@ def _level_op(model, grid: StructuredGrid, coords: torch.Tensor, g0=None):
     return op
 
 
+def _level_ops(model, levels, g0s=None) -> list:
+    """Every level's operator, built once a solve: the pinned coordinates,
+    the stencil weights and (unless ``g0s`` gives them) the affine parts
+    are computed here, not on every V-cycle."""
+    if g0s is None:
+        g0s = (None,) * len(levels)
+    return [_level_op(model, lev.grid, lev.coords, g0)
+            for lev, g0 in zip(levels, g0s)]
+
+
 def _setup_level(model, grid: StructuredGrid, coords: torch.Tensor,
                  power_iters: int) -> _Level:
     op = _level_op(model, grid, coords)
@@ -270,26 +288,54 @@ def _cheb_smooth(op, lev: _Level, b, x, degree: int):
     return x
 
 
+def _unpad_rows(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Drop |k| dead rows of a padded level: k > 0 prepended (slice the
+    front), k < 0 appended (slice the back), 0 none."""
+    if k == 0:
+        return a
+    return a[k:] if k > 0 else a[:k]
+
+
+def _pad0_rows(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact adjoint of ``_unpad_rows``: zero rows on the matching side."""
+    if k == 0:
+        return a
+    z = a.new_zeros((abs(k),) + tuple(a.shape[1:]))
+    return torch.cat([z, a] if k > 0 else [a, z], dim=0)
+
+
+def _vcycle(ops, levels, b, nu: int, coarse_degree: int, ks=None,
+            _l: int = 0):
+    """One V(nu, nu) cycle from level ``_l`` on the level operators
+    ``ops``; ``ks`` are the levels' signed dead-row pad counts
+    (``parallel/sharded_mg.py``; None: no level is padded)."""
+    lev, op = levels[_l], ops[_l]
+    if _l == len(levels) - 1:
+        return _cheb_smooth(op, lev, b, torch.zeros_like(b), coarse_degree)
+    k0, k1 = (0, 0) if ks is None else (ks[_l], ks[_l + 1])
+    x = _cheb_smooth(op, lev, b, torch.zeros_like(b), nu)
+    rc = _pad0_rows(_restrict(_unpad_rows(b - op(x), k0)), k1)
+    xc = _vcycle(ops, levels, rc, nu, coarse_degree, ks, _l + 1)
+    x = x + lev.free * _pad0_rows(prolong(_unpad_rows(xc, k1)), k0)
+    return _cheb_smooth(op, lev, b, x, nu)
+
+
 def vcycle(model, levels: Tuple[_Level, ...], b, nu: int = 3,
            coarse_degree: int = 24, _l: int = 0, g0s=None):
     """One V(nu, nu) cycle approximating K^{-1} b on the finest level;
     linear and symmetric in ``b`` (a valid PCG preconditioner).  Pass
-    ``g0s = level_g0s(model, levels)`` from inside an iteration loop so
-    the affine parts are not recomputed per call."""
-    if g0s is None:
-        g0s = level_g0s(model, levels)
-    lev = levels[_l]
-    op = _level_op(model, lev.grid, lev.coords, g0s[_l])
-    if _l == len(levels) - 1:
-        return _cheb_smooth(op, lev, b, torch.zeros_like(b), coarse_degree)
-    x = _cheb_smooth(op, lev, b, torch.zeros_like(b), nu)
-    rc = _restrict(b - op(x))
-    xc = vcycle(model, levels, rc, nu, coarse_degree, _l + 1, g0s)
-    x = x + lev.free * prolong(xc)
-    return _cheb_smooth(op, lev, b, x, nu)
+    ``g0s = level_g0s(model, levels)`` so the affine parts are not
+    recomputed per call (the solvers build the level operators once a
+    solve and call ``_vcycle``)."""
+    return _vcycle(_level_ops(model, levels, g0s), levels, b, nu,
+                   coarse_degree, _l=_l)
 
 
 # -------------------------------------------------------------------- PCG
+def _udot(a: dict, b: dict) -> torch.Tensor:
+    return torch.sum(a["u"] * b["u"])
+
+
 def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
             nu: int, coarse_degree: int):
     u0 = params["u"].detach()
@@ -297,37 +343,14 @@ def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
     u = u0.clone().requires_grad_(True)
     (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid), u)
 
-    g0s = level_g0s(model, levels)          # affine parts, hoisted
-    # K of the full energy (the traction term is linear in u)
-    fine_op = _level_op(model, levels[0].grid, coords, g0s[0])
-
-    r = -g0
-    z = vcycle(model, levels, r, nu, coarse_degree, g0s=g0s)
-    p = z
-    x = torch.zeros_like(u0)
-    rz = torch.sum(r * z)
-    rr0 = torch.sum(r * r)
-    rr = rr0
-    hist = torch.zeros((max_iters,), dtype=rr0.dtype, device=rr0.device)
-    thresh = (tol * tol) * rr0
-    i = 0
-    # one read from the device per iteration: the stop test
-    while i < max_iters and bool(rr > thresh):
-        Ap = fine_op(p)
-        pAp = torch.sum(p * Ap)
-        alpha = torch.where(pAp > 0, rz / torch.clamp_min(pAp, _TINY),
-                            torch.zeros_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = vcycle(model, levels, r, nu, coarse_degree, g0s=g0s)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.clamp_min(rz, _TINY)
-        p = z + beta * p
-        rz = rz_new
-        rr = torch.sum(r * r)
-        hist[i] = torch.sqrt(rr / torch.clamp_min(rr0, _TINY))
-        i += 1
-    return {"coords": params["coords"], "u": u0 + x}, hist
+    # loop invariants: every level's operator (level 0's is K of the full
+    # energy: the traction term is linear in u), built once
+    ops = _level_ops(model, levels)
+    x, hist = _pcg(lambda v: {"u": ops[0](v["u"])},
+                   lambda r: {"u": _vcycle(ops, levels, r["u"], nu,
+                                           coarse_degree)},
+                   _udot, {"u": -g0}, max_iters, tol)
+    return {"coords": params["coords"], "u": u0 + x["u"]}, hist
 
 
 def mg_pcg_solve(model, grid: StructuredGrid, params,

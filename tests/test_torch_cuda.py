@@ -17,6 +17,7 @@ eagerly on the card, on every route where two eager runs are bit-equal.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -650,6 +651,16 @@ def test_level_operator_is_the_autograd_gradient_bit_for_bit(dev, shape):
         coords = coords[::2, ::2].contiguous()
 
 
+def _calls(iters, max_iters):
+    """Calls of a solver's loop body for ``iters`` iterations: the
+    iterations rounded up to a multiple of ``loop.READ_EVERY`` (the
+    masked calls past the stop), at most ``max_iters``."""
+    from hidenn_fem_tpu_torch.solve import loop
+
+    k = loop.READ_EVERY
+    return min(k * -(-iters // k), max_iters)
+
+
 def test_cg_solve_on_the_card_matches_the_cpu(dev):
     """cg_solve on a banded Delaunay mesh (K4 every matvec) and on a
     lattice plate (K6 every matvec) against the same solve on the CPU's
@@ -678,7 +689,8 @@ def test_cg_solve_on_the_card_matches_the_cpu(dev):
                                     tol=1e-6)
             launched = mod.launch_counts[name] - before
             iters = int((hist > 0).sum())
-            assert launched == (0 if where == "cpu" else iters + 1)
+            assert launched == (0 if where == "cpu"
+                                else _calls(iters, 2000) + 1)
             with torch.no_grad():
                 out[str(where)] = (sol["u"].cpu(),
                                    float(loss(sol, m.coords, m)))
@@ -719,10 +731,11 @@ def test_mg_pcg_solve_on_the_card_matches_the_cpu(dev):
             # set-up: g0, 8 probes and 30 power iterations a level; solve:
             # the right-hand side, the levels' g0s, a V(3,3) cycle (7 level
             # operators a level, 24 on the coarsest) before the loop and
-            # each iteration, and one fine matvec each iteration
+            # each call of the loop body, and one fine matvec each call
             cycle = 7 * (n_lev - 1) + 24
+            calls = _calls(iters, 40)
             assert setup == 39 * n_lev
-            assert solve == 1 + n_lev + (iters + 1) * cycle + iters
+            assert solve == 1 + n_lev + (calls + 1) * cycle + calls
         out[str(where)] = sol["u"].cpu()
     _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
 
@@ -840,14 +853,15 @@ def test_aux_pcg_solve_on_the_card_matches_the_cpu(dev):
             if where == "cpu":
                 assert got == {"k6": 0, "fine": 0}
             else:
-                # the fine gradient at the start and one matvec an
-                # iteration; the levels' gradients at zero once, then a
-                # V-cycle before the loop and one each iteration
-                vcycles = n_lev + (iters + 1) * cycle
+                # the fine gradient at the start and one matvec a call of
+                # the loop body; the levels' gradients at zero once, then
+                # a V-cycle before the loop and one each call
+                calls = _calls(iters, 200)
+                vcycles = n_lev + (calls + 1) * cycle
                 if fine[1] == "lattice_stencil_vg":
-                    assert got["k6"] == 1 + iters + vcycles
+                    assert got["k6"] == 1 + calls + vcycles
                 else:
-                    assert got == {"k6": vcycles, "fine": 1 + iters}
+                    assert got == {"k6": vcycles, "fine": 1 + calls}
             out[str(where)] = sol["u"].cpu()
         _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
 
@@ -1233,20 +1247,20 @@ def _capture_case(name, dev):
 
 
 def _launched(before):
-    from hidenn_fem_tpu_torch.solve import drivers
+    from hidenn_fem_tpu_torch.solve import loop
     return [{k: c[k] - b[k] for k in c}
-            for c, b in zip(drivers._counters(), before)]
+            for c, b in zip(loop._counters(), before)]
 
 
 def _drive(drive, monkeypatch, capture):
     """One run of ``drive`` with the capture on or off; returns (flat
     params, history, every counter's launches)."""
-    from hidenn_fem_tpu_torch.solve import drivers
+    from hidenn_fem_tpu_torch.solve import drivers, loop
 
     with monkeypatch.context() as mp:
         if not capture:
             mp.setattr(drivers, "_capturable", lambda *a: False)
-        before = [dict(c) for c in drivers._counters()]
+        before = [dict(c) for c in loop._counters()]
         params, hist = drive()
         torch.cuda.synchronize()
     flat = params if isinstance(params, torch.Tensor) else torch.cat(
@@ -1348,3 +1362,143 @@ def test_steady_state_step_makes_no_host_sync(dev):
         return e * (1.0 + 0.0 * float(e))
     with pytest.raises(RuntimeError, match="synchronizes with the host"):
         pt.run_lbfgs(reads, params, num_steps=5, loss_args=args)
+
+
+# ------------------------ the captured solver loops (one CUDA graph an
+# iteration, replayed; the stop flag read every loop.READ_EVERY replays)
+SOLVER_CASES = ["cg_lattice", "cg_banded", "jacobi_lattice", "jacobi_banded",
+                "mg", "aux_lattice", "aux_banded"]
+
+
+def _solver_drive(name, dev):
+    """(drive, kernels that must launch) of one solver from rest:
+    ``drive()`` returns (solution u, history) through the public solver;
+    hierarchies and preconditioners are built once, outside it."""
+    if name == "mg":
+        grid, model, params = _mg_plate(97, 49, dev)
+        params["u"] = torch.zeros_like(params["u"])
+        with torch.no_grad():
+            levels = pt.build_hierarchy(model, grid,
+                                        model.coords(params, grid))
+
+        def drive():
+            sol, h = pt.mg_pcg_solve(model, grid, params, max_iters=40,
+                                     tol=1e-6, levels=levels)
+            return sol["u"], h
+        return drive, ("lattice_stencil_vg",)
+    if name.endswith("lattice"):
+        mesh, needs = (pt.proxy_plate_mesh(nx=41, ny=21, device=dev),
+                       ("lattice_stencil_vg",))
+    else:
+        mesh = pt.generate_mesh_delaunay(lc=0.09, device=dev)
+        mesh = dataclasses.replace(
+            mesh, banded=_banded_tables(mesh, 3, dev),
+            banded_paired=_banded_tables(mesh, 4, dev))
+        needs = ("banded_vg",)
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    args = (mesh.coords, mesh)
+    if name.startswith("aux"):
+        pre = pt.build_aux_preconditioner(
+            loss, u0, args, mesh, bg_model=StructuredGridP1(E=E, nu=NU))
+        solve = functools.partial(pt.aux_pcg_solve, pre=pre, max_iters=200)
+        needs = needs + ("lattice_stencil_vg",)
+    elif name.startswith("jacobi"):
+        solve = functools.partial(pt.jacobi_pcg_solve, mesh=mesh,
+                                  max_iters=2000)
+    else:
+        solve = functools.partial(pt.cg_solve, max_iters=2000)
+
+    def drive():
+        sol, h = solve(loss, u0, args, tol=1e-6)
+        return sol["u"], h
+    return drive, needs
+
+
+def _solver_run(drive, monkeypatch, capture):
+    """One run of ``drive`` with the capture on or off: (u, history,
+    every counter's launches, graphs recorded)."""
+    from hidenn_fem_tpu_torch.solve import loop
+
+    with monkeypatch.context() as mp:
+        if not capture:
+            mp.setattr(loop, "capturable", lambda device: False)
+        before = [dict(c) for c in loop._counters()]
+        graphs = loop.captures["graphs"]
+        u, h = drive()
+        torch.cuda.synchronize()
+    return u, h, _launched(before), loop.captures["graphs"] - graphs
+
+
+@pytest.mark.parametrize("name", SOLVER_CASES)
+def test_captured_solver_matches_the_eager_solver(dev, monkeypatch, name):
+    """Each solver's iterations replayed from one CUDA graph against the
+    same body run eagerly on the card: two eager runs are bit-equal (the
+    kernels sum without atomics), and so is the captured run, history and
+    solution; every counter moves as in the eager run (the captured
+    launches times the replays, the masked ones included), each kernel
+    of the path launched, and the solve reached relres 1e-6."""
+    drive, needs = _solver_drive(name, dev)
+    e1, e2, cap = (_solver_run(drive, monkeypatch, c)
+                   for c in (False, False, True))
+    assert e1[3] == e2[3] == 0 and cap[3] == 1
+    assert torch.equal(e1[0], e2[0]) and torch.equal(e1[1], e2[1])
+    assert torch.equal(cap[0], e1[0]) and torch.equal(cap[1], e1[1])
+    assert cap[2] == e1[2], (cap[2], e1[2])
+    launched = {k: v for c in cap[2] for k, v in c.items()}
+    for k in needs:
+        assert launched[k] > 0, k
+    h = cap[1].cpu().numpy()
+    assert h[h > 0][-1] <= 1e-6 and np.all(h[int((h > 0).sum()):] == 0)
+
+
+def test_solver_body_with_a_host_read_raises(dev):
+    """The warm-up iteration runs under ``set_sync_debug_mode("error")``:
+    a loss that reads the device from the host makes ``cg_solve`` raise
+    instead of running the loop eagerly."""
+    mesh = pt.proxy_plate_mesh(nx=41, ny=21, device=dev)
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def reads(p, coords, m):
+        e = energy({"u": p["u"], "coords": coords}, m)
+        return e * (1.0 + 0.0 * float(e))
+    u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    with pytest.raises(RuntimeError, match="synchronizes with the host"):
+        pt.cg_solve(reads, u0, (mesh.coords, mesh), max_iters=50)
+
+
+def test_one_nccl_rank_sharded_mg_is_captured(dev, monkeypatch):
+    """``mg_pcg_solve_sharded`` on a one-rank NCCL group (every sharded
+    level operator an ``all_reduce``, recorded in the graph): the captured
+    solve is bit-equal to the eager one, and both issue the
+    ``all_reduce`` calls of ``count_collectives`` for the loop body's
+    calls."""
+    from hidenn_fem_tpu_torch.parallel import (device_mesh,
+                                               initialize_multihost,
+                                               sharded_mg)
+    from torch_sharded_common import free_port
+
+    grid, model, params = _mg_plate(65, 33, dev)
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        dmesh = device_mesh(device=dev)
+
+        def drive():
+            sol, h = sharded_mg.mg_pcg_solve_sharded(
+                model, grid, params, dmesh=dmesh, max_iters=40, tol=1e-6)
+            return sol["u"], h
+
+        eager, cap = (_solver_run(drive, monkeypatch, c)
+                      for c in (False, True))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert eager[3] == 0 and cap[3] == 1
+    assert torch.equal(cap[0], eager[0]) and torch.equal(cap[1], eager[1])
+    assert cap[2] == eager[2]
+    iters = int((cap[1] > 0).sum())
+    want = sharded_mg.count_collectives(model, grid, params, n_devices=1,
+                                        max_iters=_calls(iters, 40))
+    assert cap[2][-1]["all_reduce"] == want["all_reduce"] > 0

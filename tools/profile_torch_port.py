@@ -13,10 +13,12 @@ the 922K-class plate on the lattice route; example 6's 1000x500
 value-and-grad) and, banded tables stripped, on the flat gather route
 (K1, K2, incidence_sum).  Two more windows profile the linear solvers
 per iteration: ``cg_solve`` on the 898K Delaunay plate from u = 0 (K4
-each matvec, one stop-test read an iteration) and ``mg_pcg_solve`` on
-example 9's hole-free 961x481 ``StructuredGridP1`` on a prebuilt
-hierarchy (K6 each level operator), each a 10-iteration solve that runs
-to its cap.  Three windows profile auxiliary-space PCG per iteration on a
+each matvec) and ``mg_pcg_solve`` on example 9's hole-free 961x481
+``StructuredGridP1`` on a prebuilt hierarchy (K6 each level operator),
+each a 10-iteration solve that runs to its cap; on the card each solve
+records its own CUDA graph (``solve/loop.py``), so these windows hold one
+eager warm-up and one recording a solve besides the replays
+(``chip_smoke.py`` phase 23 times the steady-state iteration alone).  Three windows profile auxiliary-space PCG per iteration on a
 preconditioner built once: example 10's 961x481 proxy plate on the
 lattice-aligned background (``961x481_aux_lattice_bg``: K6 each matvec
 and each level operator) and on the generic background
