@@ -48,6 +48,15 @@ Phases (each raises on failure, and the script then exits non-zero):
       rebanded for 4 ranks (``reband_for_shards``), launched in turn: the
       rows placed at row_start equal the unsharded K4/K5 rows bit for bit,
       the slice energies sum to the whole within ROWS_SUM_RTOL.
+   h. the compact L-BFGS's two passes over its [2m, P] float32 history
+      (``ops/lbfgs_history.py``: the dots SY [y, s, g] and the
+      combination gamma g + coef^T SY) at the shapes of the 898K plate
+      (m = 100, P = 1,803,696: the kernels' JSON entries), example 4,
+      the 922K-class plate and example 6 (m = 10), each against its plain
+      version per entry (HISTORY_RTOL of the same sum over absolute
+      values), two launches bit-equal, timed in turns against the plain
+      versions and one library call each (``torch.mm(SY, V)`` on a
+      stacked V, ``coef @ SY``); the example-4 shape also in float64.
    Each kernel is also profiled (``torch.profiler``, 20 calls): its device
    µs per call by kernel name, beside its bound (``bound``: bytes over
    3.35 TB/s or flops over 67 TFLOP/s, whichever is larger) and, for the
@@ -245,7 +254,10 @@ rounds.  Phase 20 alone turns the library on.
 Each path of phases 4-23 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
-whose residual turns non-finite fails.  Each phase's header prints the
+whose residual turns non-finite fails.  Every compact L-BFGS update on
+the card launches both history kernels, so phases 4-8 need them too, and
+the paths that must launch no kernel (the hybrid route, example 5's
+plain lattice route) are held to launch no energy kernel.  Each phase's header prints the
 seconds since the start.  The last three lines of standard output
 are the kernels' JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, ...}``.
@@ -619,6 +631,14 @@ HOLE_MARGIN = 0.005
 # 1e-5 rather than 1e-6.
 ENERGY_RTOL = 1e-4
 GRAD_RTOL = 5e-4
+# the history passes (phase 3h) against their plain versions, per entry:
+# HISTORY_RTOL (float32; HISTORY_RTOL_F64 in float64) times the same sum
+# over absolute values, |SY| @ |[y, s, g]| and |gamma| |g| + |coef| @ |SY|
+# (sums in other orders; S.g may cancel)
+HISTORY_RTOL = 1e-5
+HISTORY_RTOL_F64 = 1e-13
+HISTORY_M = 100                 # run_lbfgs's memory_size
+EX6_HISTORY = (10, 4 * 1000 * 500)  # example 6: memory 10, [1000, 500, 4]
 GRAD_ATOL = 1e-5
 # the row windows' (and the rank slices') energies, each a sum of the same
 # quads' (rows') f32 energies in another grouping, against the whole
@@ -1491,6 +1511,114 @@ def phase_window_gather(ht, wg, mb, counts, dev, card):
         tag="eb=64 ")
     entry["launches"] = launches["window_sq"]
     return entry
+
+
+def ab_library_ms(kernel_fn, plain_fn, library_fn):
+    """(kernel, plain, library) ms, timed in turns plain, library,
+    kernel, kernel, library, plain."""
+    p1, l1 = cuda_ms(plain_fn), cuda_ms(library_fn)
+    k1, k2 = cuda_ms(kernel_fn), cuda_ms(kernel_fn)
+    l2, p2 = cuda_ms(library_fn), cuda_ms(plain_fn)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+
+
+def history_inputs(m, p, dev, dtype=torch.float32, seed=0):
+    """A [2m, P] history with one zero (rejected) pair, y, s, g [P], coef
+    [2m] and gamma > 0, from a seeded generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    SY = randn(2 * m, p)
+    SY[[1, m + 1]] = 0.0
+    return SY, randn(p), randn(p), randn(p), randn(2 * m), \
+        randn().abs() + 0.1
+
+
+def check_history(name, got, want, scale, rtol):
+    """|got - want| <= rtol x scale per entry; returns the max abs
+    error."""
+    err = (got.double() - want.double()).abs()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    worst = float((err / (rtol * scale).clamp_min(1e-300)).max())
+    log(f"  {name}: max_abs_err={float(err.max()):.6g} "
+        f"worst err/bound={worst:.4g} (rtol {rtol} of the sum over "
+        "absolute values)")
+    if worst > 1.0:
+        raise AssertionError(f"{name}: kernel and plain disagree")
+    return float(err.max())
+
+
+def history_case(lh, tag, m, p, dev, card, dtype=torch.float32):
+    """Both history kernels at one (m, P): checked against their plain
+    versions, two launches bit-equal; in float32 also timed and profiled
+    (returns their kernel entries)."""
+    SY, y, s, g, coef, gamma = history_inputs(m, p, dev, dtype)
+    log(f"  {tag}: history [{2 * m}, {p}] {str(dtype)[6:]}, SY.nbytes "
+        f"{SY.nbytes}")
+    rtol = HISTORY_RTOL if dtype == torch.float32 else HISTORY_RTOL_F64
+    V = torch.stack([y, s, g], 1)
+    dots = lh.history_dots(SY, y, s, g)
+    comb = lh.history_combine(SY, g, coef, gamma)
+    A = SY.abs().double()
+    err_d = check_history(f"{tag} dots vs plain", dots,
+                          lh.history_dots_plain(SY, y, s, g),
+                          A @ V.abs().double(), rtol)
+    err_c = check_history(f"{tag} combination vs plain", comb,
+                          lh.history_combine_plain(SY, g, coef, gamma),
+                          gamma.abs().double() * g.abs().double()
+                          + coef.abs().double() @ A, rtol)
+    del A
+    if not (torch.equal(dots, lh.history_dots(SY, y, s, g)) and torch.equal(
+            comb, lh.history_combine(SY, g, coef, gamma))):
+        raise AssertionError(f"{tag}: two launches of a history kernel "
+                             "differ")
+    log(f"  {tag}: two launches of each kernel bit-equal")
+    if dtype != torch.float32:
+        return None
+    runs = {
+        "lbfgs_history_dots": (
+            lambda: lh.history_dots(SY, y, s, g),
+            lambda: lh.history_dots_plain(SY, y, s, g),
+            lambda: torch.mm(SY, V), "torch.mm(SY, V)", err_d,
+            4 * (2 * m * p + 3 * p + 6 * m), 12 * m * p,
+            "hidenn_fem_tpu/solve/optimizers.py:155"),
+        "lbfgs_history_combine": (
+            lambda: lh.history_combine(SY, g, coef, gamma),
+            lambda: lh.history_combine_plain(SY, g, coef, gamma),
+            lambda: coef @ SY, "coef @ SY", err_c,
+            4 * (2 * m * p + 2 * p + 2 * m + 1), 4 * m * p + 3 * p,
+            "hidenn_fem_tpu/solve/optimizers.py:201"),
+    }
+    entries = []
+    for name, (kfn, pfn, lfn, lname, err, bytes_, flops, replaces) in \
+            runs.items():
+        kms, pms, lms = ab_library_ms(kfn, pfn, lfn)
+        lib_us, _ = device_us(lfn)
+        log(f"  {tag} {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lname} {lms:.4f} ms ({lib_us:.2f} us device) "
+            f"[{card}]")
+        entries.append(kernel_entry(
+            name, "hidenn_fem_tpu_torch/csrc/lbfgs_history.cu", replaces,
+            err, kms, pms, bytes_, flops, device_us(kfn), card,
+            library_ms=lms, tag=f"{tag} "))
+    return entries
+
+
+def phase_lbfgs_history(lh, shapes, dev, card):
+    """Phase 3h: the history passes at each (tag, m, P) of ``shapes``
+    (the first gives the JSON entries), and the smallest again in
+    float64."""
+    entries = None
+    for tag, m, p in shapes:
+        out = history_case(lh, tag, m, p, dev, card)
+        entries = entries or out
+        torch.cuda.empty_cache()
+    tag, m, p = min(shapes, key=lambda t: t[1] * t[2])
+    history_case(lh, f"{tag} (float64)", m, p, dev, card, torch.float64)
+    torch.cuda.empty_cache()
+    return entries
 
 
 def lbfgs_from_rest(ht, energy, mesh, dev, steps):
@@ -3635,9 +3763,14 @@ def main():
     from hidenn_fem_tpu_torch.ops import cuda_build
     from hidenn_fem_tpu_torch.ops import element_energy as ee
     from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
     from hidenn_fem_tpu_torch.ops import window_gather as wg
 
-    counts = Counts(ee, ls, be, wg)
+    counts = Counts(ee, ls, be, wg, lh)
+    history = tuple(lh.launch_counts)   # every compact L-BFGS update
+
+    def energy_launches(launches):
+        return {k: v for k, v in launches.items() if k not in history}
     t_start = time.perf_counter()
 
     def phase(title):
@@ -3675,12 +3808,17 @@ def main():
     tri898, banded_rows = phase_rows_banded(ht, be, mesh898, dev, card)
     kernels += banded_rows
     kernels.append(phase_window_gather(ht, wg, mb, counts, dev, card))
-
     mesh4 = example4_mesh(ht, dev)
+    kernels += phase_lbfgs_history(lh, (
+        ("898K Delaunay plate", HISTORY_M, 4 * mesh898.n_nodes),
+        ("example 4", HISTORY_M, 4 * mesh4.n_nodes),
+        ("922K-class plate", HISTORY_M, 4 * mesh922.n_nodes),
+        ("example 6", *EX6_HISTORY)), dev, card)
+
     phase("[4/23] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
-        ("lattice_stencil_vg", "lattice_stencil_fwd"),
+        ("lattice_stencil_vg", "lattice_stencil_fwd") + history,
         lambda: solve_example4(ht, mesh4, dev, card,
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
@@ -3688,23 +3826,25 @@ def main():
     phase("[5/23] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
-        ("element_energy_fwd", "element_energy_bwd", "incidence_sum"),
+        ("element_energy_fwd", "element_energy_bwd", "incidence_sum")
+        + history,
         lambda: solve_example4(ht, dataclasses.replace(mesh4, lattice=None),
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
     phase("[6/23] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
-                                   "lattice_stencil_fwd"),
+                                   "lattice_stencil_fwd") + history,
              lambda: phase_example6(dev, card))
 
     phase("[7/23] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
-    run_path(counts, "922K-class", ("lattice_stencil_vg",),
+    run_path(counts, "922K-class", ("lattice_stencil_vg",) + history,
              lambda: phase_scale(ht, mesh922, dev, card))
 
     phase("[8/23] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     (main_losses, delaunay_params), delaunay_launches = run_path(
-        counts, "898K Delaunay banded-route", ("banded_vg", "banded_fwd"),
+        counts, "898K Delaunay banded-route",
+        ("banded_vg", "banded_fwd") + history,
         lambda: phase_delaunay_solve(ht, be, mesh898, dev, card))
     fallback_launches = {}
     for name, keep in (("no ownership intervals", True),
@@ -3717,9 +3857,10 @@ def main():
 
     phase("[9/23] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
-    _, hybrid_launches = run_path(counts, "847K hybrid-route", (), solve)
-    if any(hybrid_launches.values()):
-        raise AssertionError("the hybrid route launched a kernel")
+    _, hybrid_launches = run_path(counts, "847K hybrid-route", history,
+                                  solve)
+    if any(energy_launches(hybrid_launches).values()):
+        raise AssertionError("the hybrid route launched an energy kernel")
 
     phase("[10/23] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
@@ -3751,11 +3892,11 @@ def main():
 
     phase("[15/23] example 5: the 1000x500 plate, slope-timed "
         "value-and-grad and 2 x 200 L-BFGS steps")
-    _, ex5_launches = run_path(counts, "example-5", (),
+    _, ex5_launches = run_path(counts, "example-5", history,
                                lambda: phase_example5(dev, card))
-    if any(ex5_launches.values()):
-        raise AssertionError("example 5's plain lattice route launched a "
-                             "kernel")
+    if any(energy_launches(ex5_launches).values()):
+        raise AssertionError("example 5's plain lattice route launched an "
+                             "energy kernel")
 
     phase("[16/23] the zoom line search and the two-loop L-BFGS on "
         "example 4")
@@ -3795,7 +3936,7 @@ def main():
 
     phase("[22/23] figure parity: the 81x41 proxy plate against the "
         "reference run, 600 captured steps")
-    # the reference numerics take the plain route: no kernel of the path
+    # the reference numerics take the plain route: no energy kernel
     run_path(counts, "figure parity", (),
              lambda: phase_figure_parity(ht, dev, card))
 
@@ -3831,6 +3972,11 @@ def main():
         "banded_bwd_rows": (sharded["banded 898K, no ownership"],
                             "banded_bwd_rows"),
     }
+    # the history kernels: every compact L-BFGS update of example 4's
+    # lattice route and of the 898K plate's banded route
+    for name in history:
+        path_launches[name] = (sum_launches((lattice_launches,
+                                             delaunay_launches)), name)
     for k in kernels:
         if k["launches"] is None:
             launches, counter = path_launches[k["name"]]

@@ -72,11 +72,11 @@ def _counters() -> tuple:
     """The kernels' launch counters and the collective counters, which a
     replay must move as the captured launches did."""
     from ..ops import banded_energy, element_energy, lattice_slab, \
-        window_gather
+        lbfgs_history, window_gather
     from ..parallel import sharding
     return (element_energy.launch_counts, lattice_slab.launch_counts,
             banded_energy.launch_counts, window_gather.launch_counts,
-            sharding.collective_counts)
+            lbfgs_history.launch_counts, sharding.collective_counts)
 
 
 def capturable(device: torch.device) -> bool:

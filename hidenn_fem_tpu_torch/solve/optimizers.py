@@ -24,10 +24,14 @@ Schnabel 1994, Thm 2.2):
            [-R^{-1},                           0     ]],
 
 with R = triu(S^T Y) and D = diag(S^T Y): two [2m, P] matrix products
-and two m-by-m triangular solves per step.  ``update`` writes the new
-pair into the state's history tensors in place (the [2m, P] history is the
-solve's largest buffer: 740 MB at the 922K-element plate), so a state is
-consumed by the update that takes it.  The (s, y) pair goes to slot
+and two m-by-m triangular solves per step.  On the card the two
+products are the kernels of ``ops/lbfgs_history.py`` (the dots
+SY [y, s, g] and the combination gamma g + coef^T SY, one pass over the
+history each); on the CPU their plain versions, the JAX package's
+expressions.  ``update`` writes the new pair into the state's history
+tensors in place (the [2m, P] history is the solve's largest buffer:
+1.48 GB at the 922K-class plate, m = 100 and P = 1,848,964 float32), so a
+state is consumed by the update that takes it.  The (s, y) pair goes to slot
 (count-1) % m and is zero on the first call; gamma is s.y / y.y of the
 newest pair, or min(1, 1/|g|) on the first call (gamma is 1 throughout
 with ``scale_init_precond=False``); a pair with s.y <= 1e-10
@@ -56,6 +60,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.lbfgs_history import history_combine, history_dots
 
 __all__ = ["CompactLBFGSState", "CompactLBFGS", "scale_by_compact_lbfgs",
            "lbfgs", "adam", "adam_per_group", "freeze_groups", "AdamState",
@@ -154,7 +160,7 @@ class CompactLBFGS:
         SY.index_copy_(0, slot + m, y[None])
 
         # one pass over the history: columns are (.y, .s, .g) products
-        B = SY @ torch.stack([y, s, g], dim=1)              # [2m, 3]
+        B = history_dots(SY, y, s, g)                       # [2m, 3]
         s_dot_y, u = B[:m, 0], B[:m, 2]                     # S.y, S.g
         y_dot_y, y_dot_s, v = B[m:, 0], B[m:, 1], B[m:, 2]
         STY = state.STY
@@ -197,9 +203,10 @@ class CompactLBFGS:
         coef = torch.zeros((2 * m,), dtype=g.dtype, device=g.device)
         coef.index_copy_(0, order, w2)
         coef.index_copy_(0, order + m, -gamma * w1)
-        hg = gamma * g + coef @ SY                          # one pass
-        step = hg if self.learning_rate is None else \
-            -self.learning_rate * hg
+        # one pass: gamma g + coef @ SY, times -learning_rate if given
+        step = history_combine(SY, g, coef, gamma,
+                               1.0 if self.learning_rate is None
+                               else -self.learning_rate)
         state.prev_flat.copy_(x)
         state.prev_grad.copy_(g)
         state.gamma.copy_(gamma)

@@ -1502,3 +1502,191 @@ def test_one_nccl_rank_sharded_mg_is_captured(dev, monkeypatch):
     want = sharded_mg.count_collectives(model, grid, params, n_devices=1,
                                         max_iters=_calls(iters, 40))
     assert cap[2][-1]["all_reduce"] == want["all_reduce"] > 0
+
+
+# ------------------------------ the compact L-BFGS's history passes
+# (ops/lbfgs_history.py): (m, P) from the unit sizes to example 4
+# (81,204), the 898K plate (1,803,696) and example 6 (m = 10, 2,000,000)
+HISTORY_SHAPES = [(1, 1), (3, 7), (8, 4097), (100, 81_204),
+                  (100, 1_803_696), (10, 2_000_000)]
+# per entry, of the same sum over absolute values: float32 1e-5, float64
+# 1e-13 (sums in other orders; S.g may cancel)
+HISTORY_RTOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+def _history_inputs(m, p, dtype, dev, seed=0):
+    """SY [2m, P] with one zero (rejected) pair for m > 1, y, s, g [P],
+    coef [2m], gamma (0-dim), all on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    SY = randn(2 * m, p)
+    if m > 1:
+        SY[[1, m + 1]] = 0.0
+    y, s, g = randn(p), randn(p), randn(p)
+    return SY, y, s, g, randn(2 * m), randn().abs() + 0.1
+
+
+def _within(got, want, scale, rtol):
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= rtol * scale).all()), float(
+        (err / scale.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p", HISTORY_SHAPES,
+                         ids=[f"m{m}-P{p}" for m, p in HISTORY_SHAPES])
+def test_history_kernels_match_plain(dev, dtype, m, p):
+    """Both kernels against their plain versions at the default
+    tolerance, one launch each a call, two launches bit-equal."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+
+    SY, y, s, g, coef, gamma = _history_inputs(m, p, dtype, dev)
+    before = dict(lh.launch_counts)
+    dots = lh.history_dots(SY, y, s, g)
+    comb = lh.history_combine(SY, g, coef, gamma, -0.5)
+    torch.cuda.synchronize()
+    assert lh.launch_counts["lbfgs_history_dots"] == \
+        before["lbfgs_history_dots"] + 1
+    assert lh.launch_counts["lbfgs_history_combine"] == \
+        before["lbfgs_history_combine"] + 1
+    rtol = HISTORY_RTOL[dtype]
+    A = SY.abs()
+    _within(dots, lh.history_dots_plain(SY, y, s, g),
+            A.double() @ torch.stack([y, s, g], 1).abs().double(), rtol)
+    _within(comb, lh.history_combine_plain(SY, g, coef, gamma, -0.5),
+            0.5 * (gamma.abs().double() * g.abs().double()
+                   + coef.abs().double() @ A.double()), rtol)
+    del A
+    assert torch.equal(dots, lh.history_dots(SY, y, s, g))
+    assert torch.equal(comb, lh.history_combine(SY, g, coef, gamma, -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_history_kernels_take_unaligned_rows(dev, dtype):
+    """A history that starts off a 16-byte boundary (a view one element
+    into its buffer) and vectors likewise take the scalar variants, with
+    the same result as the plain versions."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+
+    m, p = 4, 4096
+    SY0, y0, s0, g0, coef, gamma = _history_inputs(m, p + 1, dtype, dev)
+    SY = SY0.reshape(-1)[1:1 + 2 * m * p].view(2 * m, p)
+    y, s, g = y0[1:], s0[1:], g0[1:]
+    assert SY.is_contiguous() and SY.data_ptr() % 16
+    rtol = HISTORY_RTOL[dtype]
+    _within(lh.history_dots(SY, y, s, g), lh.history_dots_plain(SY, y, s, g),
+            SY.abs().double() @ torch.stack([y, s, g], 1).abs().double(),
+            rtol)
+    _within(lh.history_combine(SY, g, coef, gamma),
+            lh.history_combine_plain(SY, g, coef, gamma),
+            gamma.abs().double() * g.abs().double()
+            + coef.abs().double() @ SY.abs().double(), rtol)
+
+
+def test_history_kernels_replay_bit_equal(dev):
+    """Both kernels recorded in a CUDA graph: one replay gives the eager
+    call's bits (gamma and coef read on the device at replay)."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+
+    SY, y, s, g, coef, gamma = _history_inputs(100, 81_204, torch.float32,
+                                               dev)
+    eager = (lh.history_dots(SY, y, s, g),
+             lh.history_combine(SY, g, coef, gamma))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):      # warm the allocator off the graph
+        lh.history_dots(SY, y, s, g)
+        lh.history_combine(SY, g, coef, gamma)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (lh.history_dots(SY, y, s, g),
+               lh.history_combine(SY, g, coef, gamma))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+def test_history_wrappers_refuse_what_they_do_not_take(dev):
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+
+    SY, y, s, g, coef, gamma = _history_inputs(3, 64, torch.float32, dev)
+    bad = [
+        lambda: lh.history_dots(SY.t().contiguous().t(), y, s, g),
+        lambda: lh.history_dots(SY, y.cpu(), s, g),
+        lambda: lh.history_dots(SY, y, s, torch.zeros(65, device=dev)),
+        lambda: lh.history_dots(SY, y.double(), s, g),
+        lambda: lh.history_dots(SY.half(), y.half(), s.half(), g.half()),
+        lambda: lh.history_combine(SY.t().contiguous().t(), g, coef, gamma),
+        lambda: lh.history_combine(SY, g, coef.cpu(), gamma),
+        lambda: lh.history_combine(SY, g, coef[:-1], gamma),
+        lambda: lh.history_combine(SY, g, coef, gamma.reshape(1)),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+def _diag_quadratic(p, steps, seed):
+    """(x, g) of a few noisy gradient steps on a diagonal quadratic, the
+    gradient of step 3 negated (its pair then fails the curvature guard)."""
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(0.1, 10.0, p)
+    x = rng.standard_normal(p)
+    seq = []
+    for i in range(steps):
+        g = lam * x
+        if i == 3:
+            g = -g
+        seq.append((x.copy(), g))
+        x = x - 0.05 * g + 0.01 * rng.standard_normal(p)
+    return seq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("learning_rate", [None, 1.0])
+def test_compact_lbfgs_on_the_card_matches_the_cpu(dev, dtype,
+                                                   learning_rate):
+    """12 updates of ``CompactLBFGS`` (m = 4: the history wraps twice,
+    one pair rejected) on the card against the same updates on the CPU
+    (the plain products): each step within the file's f32 gradient
+    tolerance (1e-9 in float64); one launch of each kernel an update."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+    from hidenn_fem_tpu_torch.solve import optimizers as topt
+
+    seq = _diag_quadratic(4099, 12, seed=1)
+    steps = {}
+    for where in ("cpu", dev):
+        opt = topt.CompactLBFGS(memory_size=4, learning_rate=learning_rate)
+        state = opt.init(torch.tensor(seq[0][0], dtype=dtype, device=where))
+        before = dict(lh.launch_counts)
+        out = []
+        for x, g in seq:
+            step, state = opt.update(
+                torch.tensor(g, dtype=dtype, device=where), state,
+                torch.tensor(x, dtype=dtype, device=where))
+            out.append(step.cpu())
+        launched = {k: lh.launch_counts[k] - before[k] for k in before}
+        assert launched == dict.fromkeys(
+            before, 0 if where == "cpu" else len(seq))
+        steps[str(where)] = torch.stack(out)
+    tol = (5e-4, 1e-5) if dtype == torch.float32 else (1e-9, 1e-9)
+    for got, want in zip(steps[str(dev)], steps["cpu"]):
+        assert torch.isfinite(got).all()
+        _close(got, want, *tol)
+
+
+def test_captured_lbfgs_counts_each_replay(dev):
+    """A captured ``run_lbfgs`` moves the history kernels' counters by
+    one launch each a step, replays included, as the eager run does."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+
+    lat = pt.proxy_plate_mesh(nx=33, ny=17, device=dev)
+    loss, params, args = _plate_case(lat, dev)
+    before = dict(lh.launch_counts)
+    pt.run_lbfgs(loss, params, num_steps=20, memory_size=10, loss_args=args)
+    torch.cuda.synchronize()
+    assert {k: lh.launch_counts[k] - before[k] for k in before} == \
+        dict.fromkeys(before, 20)
