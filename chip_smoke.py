@@ -39,15 +39,25 @@ Phases (each raises on failure, and the script then exits non-zero):
       against its plain version and the flat-gather sum, and the same
       kernel over flat (absolute) index tables, all timed.
    f. K6 and K7 over 2, 3 and 4 row windows (the ranks' split of
-      ``parallel/sharded_slab.py``) on the 922K-class plate and the 961x481
-      grid: each window's gradient rows equal the whole-lattice K6's bit
-      for bit, K6's window energy equals K7's, the window energies sum to
-      the whole within ROWS_SUM_RTOL, each window against its plain
-      versions;
+      ``parallel/sharded_slab.py``) and over windows of 1, 4 and 6 rows at
+      both ends and inside, on the 922K-class plate and the 961x481 grid:
+      K6 writes into a NaN-filled output, each window's gradient rows
+      equal the whole-lattice K6's bit for bit and every other row is
+      +0.0, K6's window energy equals K7's, the window energies of each
+      split sum to the whole within ROWS_SUM_RTOL, each window against its
+      plain versions; K6 over a window, K6 whole and K7 over a window are
+      one device kernel a call (the profiler's counts), and K6 over window
+      1 of 4 is printed beside the parent's three-launch split
+      (PARENT_ROWS_US) and the zero fill it no longer launches;
    g. K4 and K5 on each rank slice of the 898K plate's paired tables
       rebanded for 4 ranks (``reband_for_shards``), launched in turn: the
       rows placed at row_start equal the unsharded K4/K5 rows bit for bit,
-      the slice energies sum to the whole within ROWS_SUM_RTOL.
+      K4 writing into a NaN-filled output (+0.0 outside the slice), the
+      slice energies sum to the whole within ROWS_SUM_RTOL; K4 on a slice
+      and on the whole tables one device kernel a call; K4 on slice 1 of
+      the same tables cut into each of 1, 2, 4, 8 and 16 slices that
+      their block counts allow (device µs, blocks, waves of the card's
+      resident CTAs); slice 1 of 4 beside the parent's split.
    h. the compact L-BFGS's two passes over its [2m, P] float32 history
       (``ops/lbfgs_history.py``: the dots SY [y, s, g] and the
       combination gamma g + coef^T SY) at the shapes of the 898K plate
@@ -116,7 +126,9 @@ Phases (each raises on failure, and the script then exits non-zero):
     the one-process solution (the JAX test's bounds), the ``all_reduce``
     calls equal to ``count_collectives``' census; ms and K6 / K6-row
     launches per call of the loop body by the slope between the two
-    starts.
+    starts.  The one-rank NCCL group (captured) also prints the sharded
+    MG "all"'s steady-state iteration (``sharded_mg_steady``): host ms,
+    device busy, idle share, device kernels and port-kernel launches.
 
 11. The CG family (``solve/linear.py``): a. example 8
     (``examples/example8_linear_solve_torch.py``: the 81x41 proxy plate on
@@ -643,6 +655,13 @@ GRAD_ATOL = 1e-5
 # the row windows' (and the rank slices') energies, each a sum of the same
 # quads' (rows') f32 energies in another grouping, against the whole
 ROWS_SUM_RTOL = 1e-6
+# The parent's row launches (device µs a call: the whole, its kernel, the
+# separate zero fill of the [N, 4] output, the separate one-block energy
+# sum; PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's one-launch kernels: K6 over window 1 of 4 of the 922K-class
+# plate, K4 on slice 1 of 4 of the 898K plate's rebanded tables
+PARENT_ROWS_US = {"lattice_stencil_vg_rows": (9.02, 4.76, 2.68, 1.58),
+                  "banded_vg_rows": (13.92, 9.76, 2.57, 1.50)}
 
 # The least time the card could take for a kernel's work (bound_ms) is the
 # larger of its bytes over the memory rate and its flops over the float32
@@ -1075,61 +1094,104 @@ def phase_structured(ls, dev, card):
                        model.E, model.nu, kw, card, timed=False)
 
 
+def one_launch(tag, name, fn):
+    """Fails unless each call of fn() runs exactly one device kernel: one
+    kernel name in the profiler's counts over 20 calls, at one launch a
+    call once rounded (the profiler can drop a kernel event on the H100,
+    and ``kernel_launches`` profiles again only a few times)."""
+    from tools.profile_torch_port import kernel_launches
+
+    per = kernel_launches(fn)
+    log(f"  {tag}{name}: device kernels per call {per}")
+    if len(per) != 1 or round(next(iter(per.values()))) != 1:
+        raise AssertionError(f"{tag}{name}: {per} device kernels a call, "
+                             "not one launch")
+
+
+def narrow_windows(nx):
+    """Windows of 1, 4 and 6 node rows at row_lo = 0, at row_hi = nx and
+    inside (the sharded multigrid's windows are 4-6 rows)."""
+    mid = nx // 2
+    return [(0, 1), (0, 4), (0, 6), (mid, mid + 1), (mid, mid + 5),
+            (nx - 6, nx), (nx - 4, nx), (nx - 1, nx)]
+
+
 def phase_rows_lattice(ls, tag, node, nx, ny, E, nu, kw, card, timed):
     """Phase 3f: K6 and K7 over 2, 3 and 4 row windows (the ranks' split
-    of ``parallel/sharded_slab.py``): each window's gradient rows equal the
-    whole-lattice K6's bit for bit (every other row 0), K6's window energy
-    equals K7's bit for bit, each window against its plain versions, the
-    window energies sum to the whole within ROWS_SUM_RTOL; when timed, the
-    kernel entries of window 1 of 4."""
+    of ``parallel/sharded_slab.py``) and over narrow windows: K6 writes
+    into a NaN-filled output, each window's gradient rows equal the
+    whole-lattice K6's bit for bit and every other row is +0.0, K6's
+    window energy equals K7's bit for bit, each window against its plain
+    versions, the window energies of each split sum to the whole within
+    ROWS_SUM_RTOL; when timed, one device kernel a call and the kernel
+    entries of window 1 of 4, beside the parent's three-launch split
+    (PARENT_ROWS_US)."""
     from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
 
     w_sum = 0.5
     e_whole, g_whole = ls.lattice_stencil_vg(node, nx, ny, E, nu, w_sum,
                                              **kw)
+    stencil = dict(phase=0, sel=None, t1=None, t2=None)
+    stencil.update(kw)
     err6 = err7 = 0.0
-    for n_win in (2, 3, 4):
+    splits = [[w for w in (row_window(nx, r, n) for r in range(n))
+               if w[0] < w[1]] for n in (2, 3, 4)]
+    for partition, windows in ([(True, w) for w in splits]
+                               + [(False, narrow_windows(nx))]):
         total = 0.0
-        for r in range(n_win):
-            lo, hi = row_window(nx, r, n_win)
-            if lo >= hi:
-                continue
+        for lo, hi in windows:
             args = (node, nx, ny, E, nu, w_sum, lo, hi)
-            e6, g6 = ls.lattice_stencil_vg_rows(*args, **kw)
+            nan = torch.full_like(node, float("nan"))
+            e6, g6 = ls._launch(True, node, nx, ny, E, nu, w_sum,
+                                rows=(lo, hi), grad=nan, **stencil)
             e7 = ls.lattice_stencil_fwd_rows(*args, **kw)
             rows = slice(lo * ny, hi * ny)
-            if not torch.equal(g6[rows], g_whole[rows]) or \
-                    g6[:lo * ny].any() or g6[hi * ny:].any():
-                raise AssertionError(f"{tag}: window [{lo}, {hi}) of "
-                                     f"{n_win}: K6 rows differ from the "
-                                     "whole lattice's")
+            outside = torch.cat([g6[:lo * ny], g6[hi * ny:]])
+            if not torch.equal(g6[rows], g_whole[rows]) or not bool(
+                    ((outside == 0) & ~torch.signbit(outside)).all()):
+                raise AssertionError(f"{tag}: window [{lo}, {hi}): K6 rows "
+                                     "differ from the whole lattice's, or "
+                                     "a row outside is not +0.0")
             if float(e6) != float(e7):
                 raise AssertionError(f"{tag}: window [{lo}, {hi}): K6 and "
                                      "K7 energies differ")
             pe, pg = ls.lattice_stencil_vg_rows_plain(*args, **kw)
             err7 = max(err7, check_close(
-                f"{tag} rows [{lo}, {hi}) of {n_win} energy vs plain", e7,
-                pe, ENERGY_RTOL, 0.0))
+                f"{tag} rows [{lo}, {hi}) energy vs plain", e7, pe,
+                ENERGY_RTOL, 0.0))
             err6 = max(err6, check_close(
-                f"{tag} rows [{lo}, {hi}) of {n_win} gradient vs plain", g6,
-                pg, GRAD_RTOL, GRAD_ATOL))
+                f"{tag} rows [{lo}, {hi}) gradient vs plain", g6, pg,
+                GRAD_RTOL, GRAD_ATOL))
             total += float(e6)
+        if not partition:
+            continue
         rel = abs(total - float(e_whole)) / abs(float(e_whole))
-        log(f"  {tag}: {n_win} row windows: rows bit-equal to the whole "
-            f"lattice's, K6 = K7 per window; energy sum {total!r} vs whole "
+        log(f"  {tag}: {len(windows)} row windows: rows bit-equal to the "
+            f"whole lattice's in a NaN-filled output, +0.0 outside, K6 = K7 "
+            f"per window; energy sum {total!r} vs whole "
             f"{float(e_whole)!r}: rel {rel:.3e} (limit {ROWS_SUM_RTOL})")
         if rel > ROWS_SUM_RTOL:
             raise AssertionError(f"{tag}: window energies off the whole")
+    log(f"  {tag}: narrow windows {narrow_windows(nx)}: rows bit-equal, "
+        "+0.0 outside, K6 = K7")
     torch.cuda.synchronize()
     if not timed:
         return None
     lo, hi = row_window(nx, 1, 4)
     args = (node, nx, ny, E, nu, w_sum, lo, hi)
+    tag_w = f"{tag} rows [{lo}, {hi}) "
+    one_launch(tag_w, "K6 over a row window",
+               lambda: ls.lattice_stencil_vg_rows(*args, **kw))
+    one_launch(tag_w, "K6 on the whole lattice",
+               lambda: ls.lattice_stencil_vg(node, nx, ny, E, nu, w_sum,
+                                             **kw))
+    one_launch(tag_w, "K7 over a row window",
+               lambda: ls.lattice_stencil_fwd_rows(*args, **kw))
     ms6, pms6 = ab_ms(lambda: ls.lattice_stencil_vg_rows(*args, **kw),
                       lambda: ls.lattice_stencil_vg_rows_plain(*args, **kw))
     ms7, pms7 = ab_ms(lambda: ls.lattice_stencil_fwd_rows(*args, **kw),
                       lambda: ls.lattice_stencil_fwd_rows_plain(*args, **kw))
-    log(f"  {tag} rows [{lo}, {hi}) of {nx}: K6 kernel {ms6:.4f} ms, plain "
+    log(f"  {tag_w}of {nx}: K6 kernel {ms6:.4f} ms, plain "
         f"{pms6:.4f} ms; K7 kernel {ms7:.4f} ms, plain {pms7:.4f} ms "
         f"[{card}]")
     # the window's work: its node rows and the one-row halo on each side
@@ -1144,20 +1206,29 @@ def phase_rows_lattice(ls, tag, node, nx, ny, E, nu, kw, card, timed):
             + int((kw["t2"][q0:q1] != 0).sum()))
     node_b = 16 * (min(hi + 1, nx) - q0) * ny
     src = "hidenn_fem_tpu_torch/csrc/lattice_stencil.cu"
-    return [
+    entries = [
         kernel_entry(
             "lattice_stencil_vg_rows", src,
             "hidenn_fem_tpu/ops/lattice_slab.py:346", err6, ms6, pms6,
             node_b + masks + 16 * nx * ny + 4,
             tris * (TRI_E + 2 + TRI_C + 3 * (ADD4 + 4)),
             device_us(lambda: ls.lattice_stencil_vg_rows(*args, **kw)),
-            card, tag=f"{tag} rows [{lo}, {hi}) "),
+            card, tag=tag_w),
         kernel_entry(
             "lattice_stencil_fwd_rows", src,
             "hidenn_fem_tpu/ops/lattice_slab.py:365", err7, ms7, pms7,
             node_b + masks + 4, tris * (TRI_E + 2),
             device_us(lambda: ls.lattice_stencil_fwd_rows(*args, **kw)),
-            card, tag=f"{tag} rows [{lo}, {hi}) ")]
+            card, tag=tag_w)]
+    fill_us, _ = device_us(lambda: torch.zeros_like(node))
+    parent = PARENT_ROWS_US["lattice_stencil_vg_rows"]
+    log(f"  {tag_w}K6: {entries[0]['device_us']:.2f} us in one launch "
+        f"against the parent's {parent[0]} us in three (kernel "
+        f"{parent[1]}, zero fill {parent[2]}, sum {parent[3]}; PERF.md, "
+        f"NVIDIA H100 80GB HBM3, 700.00 W); the zero fill of the [N, 4] "
+        f"output alone, as the parent launched it: {fill_us:.2f} us "
+        f"[{card}]")
+    return entries
 
 
 def delaunay_898k(ht, mb, dev):
@@ -1354,9 +1425,13 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
     """Phase 3g: K4 and K5 on each rank's slice of the 898K Delaunay plate's
     tables rebanded for ``ranks`` (block_multiple), the slices launched in
     turn: the rows placed at row_start equal the unsharded K4/K5 rows on
-    the same tables bit for bit (every other row 0), the slices' energies
-    sum to the whole within ROWS_SUM_RTOL, each slice against its plain
-    versions; returns (the rebanded mesh, the kernel entries of slice 1)."""
+    the same tables bit for bit, K4 writing into a NaN-filled output
+    (every other row +0.0), the slices' energies sum to the whole within
+    ROWS_SUM_RTOL, each slice against its plain versions; one device kernel
+    a K4 call; K4's device time on slice 1 of the same tables in 1, 2, 4,
+    8 or 16 slices (``k4_slice_scaling``), with its grid against the CTAs
+    the card holds at once; returns (the rebanded mesh, the kernel entries
+    of slice 1)."""
     from hidenn_fem_tpu_torch.parallel.sharding import (rank_tables,
                                                         reband_for_shards)
 
@@ -1381,14 +1456,17 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
     for r in range(ranks):
         loc, rs = rank_tables(ba, r, ranks)
         loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
-        e, g = be.banded_vg_rows(node, loc, *args, rs)
+        e, g = be._vg_launch("banded_vg_rows", node, loc, *args, rs,
+                             grad=torch.full_like(node, float("nan")))
         g5r = be.banded_bwd_rows(node, loc5, ct, *args, rs)
         end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
         for name, got, want in (("K4", g, g4), ("K5", g5r, g5)):
-            if not torch.equal(got[rs:end], want[rs:end]) or \
-                    got[:rs].any() or got[end:].any():
+            outside = torch.cat([got[:rs], got[end:]])
+            if not torch.equal(got[rs:end], want[rs:end]) or not bool(
+                    ((outside == 0) & ~torch.signbit(outside)).all()):
                 raise AssertionError(f"slice {r}: {name} rows at row_start "
-                                     "differ from the unsharded launch")
+                                     "differ from the unsharded launch, or "
+                                     "a row outside is not +0.0")
         pe, pg = be.banded_vg_plain(node, loc, *args, rs)
         check_close(f"slice {r} of {ranks} K4 energy vs plain", e, pe,
                     ENERGY_RTOL, 0.0)
@@ -1402,11 +1480,17 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
         slices.append((loc, loc5, rs))
     rel = abs(total - float(e4)) / abs(float(e4))
     log(f"  {ranks} slices: K4 and K5 rows at row_start bit-equal to the "
-        f"unsharded launches; energy sum {total!r} vs whole {float(e4)!r}: "
-        f"rel {rel:.3e} (limit {ROWS_SUM_RTOL})")
+        f"unsharded launches (K4 into a NaN-filled output, +0.0 outside); "
+        f"energy sum {total!r} vs whole {float(e4)!r}: rel {rel:.3e} "
+        f"(limit {ROWS_SUM_RTOL})")
     if rel > ROWS_SUM_RTOL:
         raise AssertionError("slice energies off the whole")
     loc, loc5, rs = slices[1]
+    one_launch(f"slice 1 of {ranks} ", "K4 at row_start",
+               lambda: be.banded_vg_rows(node, loc, *args, rs))
+    one_launch("", "K4 on the whole tables",
+               lambda: be.banded_vg(node, ba, *args))
+    k4_slice_scaling(be, node, ba, args, card)
     ms4, pms4 = ab_ms(lambda: be.banded_vg_rows(node, loc, *args, rs),
                       lambda: be.banded_vg_plain(node, loc, *args, rs))
     ms5, pms5 = ab_ms(lambda: be.banded_bwd_rows(node, loc5, ct, *args, rs),
@@ -1438,7 +1522,46 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
                      device_us(lambda: be.banded_bwd_rows(node, loc5, ct,
                                                           *args, rs)),
                      card, tag=f"slice 1 of {ranks} ")]
+    fill_us, _ = device_us(lambda: torch.zeros_like(node))
+    parent = PARENT_ROWS_US["banded_vg_rows"]
+    log(f"  slice 1 of {ranks} K4: {entries[0]['device_us']:.2f} us in one "
+        f"launch against the parent's {parent[0]} us in three (kernel "
+        f"{parent[1]}, zero fill {parent[2]}, sum {parent[3]}; PERF.md, "
+        f"NVIDIA H100 80GB HBM3, 700.00 W); the zero fill of the [N, 4] "
+        f"output alone, as the parent launched it: {fill_us:.2f} us "
+        f"[{card}]")
     return tri, entries
+
+
+def k4_slice_scaling(be, node, ba, args, card):
+    """K4's device time on slice 1 (slice 0 of 1) of the same tables cut
+    into each of 1, 2, 4, 8 and 16 slices that their block counts allow:
+    its row and node blocks (256 threads),
+    and those blocks over the CTAs the card holds at once (waves), the
+    zero CTAs apart.  A time that stays flat as the slice shrinks below
+    one wave is the launch shape's (latency of one wave), one that falls
+    with the slice is the core's work."""
+    from hidenn_fem_tpu_torch.parallel.sharding import rank_tables
+
+    regs, ctas = be.kernel_occupancy("vg", ba.k, node.device)
+    sms = torch.cuda.get_device_properties(node.device).multi_processor_count
+    tpb = be._library().hdnn_banded_threads_per_block()
+    line = []
+    for size in (1, 2, 4, 8, 16):
+        if ba.re_nstarts.shape[0] % size or ba.starts.shape[0] % size:
+            continue
+        loc, rs = rank_tables(ba, min(1, size - 1), size)
+        n_rows = loc.re_conn_rel.shape[0] * loc.re_conn_rel.shape[1]
+        n_nodes = be._placed_rows(
+            loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1], rs,
+            node.shape[0])
+        blocks = -(-max(n_rows, n_nodes) // tpb)
+        us, _ = device_us(lambda: be.banded_vg_rows(node, loc, *args, rs))
+        line.append(f"1/{size}: {us:.2f} us, {n_rows} rows, {n_nodes} "
+                    f"nodes, {blocks} blocks = {blocks / (ctas * sms):.2f} "
+                    "waves")
+    log(f"  K4 by slice ({regs} registers a thread, {ctas} CTAs an SM, "
+        f"{sms} SMs): " + "; ".join(line) + f" [{card}]")
 
 
 def phase_window_gather(ht, wg, mb, counts, dev, card):
@@ -2596,6 +2719,21 @@ def _sharded_mg_run(dmesh, counts, grid, model, params, engine):
             "census": census["all_reduce"]}
 
 
+def sharded_mg_steady(dmesh, counts, grid, model, params):
+    """The steady-state iteration of the captured sharded MG "all" on a
+    one-rank NCCL group (``solver_steady``: tol-0 solves at SOLVER_CAPS'
+    MG caps): host ms, device busy, kernels and port-kernel launches an
+    iteration."""
+    from hidenn_fem_tpu_torch.parallel import sharded_mg
+
+    def solve(m, tol):
+        sol, h = sharded_mg.mg_pcg_solve_sharded(
+            model, grid, params, dmesh=dmesh, max_iters=m, tol=tol,
+            engine="all")
+        return sol["u"], h
+    return solver_steady(counts, solve, True, *SOLVER_CAPS["mg"])
+
+
 def rank_main(rank, world, port, backend, folder, queue):
     """One rank of a sharded group on ``cuda:0``: join the group, load the
     meshes and params the parent saved, run every path of SHARDED_PATHS and
@@ -2633,6 +2771,9 @@ def rank_main(rank, world, port, backend, folder, queue):
         for engine, start in SHARDED_MG_RUNS:
             results[("mg", engine, start)] = _sharded_mg_run(
                 dmesh, counts, grid, model, starts[start], engine)
+        if world == 1 and backend == "nccl":       # captured on the card
+            results["mg_steady"] = sharded_mg_steady(
+                dmesh, counts, grid, model, starts["noise"])
         torch.save(results, os.path.join(folder, f"w{world}r{rank}.pt"))
         queue.put((rank, "ok"))
     except Exception as e:        # reported to the parent, which fails
@@ -2781,6 +2922,16 @@ def phase_sharded(ht, inputs, card):
                     launches[name] = total
             check_sharded_aux(ranks, refs, world, backend, card)
             mg = check_sharded_mg(ranks, refs, world, backend, card)
+            if "mg_steady" in ranks[0]:
+                st = ranks[0]["mg_steady"]
+                log(f"  sharded MG all, {world} rank ({backend}), captured: "
+                    f"steady-state iteration {st['host_ms']:.4f} ms on the "
+                    f"host clock, {st['busy_ms']:.4f} ms device busy, idle "
+                    f"share {st['idle']:.3f}; {st['kernels']:.1f} kernels "
+                    f"and {st['launches']:.2f} port-kernel launches an "
+                    "iteration; device us an iteration by kernel: "
+                    + ", ".join(f"{k} {us:.1f}" for us, k in st["top_us"])
+                    + f" [{card}]")
             if world == 4:
                 launches["sharded MG"] = mg
     return launches
@@ -3540,9 +3691,7 @@ def solver_steady(counts, solve, capture, pcaps, hcaps):
     capped at ``pcaps`` (device busy, kernels by name); the idle share is
     that of the host-clock iteration (the profiler's own cost inflates a
     replay's wall); launches by the counters."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tools.profile_torch_port import _busy_ms, _kernel_events, kernel_us
+    from tools.profile_torch_port import steady_profile
 
     if capture:     # the first captured solves pay the graphs' pools
         solver_run(counts, solve, capture, hcaps[0], 0.0)
@@ -3550,21 +3699,12 @@ def solver_steady(counts, solve, capture, pcaps, hcaps):
             for _ in range(STEADY_RUNS if capture else 1)]
     host = [1e3 * min(r[i][2] for r in runs) for i in range(2)]
     launches = [sum(runs[0][i][3].values()) for i in range(2)]
-    profiled = []
-    for m in pcaps:
-        with solver_loop(capture), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            solve(m, 0.0)
-            torch.cuda.synchronize()
-        profiled.append((_busy_ms(prof),
-                         sum(e.count for _, e in _kernel_events(prof)),
-                         kernel_us(prof, 1)))
-    dh, dp = hcaps[1] - hcaps[0], pcaps[1] - pcaps[0]
+    with solver_loop(capture):
+        busy, kernels, by_name = steady_profile(lambda m: solve(m, 0.0),
+                                                pcaps)
+    dh = hcaps[1] - hcaps[0]
     host_ms = (host[1] - host[0]) / dh
-    busy, kernels = ((b - a) / dp for a, b in zip(profiled[0][:2],
-                                                  profiled[1][:2]))
-    top = sorted(((v - profiled[0][2].get(k, 0.0)) / dp, k)
-                 for k, v in profiled[1][2].items())[::-1][:6]
+    top = [(us, k) for k, us in list(by_name.items())[:6]]
     return {"host_ms": host_ms, "busy_ms": busy,
             "idle": 1.0 - busy / host_ms, "kernels": kernels,
             "launches": (launches[1] - launches[0]) / dh, "top_us": top}

@@ -79,11 +79,20 @@
 // the row's node block owns it ([own_lo, own_hi): the ownership intervals
 // partition the elements, so each element counts once though halo rows
 // lie in two windows); thread t < n_nodes writes the gradient of node t.
-// K5 ("grad") is the gradient alone, times *ct.
+// The grid's last block, once every other block has written its partial,
+// sums them (energy_tail of p1_triangle.cuh), and CTAs after the row and
+// node blocks write +0.0 to
+// every row of the [N, 4] output outside [row_start, row_start +
+// n_nodes) (zero_rows_outside; none for the whole tables), so a call is
+// one launch and the wrapper fills nothing first: a rank's slice, even
+// one that places no row, comes back whole.  K5 ("grad") is the gradient
+// alone, times *ct.
 //
 // Determinism: per-block partials reduced in a fixed tree order, then a
-// one-block double sum in a fixed order; each node's slots are summed in
-// slot order.  No atomics.
+// double sum in a fixed order (K3: a one-block second launch; K4: the
+// grid's last block, in the same order); each node's slots are summed in
+// slot order.  No atomic adds a value: K4's ticket counter only tells the
+// last block when to sum.
 //
 // Built by hidenn_fem_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -99,13 +108,17 @@ namespace {
 using hdnn::Corners;
 using hdnn::Material;
 using hdnn::Strain;
+using hdnn::Tail;
 using hdnn::block_sum;
 using hdnn::corner_cotangents;
+using hdnn::energy_tail;
 using hdnn::kSumThreads;
 using hdnn::material;
 using hdnn::strain;
 using hdnn::sum_partials_kernel;
 using hdnn::tri_energy;
+using hdnn::zero_blocks;
+using hdnn::zero_rows_outside;
 
 constexpr int kThreads = 256;
 
@@ -263,7 +276,8 @@ __device__ __forceinline__ float4 node_gradient(
 
 // K4: thread i adds the energy of recompute row i (when its block owns
 // it) to the block's partial, and writes the gradient of node row i into
-// grad[row_start + i].
+// grad[row_start + i]; the CTAs past the E.n row and node blocks write
+// +0.0 to the other rows of grad [n_out].
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 banded_vg_kernel(const float4* __restrict__ node,
@@ -273,8 +287,14 @@ banded_vg_kernel(const float4* __restrict__ node,
                  const int* __restrict__ own_hi, long long rows_per_block,
                  long long n_rows, const int* __restrict__ inc_rel,
                  long long nodes_per_block, int degree, long long n_nodes,
-                 long long row_start, Material m,
-                 float* __restrict__ partials, float4* __restrict__ grad) {
+                 long long row_start, long long n_out, Material m, Tail E,
+                 float4* __restrict__ grad) {
+  if ((int)blockIdx.x >= E.n) {
+    zero_rows_outside<kThreads>(grad, n_out, row_start, row_start + n_nodes,
+                                blockIdx.x - E.n);
+    energy_tail<kThreads>(0.f, -1, E);
+    return;
+  }
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   float acc = 0.f;
   if (i < n_rows) {
@@ -291,7 +311,7 @@ banded_vg_kernel(const float4* __restrict__ node,
         node, starts, rel, rows_per_block, inc_rel + i * degree, degree,
         i / nodes_per_block, nullptr, (int)(rows_per_block * K), m);
   const float total = block_sum<float, kThreads / 32>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  energy_tail<kThreads>(total, blockIdx.x, E);
 }
 
 // K5: grad[row_start + n] = *scale x the gradient of node row n, over the
@@ -318,6 +338,18 @@ banded_grad_kernel(const float4* __restrict__ node,
 
 unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <int K>
+void launch_vg(cudaStream_t st, unsigned grid, const float4* node,
+               const int* starts, const int* rel, const int* own_lo,
+               const int* own_hi, long long rows_per_block, long long n_rows,
+               const int* inc, long long nodes_per_block, int degree,
+               long long n_nodes, long long row_start, long long n_out,
+               const Material& m, const Tail& E, float4* grad) {
+  banded_vg_kernel<K><<<grid, kThreads, 0, st>>>(
+      node, starts, rel, own_lo, own_hi, rows_per_block, n_rows, inc,
+      nodes_per_block, degree, n_nodes, row_start, n_out, m, E, grad);
 }
 
 template <int K, bool TwoPass>
@@ -400,13 +432,14 @@ int hdnn_banded_fwd(int device, const void* node, const void* starts,
   return (int)cudaGetLastError();
 }
 
-// K4: the owned rows' energy into *out and the gradient of the first
-// n_nodes node rows of the tables into grad rows [row_start, row_start +
-// n_nodes), from the recompute tables (starts = re_nstarts, rel =
-// re_conn_rel [Br, EW, k], own_lo/own_hi [Br], inc_rel = re_inc_rel
-// [Br, nodes_per_block, degree], sentinel k*EW), in one launch and the
-// partial sum; partials must hold ceil(max(n_rows, n_nodes) / kThreads)
-// floats.
+// K4: the owned rows' energy into *out and grad [n_out, 4] whole: the
+// gradient of the first n_nodes node rows of the tables in rows
+// [row_start, row_start + n_nodes), +0.0 in every other row (whatever
+// grad held before), from the recompute tables (starts = re_nstarts, rel
+// = re_conn_rel [Br, EW, k], own_lo/own_hi [Br], inc_rel = re_inc_rel
+// [Br, nodes_per_block, degree], sentinel k*EW), in one launch; partials
+// must hold n_partials = ceil(max(n_rows, n_nodes) / kThreads) floats
+// (0 when both are 0: the launch then writes zeros and a zero energy).
 int hdnn_banded_vg(int device, const void* node, const void* starts,
                    const void* rel, const void* own_lo, const void* own_hi,
                    long long rows_per_block, long long n_rows, int k,
@@ -414,10 +447,19 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
                    void* partials, int n_partials, void* out,
                    const void* inc_rel, long long nodes_per_block,
                    int degree, long long n_nodes, long long row_start,
-                   void* grad, void* stream) {
+                   long long n_out, void* grad, void* stream) {
+  const long long grid =
+      n_partials + zero_blocks<kThreads>(n_out - n_nodes);
+  // a slice that places no row (n_nodes 0) may start past the table
+  if (n_partials < 0 || n_nodes < 0 || row_start < 0 ||
+      (n_nodes > 0 && row_start + n_nodes > n_out) || grid < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
+  Tail E{(float*)partials, n_partials, (float*)out, 0};
+  const int got = hdnn::ticket_slot(device, st, &E.slot);
+  if (got != (int)cudaSuccess) return got;
   const Material m = material(f, nu, shear, w_sum);
   const float4* nd = (const float4*)node;
   const int* s = (const int*)starts;
@@ -425,31 +467,26 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   const int* lo = (const int*)own_lo;
   const int* hi = (const int*)own_hi;
   const int* inc = (const int*)inc_rel;
-  float* p = (float*)partials;
   float4* g = (float4*)grad;
   switch (k) {
     case 3:
-      banded_vg_kernel<3><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, row_start, m, p, g);
+      launch_vg<3>(st, (unsigned)grid, nd, s, r, lo, hi, rows_per_block,
+                   n_rows, inc, nodes_per_block, degree, n_nodes, row_start,
+                   n_out, m, E, g);
       break;
     case 4:
-      banded_vg_kernel<4><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, row_start, m, p, g);
+      launch_vg<4>(st, (unsigned)grid, nd, s, r, lo, hi, rows_per_block,
+                   n_rows, inc, nodes_per_block, degree, n_nodes, row_start,
+                   n_out, m, E, g);
       break;
     case 6:
-      banded_vg_kernel<6><<<n_partials, kThreads, 0, st>>>(
-          nd, s, r, lo, hi, rows_per_block, n_rows, inc, nodes_per_block,
-          degree, n_nodes, row_start, m, p, g);
+      launch_vg<6>(st, (unsigned)grid, nd, s, r, lo, hi, rows_per_block,
+                   n_rows, inc, nodes_per_block, degree, n_nodes, row_start,
+                   n_out, m, E, g);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<1, kSumThreads, 0, st>>>(p, n_partials,
-                                                (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -519,8 +556,6 @@ int hdnn_banded_occupancy(int device, int which, int k, int* regs,
   }
 }
 
-const char* hdnn_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* hdnn_error_string(int err) { return hdnn::error_string(err); }
 
 }  // extern "C"

@@ -50,26 +50,38 @@
 //
 // Energy: thread (ty, tx) with ty, tx >= 1 adds the energy of the quad it
 // owns (the quad whose n00 is its node) to the CTA's partial, and the
-// one-block kernel of p1_triangle.cuh sums the partials in double in a
-// fixed order.  K7 uses the same tiles and the same thread of each quad
-// (loading its corners straight from the table: it needs no cotangents),
-// so K6 and K7 give the same energy bits.  Tiles mask the ragged edges
-// themselves: any nx, ny >= 2.
+// grid's last CTA, once the others have written theirs, sums the partials
+// in double in a fixed order, in the same launch (energy_tail of
+// p1_triangle.cuh: the order and the bits of the one-block
+// sum_partials_kernel, with no second launch).  K7 uses the same tiles
+// and the same thread of each quad (loading its corners straight from
+// the table: it needs no cotangents), so K6 and K7 give the same energy
+// bits.  Tiles mask the ragged edges themselves: any
+// nx, ny >= 2.  Each call is one launch.
 //
 // Row windows (the sharded lattice energy, hidenn_fem_tpu/parallel/
 // sharded_slab.py, where the TPU kernels took a `row0` SMEM scalar that
 // offset their window DMAs and ownership masks, lattice_slab.py:154-194,
 // 317-320): both kernels walk the node rows [row_lo, row_hi) of the whole
-// table.  The tiles start at row_lo, the grid covers only the window's
-// tiles (each stages its one-row halo above and below), node threads
-// write only rows inside the window, and a quad counts its energy when
-// its n00 row lies in the window.  Windows that partition [0, nx) thus
-// partition the quads, and each node of a window gathers the same <= 4
-// quads, evaluated by the same code in the same order, as in the
+// table.  The tiles start at row_lo, the stencil CTAs cover only the
+// window's tiles (each stages its one-row halo above and below), node
+// threads write only rows inside the window, and a quad counts its energy
+// when its n00 row lies in the window.  Windows that partition [0, nx)
+// thus partition the quads, and each node of a window gathers the same
+// <= 4 quads, evaluated by the same code in the same order, as in the
 // whole-lattice launch (row_lo = 0, row_hi = nx): its gradient has the
 // same bits.  The sel/t1/t2 masks are read by global quad row.  (The TPU
 // kernel owned a quad by its second row, lattice_slab.py:161-170; only
 // the sum over windows is held to it.)
+//
+// K6's grid adds zero CTAs after the tiles: they write +0.0 to every node
+// row outside the window (zero_rows_outside, 16 B a store, 2,048 rows a
+// CTA), running beside the tiles, so the one launch writes the whole
+// [nx * ny, 4] gradient and the wrapper never fills it first (the TPU
+// kernel wrote the window's block and XLA placed it into zeros,
+// hidenn_fem_tpu/parallel/sharded_slab.py:71-82).  A window narrower than
+// a tile row (the sharded multigrid's 4-6 row windows of padded levels)
+// is one row of tiles and mostly zero CTAs; the whole lattice has none.
 //
 // Built by hidenn_fem_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -84,13 +96,15 @@ namespace {
 
 using hdnn::Corners;
 using hdnn::Material;
+using hdnn::Tail;
 using hdnn::block_sum;
 using hdnn::corner_cotangents;
-using hdnn::kSumThreads;
+using hdnn::energy_tail;
 using hdnn::material;
 using hdnn::strain;
-using hdnn::sum_partials_kernel;
 using hdnn::tri_energy;
+using hdnn::zero_blocks;
+using hdnn::zero_rows_outside;
 
 // the quad tile (one quad a thread) and the node tile it owns
 constexpr int kQuadRows = 8;
@@ -247,7 +261,7 @@ __device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
 // whose n00 is its node, when that node's row lies in the window.
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-stencil_fwd_kernel(Lattice L, Material m, float* __restrict__ partials) {
+stencil_fwd_kernel(Lattice L, Material m, Tail E) {
   int i0, j0;
   tile_origin(L, &i0, &j0);
   const int ty = threadIdx.x / kQuadCols, tx = threadIdx.x % kQuadCols;
@@ -256,16 +270,25 @@ stencil_fwd_kernel(Lattice L, Material m, float* __restrict__ partials) {
   if (ty >= 1 && tx >= 1 && qi < L.row_hi && quad_exists(L, qi, qj))
     acc = quad_energy(load_quad<kDiag, kMasked>(L, qi, qj), m);
   const float total = block_sum<float, kThreads / 32>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  energy_tail<kThreads>(total, blockIdx.x, E);
 }
 
 // K6: the tile's quads evaluated once each into shared memory, then the
-// gradient of each owned node gathered from its <= 4 quads.
+// gradient of each owned node gathered from its <= 4 quads; CTAs past the
+// E.n tiles write the zero rows outside the window.
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
-                  float* __restrict__ partials) {
+                  Tail E) {
   __shared__ Tile T;
+  if ((int)blockIdx.x >= E.n) {
+    zero_rows_outside<kThreads>(grad, (long long)L.nx * L.ny,
+                                (long long)L.row_lo * L.ny,
+                                (long long)L.row_hi * L.ny,
+                                blockIdx.x - E.n);
+    energy_tail<kThreads>(0.f, -1, E);
+    return;
+  }
   int i0, j0;
   tile_origin(L, &i0, &j0);
   // stage the node rows (i0 - 1 .. i0 + 7) x (j0 - 1 .. j0 + 31)
@@ -323,34 +346,29 @@ stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
     grad[(long long)qi * L.ny + qj] = g;
   }
   const float total = block_sum<float, kThreads / 32>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  energy_tail<kThreads>(total, blockIdx.x, E);
 }
 
+// One launch: the E.n tiles (and, for K6, the zero CTAs after them).
 template <int kDiag, bool kMasked>
 cudaError_t launch(bool vg, const Lattice& L, const Material& m,
-                   float4* grad, float* partials, int n_partials,
-                   float* out, cudaStream_t st) {
-  if (vg)
-    stencil_vg_kernel<kDiag, kMasked><<<n_partials, kThreads, 0, st>>>(
-        L, m, grad, partials);
-  else
-    stencil_fwd_kernel<kDiag, kMasked><<<n_partials, kThreads, 0, st>>>(
-        L, m, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_partials_kernel<<<1, kSumThreads, 0, st>>>(partials, n_partials, out);
+                   float4* grad, const Tail& E, cudaStream_t st) {
+  if (vg) {
+    const long long zeros = zero_blocks<kThreads>(
+        (long long)(L.nx - (L.row_hi - L.row_lo)) * L.ny);
+    stencil_vg_kernel<kDiag, kMasked>
+        <<<(unsigned)(E.n + zeros), kThreads, 0, st>>>(L, m, grad, E);
+  } else {
+    stencil_fwd_kernel<kDiag, kMasked><<<E.n, kThreads, 0, st>>>(L, m, E);
+  }
   return cudaGetLastError();
 }
 
 template <int kDiag>
 cudaError_t launch_masked(bool vg, const Lattice& L, const Material& m,
-                          float4* grad, float* partials, int n_partials,
-                          float* out, cudaStream_t st) {
-  if (L.t1 != nullptr)
-    return launch<kDiag, true>(vg, L, m, grad, partials, n_partials, out,
-                               st);
-  return launch<kDiag, false>(vg, L, m, grad, partials, n_partials, out,
-                              st);
+                          float4* grad, const Tail& E, cudaStream_t st) {
+  if (L.t1 != nullptr) return launch<kDiag, true>(vg, L, m, grad, E, st);
+  return launch<kDiag, false>(vg, L, m, grad, E, st);
 }
 
 int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
@@ -358,27 +376,27 @@ int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
         const void* t2, float f, float nu, float shear, float w_sum,
         void* grad, void* partials, int n_partials, void* out,
         void* stream) {
-  if (row_lo < 0 || row_lo >= row_hi || row_hi > nx)
+  if (row_lo < 0 || row_lo >= row_hi || row_hi > nx || n_partials < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  Tail E{(float*)partials, n_partials, (float*)out, 0};
+  const int got = hdnn::ticket_slot(device, st, &E.slot);
+  if (got != (int)cudaSuccess) return got;
   const Lattice L{(const float4*)node, nx, ny, (const float*)sel,
                   (const float*)t1, (const float*)t2, phase, row_lo, row_hi};
   const Material m = material(f, nu, shear, w_sum);
   float4* g = (float4*)grad;
-  float* p = (float*)partials;
-  float* o = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
   switch (diag) {
     case kUp:
-      return (int)launch_masked<kUp>(vg, L, m, g, p, n_partials, o, st);
+      return (int)launch_masked<kUp>(vg, L, m, g, E, st);
     case kDown:
-      return (int)launch_masked<kDown>(vg, L, m, g, p, n_partials, o, st);
+      return (int)launch_masked<kDown>(vg, L, m, g, E, st);
     case kSelMask:
-      return (int)launch_masked<kSelMask>(vg, L, m, g, p, n_partials, o,
-                                          st);
+      return (int)launch_masked<kSelMask>(vg, L, m, g, E, st);
     case kParity:
-      return (int)launch_masked<kParity>(vg, L, m, g, p, n_partials, o, st);
+      return (int)launch_masked<kParity>(vg, L, m, g, E, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -398,8 +416,8 @@ int hdnn_lattice_partials(int nx, int ny) {
 // K7: the energy of the lattice into *out (device float).  diag: 0 up,
 // 1 down, 2 per-quad sel mask, 3 zigzag parity with `phase`; t1 == NULL
 // means every triangle is present.  partials must hold
-// hdnn_lattice_partials(nx, ny) floats.  Returns cudaGetLastError() after
-// the launches.
+// hdnn_lattice_partials(nx, ny) floats.  One launch; returns
+// cudaGetLastError() after it (or the error of taking its ticket slot).
 int hdnn_lattice_stencil_fwd(int device, const void* node, int nx, int ny,
                              int diag, int phase, const void* sel,
                              const void* t1, const void* t2, float f,
@@ -410,7 +428,8 @@ int hdnn_lattice_stencil_fwd(int device, const void* node, int nx, int ny,
              f, nu, shear, w_sum, nullptr, partials, n_partials, out, stream);
 }
 
-// K6: as K7, and the node gradient [nx * ny, 4] (float4 rows) into grad.
+// K6: as K7, and the node gradient [nx * ny, 4] (float4 rows) into grad,
+// in the same launch.
 int hdnn_lattice_stencil_vg(int device, const void* node, int nx, int ny,
                             int diag, int phase, const void* sel,
                             const void* t1, const void* t2, float f,
@@ -435,9 +454,9 @@ int hdnn_lattice_stencil_fwd_rows(int device, const void* node, int nx,
              stream);
 }
 
-// K6 over the node rows [row_lo, row_hi): that energy, and the gradient of
-// the window's nodes into their rows of grad [nx * ny, 4]; other rows of
-// grad are not written.
+// K6 over the node rows [row_lo, row_hi): that energy, and grad
+// [nx * ny, 4] whole: the gradient of the window's nodes in their rows,
+// +0.0 in every other row (whatever grad held before), in one launch.
 int hdnn_lattice_stencil_vg_rows(int device, const void* node, int nx,
                                  int ny, int row_lo, int row_hi, int diag,
                                  int phase, const void* sel, const void* t1,
@@ -450,8 +469,6 @@ int hdnn_lattice_stencil_vg_rows(int device, const void* node, int nx,
              stream);
 }
 
-const char* hdnn_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* hdnn_error_string(int err) { return hdnn::error_string(err); }
 
 }  // extern "C"

@@ -30,8 +30,9 @@ In this module:
 * ``banded_vg_rows`` (K4), ``banded_bwd_rows`` (K5): the same kernels on
   one rank's contiguous slice of the recompute tables
   (``parallel/sharding.py``), the gradient rows placed at global row
-  ``row_start`` of a zeroed [N, 4] table, as the TPU package's
-  ``_recompute_vg``/``_recompute_bwd`` place them.
+  ``row_start`` of an [N, 4] table whose other rows are 0, as the TPU
+  package's ``_recompute_vg``/``_recompute_bwd`` place them (K4 writes
+  those zeros in its own launch; K5's wrapper fills a zeroed table).
 * ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
   same functions in plain torch, walking the same tables (window gather,
   the per-layout energy of ``element_energy_plain``'s algebra and the
@@ -193,7 +194,7 @@ def _library() -> ctypes.CDLL:
         vp, i, vp, vp]
     lib.hdnn_banded_fwd.restype = i
     lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
-        vp, i, vp, vp, ll, i, ll, ll, vp, vp]
+        vp, i, vp, vp, ll, i, ll, ll, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
     lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, i] + mat + [
         vp, ll, i, vp, i, ll, ll, vp, vp, vp]
@@ -251,7 +252,10 @@ def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
     return out
 
 
-def _vg_launch(name, node, ba, E, nu, w_sum, row_start):
+def _vg_launch(name, node, ba, E, nu, w_sum, row_start, grad=None):
+    """K4 in one launch, writing every row of ``grad`` (a new [N, 4]
+    tensor when None), whatever it held: the tables' node rows at
+    ``row_start``, 0 elsewhere."""
     _check(node, ba, ba.re_conn_rel, ba.re_nstarts, ba.re_own_lo,
            ba.re_own_hi, ba.re_inc_rel)
     lib = _library()
@@ -265,15 +269,18 @@ def _vg_launch(name, node, ba, E, nu, w_sum, row_start):
     dev = node.device
     partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    grad = (torch.empty_like(node) if row_start == 0 and n_nodes
-            == node.shape[0] else torch.zeros_like(node))
+    if grad is None:
+        grad = torch.empty_like(node)
+    elif grad.shape != node.shape or grad.dtype != node.dtype \
+            or grad.device != dev or not grad.is_contiguous():
+        raise ValueError("grad must be a contiguous tensor like node")
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = _head(node, ba, ba.re_nstarts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_vg(
         *head[:4], ba.re_own_lo.data_ptr(), ba.re_own_hi.data_ptr(),
         *head[4:], partials.data_ptr(), n_part,
         out.data_ptr(), inc.data_ptr(), inc.shape[1], inc.shape[2],
-        n_nodes, row_start, grad.data_ptr(), stream)
+        n_nodes, row_start, node.shape[0], grad.data_ptr(), stream)
     raise_on(lib, err, name)
     launch_counts[name] += 1
     return out, grad
@@ -281,8 +288,9 @@ def _vg_launch(name, node, ba, E, nu, w_sum, row_start):
 
 def banded_vg(node, ba, E, nu, w_sum) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 on the card: (energy of the owned rows of the recompute windows,
-    node gradient [N, 4]) in one launch and the partial sum, with no
-    cotangent buffer.  Needs the recompute tables with ownership."""
+    node gradient [N, 4]) in one launch, the energy summed by its last
+    block, with no cotangent buffer.  Needs the recompute tables with
+    ownership."""
     return _vg_launch("banded_vg", node, ba, E, nu, w_sum, 0)
 
 
@@ -290,8 +298,9 @@ def banded_vg_rows(node, ba, E, nu, w_sum, row_start: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 on the card over one rank's slice of the recompute tables:
     (energy of the slice's owned rows, node gradient [N, 4] with the
-    slice's node rows placed at ``row_start``, every other row 0).  The
-    placed rows equal the unsharded K4's bit for bit."""
+    slice's node rows placed at ``row_start``, every other row 0), in one
+    launch that writes the zeros too, also for a slice that places no row.
+    The placed rows equal the unsharded K4's bit for bit."""
     return _vg_launch("banded_vg_rows", node, ba, E, nu, w_sum,
                       int(row_start))
 

@@ -26,7 +26,8 @@ In this module:
   kernels over a window of node rows ``[row_lo, row_hi)`` (the TPU
   kernels' ``row0``, which ``parallel/sharded_slab.py`` gives each rank):
   the energy of the quads whose n00 row lies in the window and the
-  gradient of the window's nodes, placed in a zeroed [nx*ny, 4] table;
+  gradient of the window's nodes, placed in an [nx*ny, 4] table whose
+  other rows the same launch writes 0;
   ``lattice_stencil_{fwd,vg}_rows_plain`` their plain versions;
 * ``lattice_total_slab``: domain - traction work of an identity-numbered
   float32 route, whose domain term is an autograd Function that runs K6
@@ -275,9 +276,11 @@ def _check(node, nx, ny, diag, sel, t1, t2) -> None:
 
 
 def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2,
-            rows=None):
+            rows=None, grad=None):
     """K6 (``vg``) or K7 over the whole lattice, or over the node rows
-    ``rows = (row_lo, row_hi)`` (then the gradient's other rows are 0)."""
+    ``rows = (row_lo, row_hi)`` (then the gradient's other rows are 0), in
+    one launch.  K6 writes every row of ``grad`` (a new [nx*ny, 4] tensor
+    when None), whatever it held."""
     _check(node, nx, ny, diag, sel, t1, t2)
     lib = _library()
     f, shear = _constants(E, nu)
@@ -297,8 +300,11 @@ def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2,
         "" if rows is None else "_rows")
     entry = getattr(lib, "hdnn_" + name)
     if vg:
-        grad = (torch.empty_like(node) if rows is None
-                else torch.zeros_like(node))
+        if grad is None:
+            grad = torch.empty_like(node)
+        elif grad.shape != node.shape or grad.dtype != node.dtype \
+                or grad.device != dev or not grad.is_contiguous():
+            raise ValueError("grad must be a contiguous tensor like node")
         err = entry(*head, grad.data_ptr(), partials.data_ptr(), n_part,
                     out.data_ptr(), stream)
     else:

@@ -5,8 +5,9 @@ Each rank holds the whole packed node table (replicated) and runs K6 over
 its own window of node rows (K7 when no gradient is wanted): the energy of
 the quads whose n00 row lies in the window, and the complete gradient of
 the window's nodes (every quad touching them is recomputed from the
-one-row halo, so no halo exchange is needed), placed in a zeroed [N, 4]
-table.  The partial energies are summed
+one-row halo, so no halo exchange is needed), placed in an [N, 4] table
+whose other rows are 0 (on the card K6 writes them in the same launch).
+The partial energies are summed
 over the ranks and the placed gradients summed by the replicated input's
 backward (``parallel/sharding.py``).  The traction edge term runs outside,
 on every rank alike, as in the JAX package.  On the CPU the windows run

@@ -553,6 +553,227 @@ def test_banded_row_start_matches_unsharded(dev, k):
     np.testing.assert_allclose(total, float(e4), rtol=1e-5)
 
 
+# the redesigned row launches (one launch each: the rows outside the
+# window or slice, and the energy sum, written by the kernel itself)
+def _is_plus_zero(t):
+    """Every entry exactly +0.0 (not -0.0, not NaN)."""
+    return bool(((t == 0) & ~torch.signbit(t)).all())
+
+
+def _stencil_case(nx, ny, dev, masked=True, seed=21):
+    """A zigzag lattice (the parity) with about a tenth of the triangles
+    absent when ``masked``."""
+    node, rng = _lattice_node(nx, ny, seed, dev)
+    kw = dict(diag=ls.PARITY, phase=1)
+    if masked:
+        for k in ("t1", "t2"):
+            kw[k] = torch.tensor(
+                (rng.random((nx - 1, ny - 1)) > 0.1).astype(np.float32),
+                device=dev)
+    return node, kw
+
+
+def _rows_into(grad, node, nx, ny, w_sum, lo, hi, kw):
+    """K6 over the node rows [lo, hi) into the given output ``grad``."""
+    args = dict(phase=0, sel=None, t1=None, t2=None)
+    args.update(kw)
+    return ls._launch(True, node, nx, ny, E, NU, w_sum, rows=(lo, hi),
+                      grad=grad, **args)
+
+
+# windows of 1, 4 and 6 node rows at row_lo = 0, inside, and at row_hi =
+# nx; (37, 53) is narrower than one tile row (7 x 31 nodes) in both
+NARROW_WINDOWS = [(0, 1), (0, 4), (0, 6), (3, 4), (14, 18), (20, 26),
+                  (36, 37), (33, 37), (31, 37)]
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (300, 37)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("masked", [False, True])
+def test_narrow_row_windows_match_whole_lattice(dev, shape, masked):
+    """K6 over windows of 1, 4 and 6 rows (NARROW_WINDOWS, and the same at
+    the end of a 300-row lattice) in a NaN-filled output: the window's rows
+    bit-equal to the whole-lattice K6's, every other row +0.0, one launch a
+    call, the energy bit-equal to K7's over the window and within rtol
+    1e-4 of the plain version."""
+    nx, ny = shape
+    node, kw = _stencil_case(nx, ny, dev, masked)
+    _, g_whole = ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)
+    windows = [(lo + nx - 37, hi + nx - 37) if lo >= 20 else (lo, hi)
+               for lo, hi in NARROW_WINDOWS]
+    for lo, hi in windows:
+        grad = torch.full_like(node, float("nan"))
+        before = ls.launch_counts["lattice_stencil_vg_rows"]
+        e6, g6 = _rows_into(grad, node, nx, ny, W_SUM, lo, hi, kw)
+        assert g6 is grad
+        assert ls.launch_counts["lattice_stencil_vg_rows"] == before + 1
+        e7 = ls.lattice_stencil_fwd_rows(node, nx, ny, E, NU, W_SUM, lo, hi,
+                                         **kw)
+        torch.cuda.synchronize()
+        rows = slice(lo * ny, hi * ny)
+        assert torch.equal(g6[rows], g_whole[rows]), (lo, hi)
+        assert _is_plus_zero(g6[:lo * ny]) and _is_plus_zero(g6[hi * ny:])
+        assert float(e6) == float(e7)
+        pe, pg = ls.lattice_stencil_vg_rows_plain(node, nx, ny, E, NU, W_SUM,
+                                                  lo, hi, **kw)
+        _close(e6, pe, rtol=1e-4, atol_scale=0.0)
+        _close(g6, pg)
+
+
+@pytest.mark.parametrize("shape,ranks", [((65, 33), 4), ((33, 17), 4),
+                                         ((17, 9), 4), ((17, 9), 3)],
+                         ids=lambda v: str(v))
+def test_padded_level_windows_fill_a_nan_output(dev, shape, ranks):
+    """On a multigrid level padded with DEAD rows for ``ranks`` ranks
+    (windows of 17, 9, 5 and 6 rows), K6 over each rank's window into a
+    NaN-filled output: the window's rows bit-equal to the whole-level
+    K6's, every other row +0.0, the energy bit-equal to K7's and within
+    rtol 1e-4 of the plain version, the window energies summing to the
+    whole."""
+    from hidenn_fem_tpu_torch.parallel import sharded_mg as smg
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+
+    grid, model, params = _mg_plate(*shape, dev)
+    coords = model.coords(params, grid).detach()
+    gP, cP, uP, k = smg._pad(grid, coords, params["u"], ranks)
+    assert k != 0 and gP.nx % ranks == 0
+    nx, ny = gP.nx, gP.ny
+    node = torch.cat([model.coords({"coords": cP}, gP),
+                      model.u_full({"u": uP}, gP)], dim=-1).reshape(-1, 4)
+    node = node.detach().contiguous()
+    kw = ls.structured_stencil(gP.quad_mask, gP.split, gP.zigzag_phase,
+                               torch.float32)
+    e_whole, g_whole = ls.lattice_stencil_vg(node, nx, ny, E, NU, 0.5, **kw)
+    total = 0.0
+    for r in range(ranks):
+        lo, hi = row_window(nx, r, ranks)
+        grad = torch.full_like(node, float("nan"))
+        e6, g6 = _rows_into(grad, node, nx, ny, 0.5, lo, hi, kw)
+        e7 = ls.lattice_stencil_fwd_rows(node, nx, ny, E, NU, 0.5, lo, hi,
+                                         **kw)
+        torch.cuda.synchronize()
+        rows = slice(lo * ny, hi * ny)
+        assert torch.equal(g6[rows], g_whole[rows])
+        assert _is_plus_zero(g6[:lo * ny]) and _is_plus_zero(g6[hi * ny:])
+        assert float(e6) == float(e7)
+        pe, pg = ls.lattice_stencil_vg_rows_plain(node, nx, ny, E, NU, 0.5,
+                                                  lo, hi, **kw)
+        _close(e6, pe, rtol=1e-4, atol_scale=0.0)
+        _close(g6, pg)
+        total += float(e6)
+    np.testing.assert_allclose(total, float(e_whole), rtol=1e-5)
+
+
+def _rank_slices(mesh, k, ranks, window_limit, dev):
+    """The mesh's k-slot tables rebanded for ``ranks`` ranks, its node
+    table and each rank's (slice, row_start)."""
+    from hidenn_fem_tpu_torch.parallel.sharding import rank_tables
+
+    conn = mesh.connectivity.cpu().numpy()
+    n = mesh.n_nodes
+    kw = dict(window_limit=window_limit, block_multiple=ranks, device=dev)
+    ba = (mb.build_banded_assembly(conn, n, mesh.incidence.cpu().numpy(),
+                                   **kw) if k == 3 else
+          (mb.build_paired_assembly if k == 4 else
+           mb.build_striped_assembly)(conn, n, **kw))
+    return ba, _banded_node(mesh, dev), [rank_tables(ba, r, ranks)
+                                         for r in range(ranks)]
+
+
+@pytest.mark.parametrize("k", [3, 4, 6])
+def test_banded_row_start_fills_a_nan_output(dev, k):
+    """K4 on each rank's slice (4 ranks) into a NaN-filled output, one
+    launch a call: the placed rows bit-equal to the unsharded K4's, every
+    other row +0.0, the energy bit-equal to a launch into a fresh
+    output; the whole tables' K4 into a NaN-filled output equals it."""
+    ba, node, slices = _rank_slices(
+        pt.generate_mesh_delaunay(lc=0.09, device=dev), k, 4, 300, dev)
+    n = node.shape[0]
+    e4, g4 = be.banded_vg(node, ba, E, NU, W_SUM)
+    nan = torch.full_like(node, float("nan"))
+    ew, gw = be._vg_launch("banded_vg", node, ba, E, NU, W_SUM, 0, grad=nan)
+    assert float(ew) == float(e4) and torch.equal(gw, g4)
+    for loc, rs in slices:
+        grad = torch.full_like(node, float("nan"))
+        before = be.launch_counts["banded_vg_rows"]
+        e, g = be._vg_launch("banded_vg_rows", node, loc, E, NU, W_SUM, rs,
+                             grad=grad)
+        assert g is grad and be.launch_counts["banded_vg_rows"] == before + 1
+        ef, _ = be.banded_vg_rows(node, loc, E, NU, W_SUM, rs)
+        torch.cuda.synchronize()
+        end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
+        assert torch.equal(g[rs:end], g4[rs:end])
+        assert _is_plus_zero(g[:rs]) and _is_plus_zero(g[end:])
+        assert float(e) == float(ef)
+
+
+def test_empty_banded_slice_writes_every_row_zero(dev):
+    """A slice of table padding only (the 33x17 proxy plate's paired
+    tables at window limit 100 for 16 ranks: the last slice places no
+    row): K4 at its row_start is still one launch, every row of a
+    NaN-filled output comes back +0.0, and its energy equals the plain
+    version's."""
+    mesh = dataclasses.replace(pt.proxy_plate_mesh(nx=33, ny=17, device=dev),
+                               lattice=None)
+    ba, node, slices = _rank_slices(mesh, 4, 16, 100, dev)
+    n = node.shape[0]
+    empty = [(loc, rs) for loc, rs in slices if be._placed_rows(
+        loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1], rs, n) == 0]
+    assert empty
+    for loc, rs in empty:
+        grad = torch.full_like(node, float("nan"))
+        before = be.launch_counts["banded_vg_rows"]
+        e, g = be._vg_launch("banded_vg_rows", node, loc, E, NU, W_SUM, rs,
+                             grad=grad)
+        torch.cuda.synchronize()
+        assert be.launch_counts["banded_vg_rows"] == before + 1
+        assert _is_plus_zero(g)
+        pe, pg = be.banded_vg_plain(node, loc, E, NU, W_SUM, rs)
+        assert float(e) == float(pe) and not pg.any()
+
+
+def test_row_launches_replay_from_a_cuda_graph(dev):
+    """K6 over a row window and K4 at row_start recorded in one CUDA graph
+    and replayed 50 times over changing inputs: every replay's energies
+    bit-equal to eager calls' on the same inputs, so each launch leaves
+    its ticket counter at 0 (a counter left over would elect the wrong
+    block and return a wrong sum)."""
+    nx, ny = 129, 65
+    node, kw = _stencil_case(nx, ny, dev)
+    lo, hi = 40, 45
+    ba, bnode, slices = _rank_slices(
+        pt.generate_mesh_delaunay(lc=0.09, device=dev), 3, 4, 300, dev)
+    loc, rs = slices[1]
+    static = node.clone()
+    bstatic = bnode.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):     # warm-up, then the recording
+        ls.lattice_stencil_vg_rows(static, nx, ny, E, NU, W_SUM, lo, hi,
+                                   **kw)
+        be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            e6, g6 = ls.lattice_stencil_vg_rows(static, nx, ny, E, NU,
+                                                W_SUM, lo, hi, **kw)
+            e4, g4 = be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+    torch.cuda.current_stream().wait_stream(stream)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(50):
+        scale = 1.0 + 0.01 * torch.randn(1, generator=gen, device=dev)
+        static.copy_(node)
+        static[:, 2:] *= scale
+        bstatic.copy_(bnode)
+        bstatic[:, 2:] *= scale
+        graph.replay()
+        w6, v6 = ls.lattice_stencil_vg_rows(static, nx, ny, E, NU, W_SUM,
+                                            lo, hi, **kw)
+        w4, v4 = be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+        torch.cuda.synchronize()
+        assert float(e6) == float(w6) and torch.equal(g6, v6), i
+        assert float(e4) == float(w4) and torch.equal(g4, v4), i
+
+
 def test_two_rank_gloo_slab_on_one_card(dev, tmp_path):
     """Two ranks (gloo) sharing the card run ``shard_map_lattice_slab``:
     value and both gradient groups bit-equal across the ranks and within

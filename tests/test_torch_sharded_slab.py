@@ -7,7 +7,9 @@ In this process: the plain versions of K6/K7 over a row window
 with ``row0`` in interpret mode, on 37x53 and 65x17 lattices (up, down, a
 sel mask, the zigzag parity; with and without presence masks; 1-4
 windows, the JAX package's per-device row blocks, ragged or empty at the
-end).  Each window's gradient rows: rtol 1e-5 + 1e-5 x max|g|; the sum of
+end), on windows of 1, 4 and 6 rows (at row_lo = 0 and at row_hi = nx),
+and on the 3- and 4-rank windows of a multigrid level padded with DEAD
+rows.  Each window's gradient rows: rtol 1e-5 + 1e-5 x max|g|; the sum of
 the window energies: rtol 1e-5 (the two packages own the quads on a
 window's seam differently: the port by the quad's first row, JAX by its
 second; only the sum is held to JAX).  K6's and K7's plain window
@@ -51,15 +53,28 @@ E, NU, W_SUM = 10e9, 0.3, 0.5
 F32_HISTORY_RTOL = 5e-3
 
 
+# Narrow windows (1, 4 and 6 node rows, as the sharded multigrid's 4-6 row
+# windows of padded levels), a partition of a 37-row lattice that starts
+# and ends with a 1-row window: row_lo = 0 and row_hi = nx included.
+NARROW = (0, 1, 5, 11, 12, 18, 22, 28, 32, 36, 37)
+
+
 def _window_cases():
-    """Every diagonal with and without masks, and 1-4 windows on each
-    lattice."""
+    """Every diagonal with and without masks, and 1-4 windows of the JAX
+    package's per-device row blocks on each lattice; narrow windows
+    (NARROW) on two lattices; the windows of a padded multigrid level
+    (DEAD rows, the zigzag parity moved by the padding) for 3 and 4 ranks
+    ("mg3", "mg4")."""
     out = []
     for shape, first_masked in (((37, 53), False), ((65, 17), True)):
         for i, diag in enumerate(("up", "down", "sel", "zigzag")):
             masked = first_masked == (i % 3 == 0)
             n_windows = 1 + i if first_masked is False else 4 - i
             out.append((shape, diag, masked, n_windows))
+    out += [((37, 53), "zigzag", True, NARROW),
+            ((37, 21), "up", False, NARROW),
+            ((17, 9), "zigzag", True, "mg3"),
+            ((17, 9), "zigzag", True, "mg4")]
     return out
 
 
@@ -87,41 +102,92 @@ def _lattice_inputs(nx, ny, diag, masked, seed):
     return node.reshape(nx * ny, 4).astype(np.float32), sel, t1, t2
 
 
-@pytest.mark.parametrize("shape,diag,masked,n_windows", _window_cases())
+def _padded_level(nx, ny, ranks):
+    """A zigzag multigrid level with a hole, padded with DEAD rows for
+    ``ranks`` ranks as the sharded multigrid pads it
+    (``parallel/sharded_mg.py``): (node table, padded rows, sel = the
+    parity moved by the padding, t1 = t2 = the quad mask; numpy) and the
+    parity's phase."""
+    from hidenn_fem_tpu_torch.models.structured_grid import (
+        StructuredGridP1, generate_structured_grid)
+    from hidenn_fem_tpu_torch.parallel import sharded_mg
+
+    grid = generate_structured_grid(nx=nx, ny=ny, split="zigzag",
+                                    holes=((1.0, 0.5, 0.3),), device=CPU)
+    model = StructuredGridP1(E=E, nu=NU)
+    params = model.init(np.random.default_rng(0), grid, device=CPU)
+    coords = model.coords(params, grid).detach()
+    gP, cP, uP, k = sharded_mg._pad(grid, coords, params["u"], ranks)
+    assert k != 0 and gP.nx % ranks == 0
+    node = torch.cat([model.coords({"coords": cP}, gP),
+                      model.u_full({"u": uP}, gP)], dim=-1)
+    ii, jj = np.meshgrid(np.arange(gP.nx - 1), np.arange(gP.ny - 1),
+                         indexing="ij")
+    sel = ((ii + jj + gP.zigzag_phase) % 2 == 0).astype(np.float32)
+    qm = gP.quad_mask.numpy().astype(np.float32)
+    assert not qm[-1].any() or not qm[0].any()    # a DEAD quad row
+    return (node.reshape(-1, 4).detach().numpy().astype(np.float32),
+            gP.nx, sel, qm, qm.copy()), gP.zigzag_phase
+
+
+@pytest.mark.parametrize("shape,diag,masked,windows", _window_cases(),
+                         ids=lambda v: ("narrow" if v == NARROW else None))
 def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
-                                               n_windows):
+                                               windows):
     nx, ny = shape
-    node, sel, t1, t2 = _lattice_inputs(nx, ny, diag, masked, seed=nx + ny)
+    phase = 0
+    if isinstance(windows, str):                 # a padded level
+        ranks = int(windows[2:])
+        (node, nx, sel, t1, t2), phase = _padded_level(nx, ny, ranks)
+        spans = [(1, nx // ranks, lo, hi) for lo, hi in
+                 (pss.row_window(nx, r, ranks) for r in range(ranks))]
+    else:
+        node, sel, t1, t2 = _lattice_inputs(nx, ny, diag, masked,
+                                            seed=nx + ny)
+        if isinstance(windows, int):             # JAX's device blocks
+            _, nb, bi = _device_grid(nx, windows)
+            spans = [(nb, bi, d * nb * bi, d * nb * bi + nb * bi)
+                     for d in range(windows)]
+        else:                                    # explicit windows
+            spans = [(1, hi - lo, lo, hi)
+                     for lo, hi in zip(windows[:-1], windows[1:])]
     sel_up = {"up": True, "down": False}.get(diag)
     all_present = not masked
-    rd, nb, bi = _device_grid(nx, n_windows)
-    rows_tot = n_windows * nb * bi
+    rows_tot = max(max(r0 + nb * bi for nb, bi, r0, _ in spans), nx)
     nyp = -(-ny // 128) * 128
     f = E / (1.0 - NU ** 2)
     route = types.SimpleNamespace(
         sel=None if sel is None else jnp.asarray(sel),
         t1=None if t1 is None else jnp.asarray(t1),
         t2=None if t2 is None else jnp.asarray(t2))
-    masks = jls._pack_masks(route, sel_up, all_present, nb, bi, nyp,
-                            jnp.float32, rows=rows_tot)
-    slab = jls._pack(jnp.asarray(node), nx, ny, nb, bi, rows=rows_tot)
-    vg = jax.jit(lambda s, m, r0: jls._pallas_vg(
-        s, m, nx, ny, nb, bi, f, NU, W_SUM, sel_up, all_present, True,
-        row0=r0))
+    packed = {}
+
+    def jax_window(nb, bi, r0):
+        """JAX's _pallas_vg over nb blocks of bi rows from row r0."""
+        if (nb, bi) not in packed:
+            packed[nb, bi] = (
+                jls._pack(jnp.asarray(node), nx, ny, nb, bi, rows=rows_tot),
+                jls._pack_masks(route, sel_up, all_present, nb, bi, nyp,
+                                jnp.float32, rows=rows_tot),
+                jax.jit(lambda s, m, r: jls._pallas_vg(
+                    s, m, nx, ny, nb, bi, f, NU, W_SUM, sel_up,
+                    all_present, True, row0=r)))
+        slab, masks, vg = packed[nb, bi]
+        return vg(slab, masks, jnp.int32(r0))
+
     kw = dict(diag={"up": pls.UP, "down": pls.DOWN, "sel": pls.SEL_MASK,
                     "zigzag": pls.PARITY}[diag],
-              sel=None if diag != "sel" else torch.tensor(sel),
+              phase=phase, sel=None if diag != "sel" else torch.tensor(sel),
               t1=None if t1 is None else torch.tensor(t1),
               t2=None if t2 is None else torch.tensor(t2))
     node_t = torch.tensor(node)
     e_whole, g_whole = pls.lattice_stencil_vg_plain(node_t, nx, ny, E, NU,
                                                     W_SUM, **kw)
     sum_t = sum_j = 0.0
-    for d in range(n_windows):
-        r0 = d * nb * bi
-        ej, gj = vg(slab, masks, jnp.int32(r0))
+    for nb, bi, r0, end in spans:
+        ej, gj = jax_window(nb, bi, r0)
         sum_j += float(ej)
-        lo, hi = min(r0, nx), min(r0 + nb * bi, nx)
+        lo, hi = min(r0, nx), min(end, nx)
         if lo == hi:            # the JAX package's empty last blocks
             assert float(ej) == 0.0
             continue
@@ -134,7 +200,8 @@ def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
         rows = np.asarray(gj)[:, :hi - lo, :ny].reshape(4, -1).T
         got = gt.numpy()
         assert_close(got[lo * ny:hi * ny], rows, rtol=1e-5,
-                     atol=1e-5 * np.abs(rows).max(), what=f"window {d}")
+                     atol=1e-5 * np.abs(rows).max(),
+                     what=f"window [{lo}, {hi})")
         assert not got[:lo * ny].any() and not got[hi * ny:].any()
         np.testing.assert_array_equal(got[lo * ny:hi * ny],
                                       g_whole.numpy()[lo * ny:hi * ny])

@@ -69,15 +69,17 @@ def _plate():
                                lattice=None)
 
 
-def _build(pkg, kind, conn, n, inc, bm, **kw):
+def _build(pkg, kind, conn, n, inc, bm, window_limit=300, **kw):
     """``kind`` tables (triangle, paired or strip) of the JAX package or
-    the port (``kw``: the port's ``device``), window limit 300."""
+    the port (``kw``: the port's ``device``)."""
     if kind == "triangle":
-        return pkg.build_banded_assembly(conn, n, inc, window_limit=300,
+        return pkg.build_banded_assembly(conn, n, inc,
+                                         window_limit=window_limit,
                                          block_multiple=bm, **kw)
     build = {"paired": pkg.build_paired_assembly,
              "strip": pkg.build_striped_assembly}[kind]
-    return build(conn, n, window_limit=300, block_multiple=bm, **kw)
+    return build(conn, n, window_limit=window_limit, block_multiple=bm,
+                 **kw)
 
 
 @pytest.mark.parametrize("bm", [1, 2, 3, 4])
@@ -156,16 +158,19 @@ def _jax_slice(ba, rank, size):
     return loc, rank * br * ba.re_inc_rel.shape[1]
 
 
-@pytest.mark.parametrize("k", [3, 4, 6])
-def test_rows_plain_k4_k5_match_jax_interpret(k):
+@pytest.mark.parametrize("k,size,window_limit", [
+    pytest.param(3, 4, 300, id="3"), pytest.param(4, 4, 300, id="4"),
+    pytest.param(6, 4, 300, id="6"),
+    # 16 slices of 128 node blocks of 5 rows: the last slice places no row
+    pytest.param(4, 16, 100, id="4-empty-slice")])
+def test_rows_plain_k4_k5_match_jax_interpret(k, size, window_limit):
     mesh = _plate()
     conn = np.asarray(mesh.connectivity)
     n = mesh.n_nodes
     inc = np.asarray(mesh.incidence)
     kind = {3: "triangle", 4: "paired", 6: "strip"}[k]
-    size = 4
-    ja = _build(jb, kind, conn, n, inc, size)
-    ta = _build(pb, kind, conn, n, inc, size, device=CPU)
+    ja = _build(jb, kind, conn, n, inc, size, window_limit)
+    ta = _build(pb, kind, conn, n, inc, size, window_limit, device=CPU)
     assert ja.k == k and ja.re_own_lo is not None
     params = random_params(mesh, seed=3)
     tp = pt.params_from_numpy(params, device=CPU)
@@ -178,15 +183,20 @@ def test_rows_plain_k4_k5_match_jax_interpret(k):
     bwd = jax.jit(lambda nd, b, rs: jbe._recompute_bwd(
         nd, b, E, NU, W_SUM, True, jnp.float32(ct), rs))
     whole, _ = pbe.banded_vg_plain(node_t, ta, E, NU, W_SUM)
-    total = 0.0
+    total, empty = 0.0, 0
     for rank in range(size):
         jl, jrs = _jax_slice(ja, rank, size)
         tl, trs = psh.rank_tables(ta, rank, size)
         assert trs == jrs
+        placed = pbe._placed_rows(
+            tl.re_inc_rel.shape[0] * tl.re_inc_rel.shape[1], trs, n)
         ej, gj = vg(node_j, jl, jnp.int32(jrs))
         et, gt = pbe.banded_vg_plain(node_t, tl, E, NU, W_SUM, trs)
         assert_close(float(et), float(ej), rtol=1e-5, what="energy")
         gj = np.asarray(gj)
+        if placed == 0:         # table padding only: no row placed
+            empty += 1
+            assert not gt.any() and not gj.any()
         assert_close(gt.numpy(), gj, rtol=1e-5,
                      atol=1e-5 * np.abs(gj).max(), what="K4 rows")
         # the rows outside the slice stay zero in both
@@ -200,6 +210,7 @@ def test_rows_plain_k4_k5_match_jax_interpret(k):
         assert_close(bt.numpy(), bj, rtol=1e-5,
                      atol=1e-5 * np.abs(bj).max(), what="K5 rows")
     assert_close(total, float(whole), rtol=1e-5, what="sum over slices")
+    assert empty == (1 if size == 16 else 0)
 
 
 def test_sharded_banded_refuses_indivisible_tables():

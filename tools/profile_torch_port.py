@@ -30,6 +30,13 @@ iteration), the device-busy time likewise (the union of kernel
 intervals), the idle share, the kernel launches per call (all CUDA
 kernels the profiler saw), each kernel's device µs per call by name
 (``key_averages()``), and the top operators by device and by host time.
+Two windows take the steady-state MG-PCG iteration on example 9's plate
+apart from the set-up, by the difference between tol-0 solves of 5 and
+25 iterations (``steady_profile``), captured: ``961x481_mg_pcg_steady``
+(``mg_pcg_solve`` on a hierarchy built once) and
+``961x481_sharded_mg_1rank`` (the sharded MG "all" on a one-rank NCCL
+group: K6 over a row window on every level); each prints device busy,
+device kernels and the port's launches an iteration.
 The ``pt_layouts`` window times the generic background's P^T alone in
 both layouts, flat and windowed (device µs per call), on the 922K proxy
 plate and the 898K Delaunay plate.  Each window's Chrome trace goes to
@@ -42,13 +49,16 @@ they show).
 With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
 two-pass windows) on the 898K Delaunay plate's paired tables, K4 and
-both kinds of K5 on its triangle tables, K6 and K7 on the 922K-class
-zigzag plate and on the hole-free 961x481 "up" grid, 20 calls each, and
-prints each kernel's device µs per call by name.  With
+both kinds of K5 on its triangle tables, K4 at ``row_start`` on slice 1
+of its paired tables rebanded for 4 ranks, K6 and K7 on the 922K-class
+zigzag plate (and K6 over its row window 1 of 4) and on the hole-free
+961x481 "up" grid, 20 calls each, and prints each kernel's device µs per
+call by name.  With
 ``--grads DIR`` as well it saves K4's energy and gradient and K5's
 gradient on both kinds of window, for the 898K paired, triangle and strip
-tables, to ``DIR/banded_grads.pt``; ``--compare-grads A B`` then holds two
-such directories equal bit for bit (``torch.equal``).  It passes every
+tables, and every kernel case's outputs, to ``DIR/banded_grads.pt``;
+``--compare-grads A B`` then holds two such directories equal bit for bit
+(``torch.equal``).  It passes every
 device explicitly, so run as a script it also drives an older checkout of
 the package for an A/B in one call:
 
@@ -131,6 +141,50 @@ def kernel_profile(fn, calls=20, tries=3):
         out[name] = (out.get(name, 0.0) + per_call
                      * evt.self_device_time_total / max(evt.count, 1))
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_launches(fn, calls=20, tries=6):
+    """Device kernels launched per call of ``fn()``, by short name: the
+    profiler's event counts over ``calls`` calls after one warm-up call,
+    profiled again (up to ``tries`` times) while some count is no whole
+    multiple of ``calls`` (a dropped event)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        if events and all(e.count % calls == 0 for _, e in events):
+            break
+    out = {}
+    for name, evt in events:
+        out[name] = out.get(name, 0) + evt.count / calls
+    return out
+
+
+def steady_profile(solve, caps):
+    """One iteration of a solver's steady state from the profiler: the
+    difference between ``solve(caps[0])`` and ``solve(caps[1])`` (tol-0
+    solves that run to their caps, set-up alike in both), over the
+    iterations between: (device busy ms, device kernels, {kernel: device
+    µs}) an iteration."""
+    out = []
+    for m in caps:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve(m)
+            torch.cuda.synchronize()
+        out.append((_busy_ms(prof),
+                    sum(e.count for _, e in _kernel_events(prof)),
+                    kernel_us(prof, 1)))
+    d = caps[1] - caps[0]
+    by_name = {k: (v - out[0][2].get(k, 0.0)) / d
+               for k, v in out[1][2].items()}
+    return ((out[1][0] - out[0][0]) / d, (out[1][1] - out[0][1]) / d,
+            dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
 def _launch_counts():
@@ -246,6 +300,81 @@ def _mg_961(dev, iters=10):
                                    tol=0.0, levels=levels)
 
 
+def _mg_steady(dev, card, sharded, caps=(5, 25), host_caps=(10, 210)):
+    """The steady-state MG-PCG iteration on example 9's plate, captured:
+    device busy and kernels from the difference between tol-0 solves at
+    ``caps`` (``steady_profile``), the host clock's from the least of
+    three solves at each of ``host_caps`` (a solve's set-up varies by tens
+    of ms), after a warm-up solve: ``mg_pcg_solve`` on a hierarchy built
+    once, or (``sharded``) the sharded MG "all" on a one-rank NCCL group,
+    set-up included in every solve; the port's launches an iteration by
+    its counters."""
+    import socket
+
+    from hidenn_fem_tpu_torch.parallel import (device_mesh,
+                                               initialize_multihost,
+                                               sharded_mg)
+
+    grid = ht.generate_structured_grid(nx=961, ny=481, device=dev)
+    model = ht.StructuredGridP1(E=10e9, nu=0.3)
+    params = model.init(np.random.default_rng(0), grid, device=dev)
+    if sharded:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        initialize_multihost(f"localhost:{port}", 1, 0, backend="nccl")
+        dmesh = device_mesh(device=dev)
+
+        def solve(m):
+            return sharded_mg.mg_pcg_solve_sharded(
+                model, grid, params, dmesh=dmesh, max_iters=m, tol=0.0,
+                engine="all")
+    else:
+        with torch.no_grad():
+            levels = ht.build_hierarchy(model, grid,
+                                        model.coords(params, grid))
+
+        def solve(m):
+            return ht.mg_pcg_solve(model, grid, params, max_iters=m,
+                                   tol=0.0, levels=levels)
+    try:
+        solve(caps[0])
+        counts, host = [], []
+        for m in caps:
+            before = _launch_counts()
+            solve(m)
+            torch.cuda.synchronize()
+            counts.append({k: v - before[k]
+                           for k, v in _launch_counts().items()})
+        for m in host_caps:     # host clock, the least of three solves
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                solve(m)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            host.append(1e3 * min(runs))
+        busy, kernels, by_name = steady_profile(solve, caps)
+    finally:
+        if sharded:
+            torch.distributed.destroy_process_group()
+    d = caps[1] - caps[0]
+    launched = {k: (counts[1][k] - counts[0][k]) / d for k in counts[0]
+                if counts[1][k] != counts[0][k]}
+    name = ("961x481_sharded_mg_1rank (engine all, one NCCL rank)"
+            if sharded else "961x481_mg_pcg_steady")
+    wall = (host[1] - host[0]) / (host_caps[1] - host_caps[0])
+    print(f"== {name}, captured: {wall:.4f} ms on the host clock, "
+          f"{busy:.4f} ms device busy (idle share {1 - busy / wall:.3f}) "
+          f"and {kernels:.1f} device kernels an iteration (tol-0 solves of "
+          f"{caps[0]} and {caps[1]} iterations profiled, {host_caps[0]} and "
+          f"{host_caps[1]} on the host clock) [{card}]")
+    print("   launches per iteration: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in launched.items()))
+    for kernel, us in list(by_name.items())[:12]:
+        print(f"   device {us:9.2f} us/iteration  {kernel}")
+
+
 def _aux_setup(mesh, dev, lattice_bg):
     """(loss, u = 0 params, loss args, preconditioner built once) of
     aux-PCG on ``mesh``'s default route."""
@@ -352,6 +481,9 @@ def _node(coords, seed):
 def _kernel_cases(dev):
     from hidenn_fem_tpu_torch.ops import banded_energy as be
     from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+    from hidenn_fem_tpu_torch.parallel.sharding import (rank_tables,
+                                                        reband_for_shards)
 
     E, nu, w = 10e9, 0.3, 0.5
     plate = ht.generate_mesh(nx=961, ny=481, keep_dead_nodes=True,
@@ -369,16 +501,23 @@ def _kernel_cases(dev):
     ba5b = without_recompute(ba, keep_tables=False)
     tri = mesh.banded
     ct = torch.tensor(0.75, device=dev)
+    lo, hi = row_window(961, 1, 4)
+    ba4 = reband_for_shards(mesh, 4).banded_paired
+    loc, rs = rank_tables(ba4, 1, 4)
     cases = {
         "922k_zigzag_K6": lambda: ls.lattice_stencil_vg(
             node, 961, 481, E, nu, w, **kw),
         "922k_zigzag_K7": lambda: ls.lattice_stencil_fwd(
             node, 961, 481, E, nu, w, **kw),
+        "922k_zigzag_K6_rows_1_of_4": lambda: ls.lattice_stencil_vg_rows(
+            node, 961, 481, E, nu, w, lo, hi, **kw),
         "961x481_up_K6": lambda: ls.lattice_stencil_vg(
             gnode, 961, 481, E, nu, w, **gkw),
         "961x481_up_K7": lambda: ls.lattice_stencil_fwd(
             gnode, 961, 481, E, nu, w, **gkw),
         "898k_paired_K4": lambda: be.banded_vg(bnode, ba, E, nu, w),
+        "898k_paired_K4_rows_1_of_4": lambda: be.banded_vg_rows(
+            bnode, loc, E, nu, w, rs),
         "898k_paired_K3": lambda: be.banded_fwd(bnode, ba, E, nu, w),
         "898k_paired_K5": lambda: be.banded_bwd(bnode, ba5, ct, E, nu, w),
         "898k_paired_K5_two_pass": lambda: be.banded_bwd(bnode, ba5b, ct, E,
@@ -402,9 +541,10 @@ def without_recompute(ba, keep_tables):
     return dataclasses.replace(ba, **drop)
 
 
-def _banded_grads(mesh, node, dev, out_dir):
+def _banded_grads(cases, mesh, node, dev, out_dir):
     """K4's energy and gradient and K5's gradient (ct 0.75) on both kinds
-    of window, for the paired, triangle and strip tables, saved to
+    of window, for the paired, triangle and strip tables, and the outputs
+    of every kernel case (energies and gradients), saved to
     ``out_dir/banded_grads.pt``."""
     from hidenn_fem_tpu_torch.mesh import banded as mb
     from hidenn_fem_tpu_torch.ops import banded_energy as be
@@ -422,6 +562,10 @@ def _banded_grads(mesh, node, dev, out_dir):
         for kind, keep in (("recompute", True), ("two_pass", False)):
             out[f"{tag}_K5_{kind}"] = be.banded_bwd(
                 node, without_recompute(ba, keep), ct, E, nu, w)
+    for name, fn in cases.items():
+        got = fn()
+        for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
+            out[f"{name}_{i}"] = t
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "banded_grads.pt")
     torch.save({k: v.cpu() for k, v in out.items()}, path)
@@ -441,13 +585,40 @@ def _compare_grads(a, b):
         raise SystemExit(f"{len(differ)} of {len(ga)} tensors differ")
 
 
+def graph_us(fn, calls=20, replays=20):
+    """µs per call of ``fn()`` recorded ``calls`` times in one CUDA graph
+    and replayed (CUDA events around ``replays`` replays, after one): the
+    calls' launches as a captured path runs them, the gaps between its
+    kernel nodes included and no host work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return 1e3 * start.elapsed_time(end) / (replays * calls)
+
+
 def _kernels(dev, card, grads_dir=None, calls=20):
     cases, mesh, bnode = _kernel_cases(dev)
     if grads_dir:
-        _banded_grads(mesh, bnode, dev, grads_dir)
+        _banded_grads(cases, mesh, bnode, dev, grads_dir)
     for name, fn in cases.items():
         per = kernel_profile(fn, calls)
-        print(f"== {name}: {sum(per.values()):.2f} us/call device [{card}]")
+        print(f"== {name}: {sum(per.values()):.2f} us/call device, "
+              f"{graph_us(fn):.2f} us/call in a CUDA graph [{card}]")
         for kernel, us in per.items():
             print(f"   device {us:9.2f} us/call  {kernel}")
 
@@ -530,6 +701,10 @@ def main():
             continue
         _window(name, _example_epochs(which, dev), 3, args.out, card,
                 iters=20)
+    for name, sharded in (("961x481_mg_pcg_steady", False),
+                          ("961x481_sharded_mg_1rank", True)):
+        if args.cases and name in args.cases:
+            _mg_steady(dev, card, sharded)
     if not args.cases or "pt_layouts" in args.cases:
         _pt_layouts((("922K proxy plate", _proxy()),
                      ("898K Delaunay plate", _delaunay())), dev, card)
