@@ -793,13 +793,22 @@ def bound(bytes_, flops):
 def device_us(fn, calls=20):
     """(device µs per call, {kernel: µs per call}) of fn() from
     torch.profiler's key_averages(), after one warm-up call (windows that
-    lost kernel events are profiled again)."""
-    from tools.profile_torch_port import kernel_profile
+    lost kernel events are profiled again).  If no window saw a kernel,
+    the time per call of ``calls`` calls recorded in a CUDA graph and
+    replayed (CUDA events; eager calls if fn() cannot be captured),
+    under one name that says so."""
+    from tools.profile_torch_port import graph_us, kernel_profile
 
     per = kernel_profile(fn, calls, tries=6)
-    if not per or sum(per.values()) <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    return sum(per.values()), per
+    if per and sum(per.values()) > 0.0:
+        return sum(per.values()), per
+    try:
+        us, how = graph_us(fn, calls), "CUDA graph replay"
+    except RuntimeError:
+        us, how = 1e3 * cuda_ms(fn, calls), "CUDA events"
+    log(f"  the profiler recorded no kernel of this call: {us:.2f} us a "
+        f"call from a {how}")
+    return us, {f"all kernels ({how}, no profiler events)": us}
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_, flops,
@@ -1098,7 +1107,8 @@ def one_launch(tag, name, fn):
     """Fails unless each call of fn() runs exactly one device kernel: one
     kernel name in the profiler's counts over 20 calls, at one launch a
     call once rounded (the profiler can drop a kernel event on the H100,
-    and ``kernel_launches`` profiles again only a few times)."""
+    and ``kernel_launches`` profiles again only a few times).  Fails too
+    if no window saw a kernel: a launch count needs the profiler."""
     from tools.profile_torch_port import kernel_launches
 
     per = kernel_launches(fn)
@@ -3405,14 +3415,12 @@ def steady_window(run_steps, steps):
     """(wall ms, device-busy ms per step, idle share, kernels per step) of
     ``run_steps()`` (``steps`` steps of one solve's steady state) under
     the profiler, CAPTURE_CALLS calls after one untimed call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tools.profile_torch_port import _busy_ms, _kernel_events
+    from tools.profile_torch_port import (_busy_ms, _kernel_events,
+                                          device_window)
 
     run_steps()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window() as prof:
         t0 = time.perf_counter()
         for _ in range(CAPTURE_CALLS):
             run_steps()

@@ -68,6 +68,7 @@ Run from the repository root:  ``python -m tools.profile_torch_port``
 """
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import re
@@ -79,6 +80,27 @@ from torch.profiler import ProfilerActivity, profile
 
 import hidenn_fem_tpu_torch as ht
 from hidenn_fem_tpu_torch.utils.profiling import trace_to
+
+
+# kineto keeps only the device activities whose timestamps fall inside
+# the profiling window by the host's clock, and the card's timestamps can
+# lie off the host's (a kernel can seem to start before its launch): the
+# first or last kernels of a short window, or all of them, are then
+# dropped.  So each counting window opens and closes with WINDOW_PAD_S of
+# host time in which nothing is launched.
+WINDOW_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def device_window():
+    """A torch.profiler window (CPU and CUDA activities) padded at both
+    ends by WINDOW_PAD_S; the card is synchronized before the end pad."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
 
 
 def _busy_ms(prof):
@@ -116,6 +138,27 @@ def kernel_us(prof, calls):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _whole_windows(fn, calls, tries):
+    """The kernel events of ``calls`` calls of ``fn()`` (after one warm-up
+    call) in a padded window, profiled again (up to ``tries`` windows)
+    while some kernel's count is no whole multiple of ``calls`` or no
+    kernel was seen (a dropped event); the window that saw the most
+    kernel events if none was whole."""
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(tries):
+        with device_window() as prof:
+            for _ in range(calls):
+                fn()
+        events = _kernel_events(prof)
+        if events and all(e.count % calls == 0 for _, e in events):
+            return events
+        if sum(e.count for _, e in events) > sum(e.count for _, e in best):
+            best = events
+    return best
+
+
 def kernel_profile(fn, calls=20, tries=3):
     """Device µs per call of each kernel that ``fn()`` launches, by short
     name, over ``calls`` calls after one warm-up call.  The profiler can
@@ -124,17 +167,7 @@ def kernel_profile(fn, calls=20, tries=3):
     again, up to ``tries`` times; each kernel's time per call is its mean
     time per recorded launch times its launches per call (its count over
     ``calls``, rounded, at least 1), which a lost event does not bias."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = _kernel_events(prof)
-        if events and all(e.count % calls == 0 for _, e in events):
-            break
+    events = _whole_windows(fn, calls, tries)
     out = {}
     for name, evt in events:
         per_call = max(1, round(evt.count / calls))
@@ -148,19 +181,8 @@ def kernel_launches(fn, calls=20, tries=6):
     profiler's event counts over ``calls`` calls after one warm-up call,
     profiled again (up to ``tries`` times) while some count is no whole
     multiple of ``calls`` (a dropped event)."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = _kernel_events(prof)
-        if events and all(e.count % calls == 0 for _, e in events):
-            break
     out = {}
-    for name, evt in events:
+    for name, evt in _whole_windows(fn, calls, tries):
         out[name] = out.get(name, 0) + evt.count / calls
     return out
 
@@ -173,10 +195,8 @@ def steady_profile(solve, caps):
     µs}) an iteration."""
     out = []
     for m in caps:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_window() as prof:
             solve(m)
-            torch.cuda.synchronize()
         out.append((_busy_ms(prof),
                     sum(e.count for _, e in _kernel_events(prof)),
                     kernel_us(prof, 1)))
