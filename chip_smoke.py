@@ -46,18 +46,21 @@ Phases (each raises on failure, and the script then exits non-zero):
       +0.0, K6's window energy equals K7's, the window energies of each
       split sum to the whole within ROWS_SUM_RTOL, each window against its
       plain versions; K6 over a window, K6 whole and K7 over a window are
-      one device kernel a call (the profiler's counts), and K6 over window
-      1 of 4 is printed beside the parent's three-launch split
-      (PARENT_ROWS_US) and the zero fill it no longer launches;
+      one device kernel a call (the profiler's counts), and K6 and K7 over
+      window 1 of 4 are printed beside the parent's (PARENT_ROWS_US), K6's
+      beside the zero fill it no longer launches, K7's beside the launch
+      floor (an empty kernel with K7's grid);
    g. K4 and K5 on each rank slice of the 898K plate's paired tables
       rebanded for 4 ranks (``reband_for_shards``), launched in turn: the
       rows placed at row_start equal the unsharded K4/K5 rows bit for bit,
-      K4 writing into a NaN-filled output (+0.0 outside the slice), the
-      slice energies sum to the whole within ROWS_SUM_RTOL; K4 on a slice
-      and on the whole tables one device kernel a call; K4 on slice 1 of
-      the same tables cut into each of 1, 2, 4, 8 and 16 slices that
-      their block counts allow (device µs, blocks, waves of the card's
-      resident CTAs); slice 1 of 4 beside the parent's split.
+      K4 and K5 writing into NaN-filled outputs (+0.0 outside the slice),
+      K5 = ct x K4 bit for bit, the slice energies sum to the whole within
+      ROWS_SUM_RTOL; K4 and K5 on a slice and K4 on the whole tables one
+      device kernel a call; K4 on slice 1 of the same tables cut into each
+      of 1, 2, 4, 8 and 16 slices that their block counts allow (device
+      µs, blocks, waves of the card's resident CTAs); K5 on slice 1 of 4
+      and on the whole tables at 1, 4 and 8 threads a node (bit-equal);
+      slice 1 of 4 beside the parent's split.
    h. the compact L-BFGS's two passes over its [2m, P] float32 history
       (``ops/lbfgs_history.py``: the dots SY [y, s, g] and the
       combination gamma g + coef^T SY) at the shapes of the 898K plate
@@ -661,7 +664,11 @@ ROWS_SUM_RTOL = 1e-6
 # this run's one-launch kernels: K6 over window 1 of 4 of the 922K-class
 # plate, K4 on slice 1 of 4 of the 898K plate's rebanded tables
 PARENT_ROWS_US = {"lattice_stencil_vg_rows": (9.02, 4.76, 2.68, 1.58),
-                  "banded_vg_rows": (13.92, 9.76, 2.57, 1.50)}
+                  "banded_vg_rows": (13.92, 9.76, 2.57, 1.50),
+                  # K5 on that slice: the whole, its kernel, the zero fill
+                  "banded_bwd_rows": (10.96, 8.85, 2.68),
+                  # K7 over that window, in one launch
+                  "lattice_stencil_fwd_rows": (4.45,)}
 
 # The least time the card could take for a kernel's work (bound_ms) is the
 # larger of its bytes over the memory rate and its flops over the float32
@@ -1126,6 +1133,20 @@ def narrow_windows(nx):
             (nx - 6, nx), (nx - 4, nx), (nx - 1, nx)]
 
 
+def k7_launch_floor(ls, dev, rows, ny):
+    """A call that launches an empty kernel with K7's grid over a window
+    of ``rows`` rows of a lattice ``ny`` wide (its fixed cost)."""
+    from hidenn_fem_tpu_torch.ops.cuda_build import raise_on
+
+    lib = ls._library()
+
+    def launch():
+        raise_on(lib, lib.hdnn_lattice_launch_floor(
+            dev.index, rows, ny, torch.cuda.current_stream(dev).cuda_stream),
+            "launch_floor")
+    return launch
+
+
 def phase_rows_lattice(ls, tag, node, nx, ny, E, nu, kw, card, timed):
     """Phase 3f: K6 and K7 over 2, 3 and 4 row windows (the ranks' split
     of ``parallel/sharded_slab.py``) and over narrow windows: K6 writes
@@ -1238,6 +1259,13 @@ def phase_rows_lattice(ls, tag, node, nx, ny, E, nu, kw, card, timed):
         f"NVIDIA H100 80GB HBM3, 700.00 W); the zero fill of the [N, 4] "
         f"output alone, as the parent launched it: {fill_us:.2f} us "
         f"[{card}]")
+    floor_us, _ = device_us(k7_launch_floor(ls, node.device, hi - lo, ny))
+    log(f"  {tag_w}K7: {entries[1]['device_us']:.2f} us in one launch "
+        f"against the parent's "
+        f"{PARENT_ROWS_US['lattice_stencil_fwd_rows'][0]} us (PERF.md, "
+        f"NVIDIA H100 80GB HBM3, 700.00 W); an empty kernel with its grid "
+        f"(the launch floor): {floor_us:.2f} us; its bound "
+        f"{1e3 * entries[1]['bound_ms']:.2f} us [{card}]")
     return entries
 
 
@@ -1327,9 +1355,10 @@ def banded_layout(be, tag, node, ba, ct, card, timed, ne):
     log(f"  {tag} K5 (recompute windows) equals ct x K4, and K5 (two-pass "
         "windows) equals K5 (recompute windows), bit for bit")
     for which in ("vg", "grad", "grad_two_pass"):
-        regs, ctas = be.kernel_occupancy(which, ba.k, node.device)
-        log(f"  {tag} {which} kernel: {regs} registers a thread, {ctas} "
-            "CTAs of 256 threads an SM")
+        lanes = 1 if which == "vg" else be.K5_LANES
+        regs, ctas = be.kernel_occupancy(which, ba.k, node.device, lanes)
+        log(f"  {tag} {which} kernel ({lanes} threads a node): {regs} "
+            f"registers a thread, {ctas} CTAs of 256 threads an SM")
     torch.cuda.synchronize()
     if not timed:
         return None
@@ -1468,7 +1497,11 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
         loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
         e, g = be._vg_launch("banded_vg_rows", node, loc, *args, rs,
                              grad=torch.full_like(node, float("nan")))
-        g5r = be.banded_bwd_rows(node, loc5, ct, *args, rs)
+        g5r = be._bwd_launch("banded_bwd_rows", node, loc5, ct, *args, rs,
+                             grad=torch.full_like(node, float("nan")))
+        if not torch.equal(g5r, ct * g):
+            raise AssertionError(f"slice {r}: K5 at row_start is not ct x K4 "
+                                 "at row_start bit for bit")
         end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
         for name, got, want in (("K4", g, g4), ("K5", g5r, g5)):
             outside = torch.cat([got[:rs], got[end:]])
@@ -1490,7 +1523,8 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
         slices.append((loc, loc5, rs))
     rel = abs(total - float(e4)) / abs(float(e4))
     log(f"  {ranks} slices: K4 and K5 rows at row_start bit-equal to the "
-        f"unsharded launches (K4 into a NaN-filled output, +0.0 outside); "
+        f"unsharded launches (into NaN-filled outputs, +0.0 outside; K5 = "
+        f"ct x K4); "
         f"energy sum {total!r} vs whole {float(e4)!r}: rel {rel:.3e} "
         f"(limit {ROWS_SUM_RTOL})")
     if rel > ROWS_SUM_RTOL:
@@ -1498,9 +1532,12 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
     loc, loc5, rs = slices[1]
     one_launch(f"slice 1 of {ranks} ", "K4 at row_start",
                lambda: be.banded_vg_rows(node, loc, *args, rs))
+    one_launch(f"slice 1 of {ranks} ", "K5 at row_start",
+               lambda: be.banded_bwd_rows(node, loc5, ct, *args, rs))
     one_launch("", "K4 on the whole tables",
                lambda: be.banded_vg(node, ba, *args))
     k4_slice_scaling(be, node, ba, args, card)
+    k5_lane_scaling(be, node, no_own, loc5, rs, ct, args, card)
     ms4, pms4 = ab_ms(lambda: be.banded_vg_rows(node, loc, *args, rs),
                       lambda: be.banded_vg_plain(node, loc, *args, rs))
     ms5, pms5 = ab_ms(lambda: be.banded_bwd_rows(node, loc5, ct, *args, rs),
@@ -1540,7 +1577,40 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
         f"NVIDIA H100 80GB HBM3, 700.00 W); the zero fill of the [N, 4] "
         f"output alone, as the parent launched it: {fill_us:.2f} us "
         f"[{card}]")
+    parent = PARENT_ROWS_US["banded_bwd_rows"]
+    log(f"  slice 1 of {ranks} K5: {entries[1]['device_us']:.2f} us in one "
+        f"launch ({be.K5_LANES} threads a node) against "
+        f"the parent's {parent[0]} us in two (kernel {parent[1]}, zero fill "
+        f"{parent[2]}; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W) [{card}]")
     return tri, entries
+
+
+def k5_lane_scaling(be, node, ba, loc, rs, ct, args, card):
+    """K5's device time on slice ``loc`` at ``rs`` and on the whole tables
+    ``ba`` (recompute windows) at 1, 4 and 8 threads a node, its registers
+    and CTAs an SM at each; fails unless every lane count gives the same
+    bits."""
+    saved = be.K5_LANES
+    line, first = [], None
+    try:
+        for lanes in (1, 4, 8):
+            be.K5_LANES = lanes
+            rows = lambda: be.banded_bwd_rows(node, loc, ct, *args, rs)
+            whole = lambda: be.banded_bwd(node, ba, ct, *args)
+            out = (rows(), whole())
+            if first is None:
+                first = out
+            elif not all(torch.equal(a, b) for a, b in zip(out, first)):
+                raise AssertionError(f"K5 at {lanes} threads a node differs "
+                                     "from K5 at one")
+            regs, ctas = be.kernel_occupancy("grad", ba.k, node.device, lanes)
+            line.append(f"{lanes}: slice {device_us(rows)[0]:.2f} us, whole "
+                        f"{device_us(whole)[0]:.2f} us ({regs} registers, "
+                        f"{ctas} CTAs an SM)")
+    finally:
+        be.K5_LANES = saved
+    log("  K5 by threads a node (bit-equal): " + "; ".join(line)
+        + f"; in use {saved} [{card}]")
 
 
 def k4_slice_scaling(be, node, ba, args, card):

@@ -50,14 +50,24 @@
 //
 // Energy: thread (ty, tx) with ty, tx >= 1 adds the energy of the quad it
 // owns (the quad whose n00 is its node) to the CTA's partial, and the
-// grid's last CTA, once the others have written theirs, sums the partials
-// in double in a fixed order, in the same launch (energy_tail of
-// p1_triangle.cuh: the order and the bits of the one-block
-// sum_partials_kernel, with no second launch).  K7 uses the same tiles
-// and the same thread of each quad (loading its corners straight from
-// the table: it needs no cotangents), so K6 and K7 give the same energy
-// bits.  Tiles mask the ragged edges themselves: any
-// nx, ny >= 2.  Each call is one launch.
+// grid's last CTA adds the partials in double in a fixed order as they
+// land, in the same launch (energy_tail of energy_tail.cuh: the order and
+// the bits of the one-block sum_partials_kernel, with no second launch).
+// Tiles mask the ragged edges themselves: any nx, ny >= 2.  Each call is
+// one launch.
+//
+// K7 needs no cotangents, so it keeps K6's tiles, its quad of each lane
+// and its sums, and drops the rest: four warps walk a tile's 7 quad rows,
+// kFwdWarpRows = 2 each, lane tx on K6's column tx.  A warp loads each
+// node of its rows once, into registers (K7's earlier one-quad-a-thread
+// core loaded each about four times), a quad's right-hand corners come
+// from the next lane by shuffle and its lower corners serve the next quad
+// row as its upper ones; K6's halo row, which adds nothing, takes no
+// warp, and its halo column's lane loads the column right of the tile.
+// Each quad row is summed by block_sum's warp tree and the tile's row
+// sums are added in row order, so a tile's partial, and the energy, keep
+// K6's bits.  (One warp over all 7 rows, four tiles a CTA, ran 2x slower:
+// too few warps to hide a row's latency; PERF.md.)
 //
 // Row windows (the sharded lattice energy, hidenn_fem_tpu/parallel/
 // sharded_slab.py, where the TPU kernels took a `row0` SMEM scalar that
@@ -90,6 +100,7 @@
 
 #include <cuda_runtime.h>
 
+#include "energy_tail.cuh"
 #include "p1_triangle.cuh"
 
 namespace {
@@ -102,6 +113,9 @@ using hdnn::corner_cotangents;
 using hdnn::energy_tail;
 using hdnn::material;
 using hdnn::strain;
+using hdnn::tail_finish;
+using hdnn::tail_put;
+using hdnn::tail_tag;
 using hdnn::tri_energy;
 using hdnn::zero_blocks;
 using hdnn::zero_rows_outside;
@@ -115,6 +129,12 @@ constexpr int kTileCols = kQuadCols - 1;
 // node rows staged: the quad tile's corners
 constexpr int kNodeRows = kQuadRows + 1;
 constexpr int kNodeCols = kQuadCols + 1;
+// K7: the quad rows of a tile one warp walks, the warps of a tile, the
+// tiles of a CTA
+constexpr int kFwdWarpRows = 2;
+constexpr int kFwdTileWarps = (kTileRows + kFwdWarpRows - 1) / kFwdWarpRows;
+constexpr int kFwdTiles = 1;
+constexpr int kFwdThreads = 32 * kFwdTileWarps * kFwdTiles;
 
 // how each quad picks its diagonal
 enum Diag : int { kUp = 0, kDown = 1, kSelMask = 2, kParity = 3 };
@@ -170,13 +190,13 @@ __device__ __forceinline__ int slot2(bool up) {
   return 2;  // kR01
 }
 
-// The tile of CTA `blockIdx.x`: its first owned node (i0, j0), the tiles
-// laid from the window's first row.
-__device__ __forceinline__ void tile_origin(const Lattice& L, int* i0,
-                                            int* j0) {
+// The first owned node (i0, j0) of tile `tile`, the tiles laid from the
+// window's first row.
+__device__ __forceinline__ void tile_origin(const Lattice& L, int tile,
+                                            int* i0, int* j0) {
   const int tiles_j = (L.ny + kTileCols - 1) / kTileCols;
-  *i0 = L.row_lo + (int)(blockIdx.x / tiles_j) * kTileRows;
-  *j0 = (int)(blockIdx.x % tiles_j) * kTileCols;
+  *i0 = L.row_lo + (tile / tiles_j) * kTileRows;
+  *j0 = (tile % tiles_j) * kTileCols;
 }
 
 __device__ __forceinline__ bool quad_exists(const Lattice& L, int qi,
@@ -197,16 +217,11 @@ __device__ __forceinline__ void quad_flags(const Lattice& L, int qi, int qj,
   Q->t2 = kMasked ? __ldg(L.t2 + q) : 1.f;
 }
 
-template <int kDiag, bool kMasked>
-__device__ __forceinline__ Quad load_quad(const Lattice& L, int i, int j) {
-  const long long b = (long long)i * L.ny + j;
-  Quad Q;
-  Q.n00 = __ldg(L.node + b);
-  Q.n01 = __ldg(L.node + b + 1);
-  Q.n10 = __ldg(L.node + b + L.ny);
-  Q.n11 = __ldg(L.node + b + L.ny + 1);
-  quad_flags<kDiag, kMasked>(L, i, j, &Q);
-  return Q;
+__device__ __forceinline__ float4 shfl4(const float4& v, int lane) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, lane),
+                     __shfl_sync(0xffffffffu, v.y, lane),
+                     __shfl_sync(0xffffffffu, v.z, lane),
+                     __shfl_sync(0xffffffffu, v.w, lane));
 }
 
 // 16 B from global to shared memory, asynchronously; zero-filled when
@@ -257,20 +272,74 @@ __device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
   if (s2 >= 0 && T.t2[q] != 0.f) add_scaled(g, T.t2[q], T.cot[3 + s2][q]);
 }
 
-// K7: thread (ty, tx) >= (1, 1) of the tile adds the energy of the quad
-// whose n00 is its node, when that node's row lies in the window.
+// K7: the energy of tile `tile` of CTA slot `slot` by kFwdTileWarps
+// warps, each on kFwdWarpRows quad rows of it (rows ty >= 1 of K6's
+// 8 x 32 quad tile), lane tx on K6's thread (ty, tx) of each.  Lane tx loads the node column
+// of K6's thread tx (lane 0, whose quads K6 does not count, the column
+// right of the tile instead) in each node row the rows touch, once: a
+// quad's right-hand corners are lane tx + 1's (lane 0's for lane 31), by
+// shuffle, and its lower corners are the upper corners of the next quad
+// row.  Each quad row is summed by block_sum's warp tree, and the row
+// sums are added in row order to 0, as block_sum adds its warps' (its
+// warp 0, the halo row, adds +0.0): the tile's partial has K6's bits.
 template <int kDiag, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
 stencil_fwd_kernel(Lattice L, Material m, Tail E) {
-  int i0, j0;
-  tile_origin(L, &i0, &j0);
-  const int ty = threadIdx.x / kQuadCols, tx = threadIdx.x % kQuadCols;
-  const int qi = i0 - 1 + ty, qj = j0 - 1 + tx;
-  float acc = 0.f;
-  if (ty >= 1 && tx >= 1 && qi < L.row_hi && quad_exists(L, qi, qj))
-    acc = quad_energy(load_quad<kDiag, kMasked>(L, qi, qj), m);
-  const float total = block_sum<float, kThreads / 32>(acc);
-  energy_tail<kThreads>(total, blockIdx.x, E);
+  __shared__ float row_sums[kFwdTiles][kTileRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp / kFwdTileWarps;
+  const int tile = blockIdx.x * kFwdTiles + slot;
+  const int ty0 = 1 + (warp % kFwdTileWarps) * kFwdWarpRows;
+  const int rows = min(kFwdWarpRows, kQuadRows - ty0);
+  // the tile's first thread stores its partial
+  const bool leader = threadIdx.x % (32 * kFwdTileWarps) == 0;
+  const unsigned int tag = leader && tile < E.n ? tail_tag(E) : 0u;
+  if (tile < E.n) {
+    int i0, j0;
+    tile_origin(L, tile, &i0, &j0);
+    const int col = lane == 0 ? j0 + kTileCols : j0 - 1 + lane;
+    const int qj = j0 - 1 + lane;
+    // node rows i0 - 1 + ty0 + r, r = 0 .. rows, at column col
+    float4 v[kFwdWarpRows + 1];
+#pragma unroll
+    for (int r = 0; r <= kFwdWarpRows; ++r) {
+      const int i = i0 - 1 + ty0 + r;
+      v[r] = r <= rows && i < L.nx && col < L.ny
+                 ? __ldg(L.node + (long long)i * L.ny + col)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const int right = (lane + 1) & 31;
+    float4 upper = shfl4(v[0], right);
+#pragma unroll
+    for (int r = 1; r <= kFwdWarpRows; ++r) {
+      if (r > rows) break;
+      const int ty = ty0 + r - 1;
+      const int qi = i0 - 1 + ty;
+      const float4 lower = shfl4(v[r], right);
+      float acc = 0.f;
+      if (lane >= 1 && qi < L.row_hi && quad_exists(L, qi, qj)) {
+        Quad Q;
+        Q.n00 = v[r - 1];
+        Q.n01 = upper;
+        Q.n10 = v[r];
+        Q.n11 = lower;
+        quad_flags<kDiag, kMasked>(L, qi, qj, &Q);
+        acc = quad_energy(Q, m);
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) row_sums[slot][ty - 1] = acc;
+      upper = lower;
+    }
+  }
+  __syncthreads();
+  if (leader && tile < E.n) {
+    float total = 0.f;
+    for (int ty = 1; ty < kQuadRows; ++ty) total += row_sums[slot][ty - 1];
+    tail_put(E, tag, tile, total);
+  }
+  tail_finish<kFwdThreads>(E);
 }
 
 // K6: the tile's quads evaluated once each into shared memory, then the
@@ -286,11 +355,12 @@ stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
                                 (long long)L.row_lo * L.ny,
                                 (long long)L.row_hi * L.ny,
                                 blockIdx.x - E.n);
-    energy_tail<kThreads>(0.f, -1, E);
+    energy_tail<kThreads>(0.f, -1, 0u, E);
     return;
   }
+  const unsigned int tag = threadIdx.x == 0 ? tail_tag(E) : 0u;
   int i0, j0;
-  tile_origin(L, &i0, &j0);
+  tile_origin(L, blockIdx.x, &i0, &j0);
   // stage the node rows (i0 - 1 .. i0 + 7) x (j0 - 1 .. j0 + 31)
   for (int k = threadIdx.x; k < kNodeRows * kNodeCols; k += kThreads) {
     const int i = i0 - 1 + k / kNodeCols, j = j0 - 1 + k % kNodeCols;
@@ -346,7 +416,7 @@ stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
     grad[(long long)qi * L.ny + qj] = g;
   }
   const float total = block_sum<float, kThreads / 32>(acc);
-  energy_tail<kThreads>(total, blockIdx.x, E);
+  energy_tail<kThreads>(total, blockIdx.x, tag, E);
 }
 
 // One launch: the E.n tiles (and, for K6, the zero CTAs after them).
@@ -359,7 +429,8 @@ cudaError_t launch(bool vg, const Lattice& L, const Material& m,
     stencil_vg_kernel<kDiag, kMasked>
         <<<(unsigned)(E.n + zeros), kThreads, 0, st>>>(L, m, grad, E);
   } else {
-    stencil_fwd_kernel<kDiag, kMasked><<<E.n, kThreads, 0, st>>>(L, m, E);
+    stencil_fwd_kernel<kDiag, kMasked>
+        <<<(E.n + kFwdTiles - 1) / kFwdTiles, kFwdThreads, 0, st>>>(L, m, E);
   }
   return cudaGetLastError();
 }
@@ -371,18 +442,27 @@ cudaError_t launch_masked(bool vg, const Lattice& L, const Material& m,
   return launch<kDiag, false>(vg, L, m, grad, E, st);
 }
 
+// the tiles (energy partials) of a window of nx rows of a lattice ny wide
+int n_tiles(int nx, int ny) {
+  return ((nx + kTileRows - 1) / kTileRows) *
+         ((ny + kTileCols - 1) / kTileCols);
+}
+
+__global__ void empty_kernel() {}
+
 int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
         int row_hi, int diag, int phase, const void* sel, const void* t1,
         const void* t2, float f, float nu, float shear, float w_sum,
-        void* grad, void* partials, int n_partials, void* out,
-        void* stream) {
-  if (row_lo < 0 || row_lo >= row_hi || row_hi > nx || n_partials < 1)
+        void* grad, void* out, void* stream) {
+  if (row_lo < 0 || row_lo >= row_hi || row_hi > nx)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  Tail E{(float*)partials, n_partials, (float*)out, 0};
-  const int got = hdnn::ticket_slot(device, st, &E.slot);
+  // counted when K6 has zero CTAs, the last of which starts early
+  Tail E{n_tiles(row_hi - row_lo, ny), (float*)out, 0, 0,
+         vg && row_hi - row_lo < nx};
+  const int got = hdnn::tail_slot(device, st, &E);
   if (got != (int)cudaSuccess) return got;
   const Lattice L{(const float4*)node, nx, ny, (const float*)sel,
                   (const float*)t1, (const float*)t2, phase, row_lo, row_hi};
@@ -406,26 +486,17 @@ int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
 
 extern "C" {
 
-// the number of tiles (CTAs, energy partials) of an nx-by-ny lattice, or
-// of a window of nx rows of a lattice ny wide
-int hdnn_lattice_partials(int nx, int ny) {
-  return ((nx + kTileRows - 1) / kTileRows) *
-         ((ny + kTileCols - 1) / kTileCols);
-}
-
 // K7: the energy of the lattice into *out (device float).  diag: 0 up,
 // 1 down, 2 per-quad sel mask, 3 zigzag parity with `phase`; t1 == NULL
-// means every triangle is present.  partials must hold
-// hdnn_lattice_partials(nx, ny) floats.  One launch; returns
-// cudaGetLastError() after it (or the error of taking its ticket slot).
+// means every triangle is present.  One launch; returns
+// cudaGetLastError() after it (or the error of taking its tail slot).
 int hdnn_lattice_stencil_fwd(int device, const void* node, int nx, int ny,
                              int diag, int phase, const void* sel,
                              const void* t1, const void* t2, float f,
-                             float nu, float shear, float w_sum,
-                             void* partials, int n_partials, void* out,
+                             float nu, float shear, float w_sum, void* out,
                              void* stream) {
   return run(device, false, node, nx, ny, 0, nx, diag, phase, sel, t1, t2,
-             f, nu, shear, w_sum, nullptr, partials, n_partials, out, stream);
+             f, nu, shear, w_sum, nullptr, out, stream);
 }
 
 // K6: as K7, and the node gradient [nx * ny, 4] (float4 rows) into grad,
@@ -434,24 +505,21 @@ int hdnn_lattice_stencil_vg(int device, const void* node, int nx, int ny,
                             int diag, int phase, const void* sel,
                             const void* t1, const void* t2, float f,
                             float nu, float shear, float w_sum, void* grad,
-                            void* partials, int n_partials, void* out,
-                            void* stream) {
+                            void* out, void* stream) {
   return run(device, true, node, nx, ny, 0, nx, diag, phase, sel, t1, t2,
-             f, nu, shear, w_sum, grad, partials, n_partials, out, stream);
+             f, nu, shear, w_sum, grad, out, stream);
 }
 
 // K7 over the node rows [row_lo, row_hi) of the lattice (0 <= row_lo <
 // row_hi <= nx): the energy of the quads whose n00 row lies there.
-// partials must hold hdnn_lattice_partials(row_hi - row_lo, ny) floats.
 int hdnn_lattice_stencil_fwd_rows(int device, const void* node, int nx,
                                   int ny, int row_lo, int row_hi, int diag,
                                   int phase, const void* sel, const void* t1,
                                   const void* t2, float f, float nu,
-                                  float shear, float w_sum, void* partials,
-                                  int n_partials, void* out, void* stream) {
+                                  float shear, float w_sum, void* out,
+                                  void* stream) {
   return run(device, false, node, nx, ny, row_lo, row_hi, diag, phase, sel,
-             t1, t2, f, nu, shear, w_sum, nullptr, partials, n_partials, out,
-             stream);
+             t1, t2, f, nu, shear, w_sum, nullptr, out, stream);
 }
 
 // K6 over the node rows [row_lo, row_hi): that energy, and grad
@@ -462,11 +530,20 @@ int hdnn_lattice_stencil_vg_rows(int device, const void* node, int nx,
                                  int phase, const void* sel, const void* t1,
                                  const void* t2, float f, float nu,
                                  float shear, float w_sum, void* grad,
-                                 void* partials, int n_partials, void* out,
-                                 void* stream) {
+                                 void* out, void* stream) {
   return run(device, true, node, nx, ny, row_lo, row_hi, diag, phase, sel,
-             t1, t2, f, nu, shear, w_sum, grad, partials, n_partials, out,
-             stream);
+             t1, t2, f, nu, shear, w_sum, grad, out, stream);
+}
+
+// An empty kernel with K7's grid and blocks over a window of nx rows of a
+// lattice ny wide: the fixed cost of such a launch (a measurement; no
+// path runs it).
+int hdnn_lattice_launch_floor(int device, int nx, int ny, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  empty_kernel<<<(n_tiles(nx, ny) + kFwdTiles - 1) / kFwdTiles, kFwdThreads,
+                 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* hdnn_error_string(int err) { return hdnn::error_string(err); }

@@ -17,39 +17,14 @@
 // exactly, as the plain versions do.  The guard keeps every cotangent
 // finite, so a caller may multiply an absent triangle's by 0 or skip it.
 //
-// Also here, the two tails of an energy launch.  sum_partials_kernel is a
-// second launch of one block that sums the per-block partials in double
-// in a fixed order (K1, K3, K8).  energy_tail does the same sum inside
-// the launch (K4, K6, K7): every block writes its partial and adds one to
-// a ticket counter, and the grid's last block, once the counter says
-// every other block is done, sums the partials in the order and
-// precision of sum_partials_kernel, so the energy keeps its bits.  The
-// counter only tells that block when to start; no sum goes through an
-// atomic.  What it costs: each block's release add waits for its own
-// writes to land before the block retires, and the last block's sum
-// follows the others inside the kernel; what it saves is the second
-// launch, its graph node and the gap before it.  The same launches may
-// write zeros to the output rows they do not own (zero_rows_outside), in
-// extra blocks of the same grid, instead of a separate fill.
-//
-// The ticket counters live in g_tickets, zero when the library is loaded;
-// the last block puts its counter back to 0, so the next launch on the
-// slot, or the next replay of a CUDA graph, finds it zeroed.  A counter
-// must never serve two launches that can run at once, so the C entry
-// points take a slot from ticket_slot: one for each (device, stream)
-// outside a capture, and one for each (device, stream, capture) inside
-// one.  Launches on one stream run in order; the launches a graph
-// captured on one stream run in order too, and two replays of one graph
-// never overlap (CUDA orders a graph's launches), so none of them can
-// meet another on a counter.  Each library keeps its own slots.
+// Also here, block_sum and sum_partials_kernel: a second launch of one
+// block that sums the per-block partials of an energy launch in double in
+// a fixed order (K1, K3, K8).  energy_tail.cuh does the same sum inside
+// the launch (K4, K6, K7).
 
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
 
 namespace hdnn {
 
@@ -163,186 +138,6 @@ sum_partials_kernel(const float* __restrict__ partials, int n,
   for (int i = threadIdx.x; i < n; i += kSumThreads) acc += partials[i];
   const double total = block_sum<double, kSumThreads / 32>(acc);
   if (threadIdx.x == 0) *out = (float)total;
-}
-
-// ------------------------------------------------- the one-launch tail
-constexpr int kTicketSlots = 1 << 16;
-// returned by ticket_slot when every slot is taken (hdnn_error_string)
-constexpr int kErrNoTicket = 100000;
-
-__device__ unsigned int g_tickets[kTicketSlots];
-
-// where a launch's energy goes: its energy CTAs' partials [n], their sum
-// (*out, a device float) and the launch's ticket slot
-struct Tail {
-  float* partials;
-  int n;
-  float* out;
-  int slot;
-};
-
-// The sum of sum_partials_kernel over the n partials, by the kThreads
-// threads of one block (every thread calls it; the result is valid in
-// thread 0): thread t holds the lanes t + r kThreads (r < kSumThreads /
-// kThreads) of that kernel, whose warps are this block's warps, and adds
-// each lane's partials in that kernel's order, so every add happens in the
-// same order and precision.  All of a lane's loads of a round are issued
-// before its adds (__ldcg: the other blocks' partials, past this SM's L1).
-template <int kThreads>
-__device__ __forceinline__ double sum_partials_block(
-    const float* __restrict__ partials, int n) {
-  static_assert(kSumThreads % kThreads == 0 && kThreads % 32 == 0,
-                "the block must tile sum_partials_kernel's lanes");
-  constexpr int kLanes = kSumThreads / kThreads;
-  constexpr int kWarps = kSumThreads / 32;
-  constexpr int kRound = 4;  // loads in flight a lane
-  __shared__ double warp_sums[kWarps];
-  double acc[kLanes];
-#pragma unroll
-  for (int r = 0; r < kLanes; ++r) acc[r] = 0.0;
-  for (int base = 0; base < n; base += kSumThreads * kRound) {
-    float v[kLanes][kRound];
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r)
-#pragma unroll
-      for (int u = 0; u < kRound; ++u) {
-        const int i = base + u * kSumThreads + r * kThreads + threadIdx.x;
-        v[r][u] = i < n ? __ldcg(partials + i) : 0.f;
-      }
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r)
-#pragma unroll
-      for (int u = 0; u < kRound; ++u)
-        if (base + u * kSumThreads + r * kThreads + (int)threadIdx.x < n)
-          acc[r] += v[r][u];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r)
-      acc[r] += __shfl_down_sync(0xffffffffu, acc[r], off);
-  if ((threadIdx.x & 31) == 0)
-#pragma unroll
-    for (int r = 0; r < kLanes; ++r)
-      warp_sums[(r * kThreads + threadIdx.x) >> 5] = acc[r];
-  __syncthreads();
-  double sum = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) sum += warp_sums[w];
-  return sum;
-}
-
-// Spins this long at most (in __nanosleep(64) rounds, ~1 s) for the
-// other blocks' tickets before it traps: a fault, never a hang.
-constexpr long long kMaxSpins = 1LL << 24;
-
-// Block `blockIdx.x` of a launch of kThreads-thread blocks ends: its
-// energy `total` (valid in thread 0) goes to E.partials[partial] (partial
-// < 0: a block with no partial, which takes its ticket all the same).
-// Every block but the grid's last adds one to its ticket counter (a
-// release add, so its partial is visible first) and is done; the last
-// block waits (acquire loads) until the other gridDim.x - 1 have, sums the
-// E.n partials as sum_partials_kernel would (sum_partials_block) into
-// *E.out and puts the counter back to 0.  The waiting block holds one
-// CTA slot and the blocks it waits for run in the others, so the wait
-// ends whatever the order of dispatch.  Every thread of every block calls
-// it, after its last write of the output.
-template <int kThreads>
-__device__ __forceinline__ void energy_tail(float total, int partial,
-                                            const Tail& E) {
-  unsigned int* ticket = &g_tickets[E.slot];
-  if (blockIdx.x + 1 < gridDim.x) {
-    if (threadIdx.x == 0) {
-      if (partial >= 0) E.partials[partial] = total;
-      asm volatile("red.release.gpu.add.u32 [%0], %1;" ::"l"(ticket),
-                   "r"(1u)
-                   : "memory");
-    }
-    return;
-  }
-  if (threadIdx.x == 0) {
-    if (partial >= 0) E.partials[partial] = total;
-    __threadfence();
-    unsigned int done = 0;
-    for (long long spin = 0;; ++spin) {
-      asm volatile("ld.acquire.gpu.u32 %0, [%1];"
-                   : "=r"(done)
-                   : "l"(ticket)
-                   : "memory");
-      if (done >= gridDim.x - 1) break;
-      if (spin == kMaxSpins) __trap();
-      __nanosleep(64);
-    }
-  }
-  __syncthreads();
-  const double sum = sum_partials_block<kThreads>(E.partials, E.n);
-  if (threadIdx.x == 0) {
-    *E.out = (float)sum;
-    *ticket = 0;
-  }
-}
-
-// Zero block `block` (0, 1, ...) of a launch writes +0.0 to its share of
-// the rows of out [n_rows] (float4) outside [keep_lo, keep_hi): counting
-// those rows in order, the kThreads * kZeroRowsPerThread of them from
-// block * kThreads * kZeroRowsPerThread, one 16-byte store a row,
-// neighbouring threads on neighbouring rows.
-constexpr int kZeroRowsPerThread = 8;
-
-template <int kThreads>
-__device__ __forceinline__ void zero_rows_outside(float4* __restrict__ out,
-                                                  long long n_rows,
-                                                  long long keep_lo,
-                                                  long long keep_hi,
-                                                  long long block) {
-  const long long kept = keep_hi - keep_lo;
-  const long long n_zero = n_rows - kept;
-  const long long first = block * (kThreads * kZeroRowsPerThread);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int k = 0; k < kZeroRowsPerThread; ++k) {
-    const long long z = first + k * kThreads + threadIdx.x;
-    if (z < n_zero) out[z < keep_lo ? z : z + kept] = zero;
-  }
-}
-
-// blocks zero_rows_outside needs for n_zero rows
-template <int kThreads>
-inline long long zero_blocks(long long n_zero) {
-  constexpr long long per = kThreads * kZeroRowsPerThread;
-  return (n_zero + per - 1) / per;
-}
-
-// The ticket slot of a launch on `st` of `device` (see the header).
-// Returns cudaSuccess, the error of the capture query, or kErrNoTicket.
-inline int ticket_slot(int device, cudaStream_t st, int* slot) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, cudaStream_t, unsigned long long>, int>
-      slots;
-  static std::map<int, int> taken;
-  cudaStreamCaptureStatus status;
-  unsigned long long id = 0;
-  const cudaError_t err = cudaStreamGetCaptureInfo(st, &status, &id);
-  if (err != cudaSuccess) return (int)err;
-  if (status != cudaStreamCaptureStatusActive) id = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(device, st, id);
-  const auto it = slots.find(key);
-  if (it != slots.end()) {
-    *slot = it->second;
-    return (int)cudaSuccess;
-  }
-  int& n = taken[device];
-  if (n >= kTicketSlots) return kErrNoTicket;
-  *slot = slots[key] = n++;
-  return (int)cudaSuccess;
-}
-
-inline const char* error_string(int err) {
-  if (err == kErrNoTicket)
-    return "every ticket slot of the one-launch energy sum is taken "
-           "(one a stream and one a stream a CUDA-graph capture)";
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // namespace hdnn

@@ -31,8 +31,8 @@ In this module:
   one rank's contiguous slice of the recompute tables
   (``parallel/sharding.py``), the gradient rows placed at global row
   ``row_start`` of an [N, 4] table whose other rows are 0, as the TPU
-  package's ``_recompute_vg``/``_recompute_bwd`` place them (K4 writes
-  those zeros in its own launch; K5's wrapper fills a zeroed table).
+  package's ``_recompute_vg``/``_recompute_bwd`` place them (each writes
+  those zeros in its own launch).  ``K5_LANES``: K5's threads a node.
 * ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
   same functions in plain torch, walking the same tables (window gather,
   the per-layout energy of ``element_energy_plain``'s algebra and the
@@ -71,6 +71,12 @@ __all__ = ["banded_element_energy", "banded_fwd", "banded_vg", "banded_bwd",
 _TRIS = {3: ((0, 1, 2),),
          4: ((0, 1, 2), (0, 1, 3)),
          6: ((0, 1, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5))}
+
+# K5's threads a node (1, 4 or 8; csrc/banded_energy.cu,
+# node_gradient_lanes): 1 was the fastest on the 898K tables, on one
+# rank's slice and on the whole tables (PERF.md; every count gives the
+# same bits)
+K5_LANES = 1
 
 # launches of each kernel wrapper since the last reset
 launch_counts = {"banded_fwd": 0, "banded_vg": 0, "banded_bwd": 0,
@@ -194,13 +200,13 @@ def _library() -> ctypes.CDLL:
         vp, i, vp, vp]
     lib.hdnn_banded_fwd.restype = i
     lib.hdnn_banded_vg.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, i] + mat + [
-        vp, i, vp, vp, ll, i, ll, ll, ll, vp, vp]
+        i, vp, vp, ll, i, ll, ll, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
     lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, i] + mat + [
-        vp, ll, i, vp, i, ll, ll, vp, vp, vp]
+        vp, ll, i, vp, i, ll, ll, ll, i, vp, vp, vp]
     lib.hdnn_banded_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
-    lib.hdnn_banded_occupancy.argtypes = [i, i, i, pi, pi]
+    lib.hdnn_banded_occupancy.argtypes = [i, i, i, i, pi, pi]
     lib.hdnn_banded_occupancy.restype = i
     return lib
 
@@ -252,6 +258,17 @@ def banded_fwd(node, ba, E, nu, w_sum) -> torch.Tensor:
     return out
 
 
+def _output(node, grad):
+    """The [N, 4] output a launch writes whole: ``grad``, checked, or a new
+    tensor like ``node``."""
+    if grad is None:
+        return torch.empty_like(node)
+    if grad.shape != node.shape or grad.dtype != node.dtype \
+            or grad.device != node.device or not grad.is_contiguous():
+        raise ValueError("grad must be a contiguous tensor like node")
+    return grad
+
+
 def _vg_launch(name, node, ba, E, nu, w_sum, row_start, grad=None):
     """K4 in one launch, writing every row of ``grad`` (a new [N, 4]
     tensor when None), whatever it held: the tables' node rows at
@@ -267,20 +284,15 @@ def _vg_launch(name, node, ba, E, nu, w_sum, row_start, grad=None):
     # one thread per recompute row (its energy) and per node (its gradient)
     n_part = -(-max(n_rows, n_nodes) // lib.hdnn_banded_threads_per_block())
     dev = node.device
-    partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    if grad is None:
-        grad = torch.empty_like(node)
-    elif grad.shape != node.shape or grad.dtype != node.dtype \
-            or grad.device != dev or not grad.is_contiguous():
-        raise ValueError("grad must be a contiguous tensor like node")
+    grad = _output(node, grad)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = _head(node, ba, ba.re_nstarts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_vg(
         *head[:4], ba.re_own_lo.data_ptr(), ba.re_own_hi.data_ptr(),
-        *head[4:], partials.data_ptr(), n_part,
-        out.data_ptr(), inc.data_ptr(), inc.shape[1], inc.shape[2],
-        n_nodes, row_start, node.shape[0], grad.data_ptr(), stream)
+        *head[4:], n_part, out.data_ptr(), inc.data_ptr(), inc.shape[1],
+        inc.shape[2], n_nodes, row_start, node.shape[0], grad.data_ptr(),
+        stream)
     raise_on(lib, err, name)
     launch_counts[name] += 1
     return out, grad
@@ -318,14 +330,18 @@ def banded_bwd_rows(node, ba, ct, E, nu, w_sum, row_start: int
     """K5 on the card over one rank's slice of the recompute tables:
     ``ct`` times the node gradient [N, 4] with the slice's node rows
     placed at ``row_start``, every other row 0 (bit-equal to the
-    unsharded K5's rows)."""
+    unsharded K5's rows), in one launch that writes the zeros too, also
+    for a slice that places no row."""
     if ba.re_conn_rel is None:
         raise ValueError("banded_bwd_rows needs the recompute tables")
     return _bwd_launch("banded_bwd_rows", node, ba, ct, E, nu, w_sum,
                        int(row_start))
 
 
-def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start):
+def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start, grad=None):
+    """K5 in one launch, writing every row of ``grad`` (a new [N, 4] tensor
+    when None), whatever it held: ``ct`` times the tables' node rows at
+    ``row_start``, 0 elsewhere; ``K5_LANES`` threads a node."""
     if ba.re_conn_rel is not None:
         starts, rel, inc = ba.re_nstarts, ba.re_conn_rel, ba.re_inc_rel
         ct_starts, sentinel = None, ba.k * ba.re_ew
@@ -341,36 +357,32 @@ def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start):
     dev = node.device
     n_nodes = _placed_rows(inc.shape[0] * inc.shape[1], row_start,
                            node.shape[0])
-    if row_start == 0 and n_nodes == node.shape[0]:
-        grad = torch.empty_like(node)
-    else:
-        grad = torch.zeros_like(node)
-        if n_nodes == 0:        # the slice holds table padding only
-            return grad
+    grad = _output(node, grad)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = _head(node, ba, starts, rel, E, nu, w_sum)
     err = lib.hdnn_banded_bwd(
         *head[:5], *head[6:], inc.data_ptr(), inc.shape[1], inc.shape[2],
         None if ct_starts is None else ct_starts.data_ptr(), sentinel,
-        n_nodes, row_start, ct.data_ptr(), grad.data_ptr(), stream)
+        n_nodes, row_start, node.shape[0], K5_LANES, ct.data_ptr(),
+        grad.data_ptr(), stream)
     raise_on(lib, err, name)
     launch_counts[name] += 1
     return grad
 
 
-def kernel_occupancy(which: str, k: int,
-                     device: torch.device) -> Tuple[int, int]:
+def kernel_occupancy(which: str, k: int, device: torch.device,
+                     lanes: int = 1) -> Tuple[int, int]:
     """(registers per thread, resident CTAs per SM) of K4 (``"vg"``), K5
     over the recompute windows (``"grad"``) or over the two-pass windows
-    (``"grad_two_pass"``) for rows of ``k`` slots, on the CUDA
-    ``device``."""
+    (``"grad_two_pass"``) by ``lanes`` threads a node, for rows of ``k``
+    slots, on the CUDA ``device``."""
     lib = _library()
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     index = device.index
     err = lib.hdnn_banded_occupancy(
         torch.cuda.current_device() if index is None else index,
-        ("vg", "grad", "grad_two_pass").index(which), k, ctypes.byref(regs),
-        ctypes.byref(ctas))
+        ("vg", "grad", "grad_two_pass").index(which), k, lanes,
+        ctypes.byref(regs), ctypes.byref(ctas))
     raise_on(lib, err, "banded_occupancy")
     return regs.value, ctas.value
 

@@ -230,18 +230,18 @@ def lattice_stencil_vg_rows_plain(node, nx, ny, E, nu, w_sum, row_lo,
 def _library() -> ctypes.CDLL:
     lib = library("lattice_stencil")
     vp, fl, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.hdnn_lattice_partials.argtypes = [i, i]
-    lib.hdnn_lattice_partials.restype = i
     head = [i, vp, i, i, i, i, vp, vp, vp, fl, fl, fl, fl]
-    lib.hdnn_lattice_stencil_fwd.argtypes = head + [vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_fwd.argtypes = head + [vp, vp]
     lib.hdnn_lattice_stencil_fwd.restype = i
-    lib.hdnn_lattice_stencil_vg.argtypes = head + [vp, vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_vg.argtypes = head + [vp, vp, vp]
     lib.hdnn_lattice_stencil_vg.restype = i
     rows = head[:4] + [i, i] + head[4:]
-    lib.hdnn_lattice_stencil_fwd_rows.argtypes = rows + [vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_fwd_rows.argtypes = rows + [vp, vp]
     lib.hdnn_lattice_stencil_fwd_rows.restype = i
-    lib.hdnn_lattice_stencil_vg_rows.argtypes = rows + [vp, vp, i, vp, vp]
+    lib.hdnn_lattice_stencil_vg_rows.argtypes = rows + [vp, vp, vp]
     lib.hdnn_lattice_stencil_vg_rows.restype = i
+    lib.hdnn_lattice_launch_floor.argtypes = [i, i, i, vp]
+    lib.hdnn_lattice_launch_floor.restype = i
     return lib
 
 
@@ -286,10 +286,7 @@ def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2,
     f, shear = _constants(E, nu)
     if rows is not None:
         _check_rows(nx, *rows)
-    n_part = lib.hdnn_lattice_partials(
-        nx if rows is None else rows[1] - rows[0], ny)
     dev = node.device
-    partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (dev.index, node.data_ptr(), nx, ny) + (
@@ -305,11 +302,9 @@ def _launch(vg, node, nx, ny, E, nu, w_sum, diag, phase, sel, t1, t2,
         elif grad.shape != node.shape or grad.dtype != node.dtype \
                 or grad.device != dev or not grad.is_contiguous():
             raise ValueError("grad must be a contiguous tensor like node")
-        err = entry(*head, grad.data_ptr(), partials.data_ptr(), n_part,
-                    out.data_ptr(), stream)
+        err = entry(*head, grad.data_ptr(), out.data_ptr(), stream)
     else:
-        err = entry(*head, partials.data_ptr(), n_part, out.data_ptr(),
-                    stream)
+        err = entry(*head, out.data_ptr(), stream)
     raise_on(lib, err, name)
     launch_counts[name] += 1
     return (out, grad) if vg else out

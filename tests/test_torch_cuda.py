@@ -539,8 +539,7 @@ def test_banded_row_start_matches_unsharded(dev, k):
         torch.cuda.synchronize()
         grew = {c: be.launch_counts[c] - before[c] for c in before}
         end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
-        assert grew["banded_vg_rows"] == 1
-        assert grew["banded_bwd_rows"] == (1 if end > rs else 0)
+        assert grew["banded_vg_rows"] == 1 and grew["banded_bwd_rows"] == 1
         assert torch.equal(g[rs:end], g4[rs:end])
         assert torch.equal(g5r[rs:end], g5[rs:end])
         assert not g[:rs].any() and not g[end:].any()
@@ -732,31 +731,140 @@ def test_empty_banded_slice_writes_every_row_zero(dev):
         assert float(e) == float(pe) and not pg.any()
 
 
+def _k5_slice_cases():
+    """(k, ranks, window_limit) of the K5 slice tests: the 33x17 proxy
+    plate's tables for 2, 4 and 8 ranks (the tables' block counts are
+    powers of two, so no 3-rank split exists), and for 16 ranks at window
+    limit 100, whose last slice places no row."""
+    return [(k, r, 300) for r in (2, 4) for k in (3, 4, 6)] + [
+        (4, 8, 300), (4, 16, 100)]
+
+
+def _proxy_plate(dev):
+    return dataclasses.replace(pt.proxy_plate_mesh(nx=33, ny=17, device=dev),
+                               lattice=None)
+
+
+@pytest.mark.parametrize("k,ranks,window_limit", _k5_slice_cases(),
+                         ids=lambda v: str(v))
+def test_banded_bwd_rows_fills_a_nan_output(dev, k, ranks, window_limit):
+    """K5 at row_start on each rank's slice into a NaN-filled output through
+    the private ``grad=``, one launch a call (``K5_LANES`` threads a node):
+    the placed rows bit-equal to the whole-table K5's, the whole output
+    bit-equal to ct x K4 at the same row_start, every other row +0.0, also
+    for a slice that places no row (16 ranks)."""
+    ba, node, slices = _rank_slices(_proxy_plate(dev), k, ranks,
+                                    window_limit, dev)
+    n = node.shape[0]
+    ct = torch.tensor(0.75, device=dev)
+    no_own = dataclasses.replace(ba, re_own_lo=None, re_own_hi=None)
+    g5 = be.banded_bwd(node, no_own, ct, E, NU, W_SUM)
+    empty = 0
+    for loc, rs in slices:
+        loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
+        grad = torch.full_like(node, float("nan"))
+        before = be.launch_counts["banded_bwd_rows"]
+        g = be._bwd_launch("banded_bwd_rows", node, loc5, ct, E, NU, W_SUM,
+                           rs, grad=grad)
+        assert g is grad
+        assert be.launch_counts["banded_bwd_rows"] == before + 1
+        _, g4 = be.banded_vg_rows(node, loc, E, NU, W_SUM, rs)
+        torch.cuda.synchronize()
+        end = min(n, rs + loc.re_inc_rel.shape[0] * loc.re_inc_rel.shape[1])
+        empty += end <= rs
+        assert torch.equal(g[rs:end], g5[rs:end])
+        assert torch.equal(g, ct * g4)
+        assert _is_plus_zero(g[:rs]) and _is_plus_zero(g[end:])
+    assert empty == (1 if ranks == 16 else 0)
+
+
+def _widened(ba, lanes, seed=0):
+    """The tables without ownership, each node's incidence row widened by
+    sentinel slots to a degree of 1 (mod ``lanes``) and its slots shuffled,
+    so that sentinels lie inside rows and each node's last round of
+    ``lanes`` slots is partial."""
+    inc = ba.re_inc_rel.cpu().numpy()
+    deg = inc.shape[2]
+    extra = (1 - deg) % lanes + lanes
+    wide = np.concatenate([inc, np.full(inc.shape[:2] + (extra,),
+                                        ba.k * ba.re_ew, inc.dtype)], 2)
+    wide = np.random.default_rng(seed).permuted(wide, axis=2)
+    assert wide.shape[2] % lanes == 1
+    return dataclasses.replace(
+        ba, re_own_lo=None, re_own_hi=None,
+        re_inc_rel=torch.tensor(wide, dtype=torch.int32,
+                                device=ba.re_inc_rel.device))
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("k", [3, 4, 6])
+def test_k5_lanes_take_any_degree(dev, monkeypatch, k, lanes):
+    """K5 with a node's slots spread over ``lanes`` lanes, on tables whose
+    degree is 1 (mod lanes) with sentinel slots inside the rows: the whole
+    tables and each slice of 4 ranks bit-equal to K5 at one thread a node,
+    each against the plain version."""
+    from hidenn_fem_tpu_torch.parallel.sharding import rank_tables
+
+    ba, node, _ = _rank_slices(_proxy_plate(dev), k, 4, 300, dev)
+    wide = _widened(ba, lanes)
+    slices = [rank_tables(wide, r, 4) for r in range(4)]
+    ct = torch.tensor(-1.25, device=dev)
+    out = {}
+    for g in (1, lanes):
+        monkeypatch.setattr(be, "K5_LANES", g)
+        out[g] = [be.banded_bwd(node, wide, ct, E, NU, W_SUM)] + [
+            be.banded_bwd_rows(node, loc, ct, E, NU, W_SUM, rs)
+            for loc, rs in slices]
+    torch.cuda.synchronize()
+    for got, want in zip(out[lanes], out[1]):
+        assert torch.equal(got, want)
+    _close(out[lanes][0], be.banded_bwd_plain(node, wide, ct, E, NU, W_SUM))
+    for (loc, rs), got in zip(slices, out[lanes][1:]):
+        _close(got, be.banded_bwd_plain(node, loc, ct, E, NU, W_SUM, rs))
+
+
+def _bits_equal(a, b):
+    """Two float32 tensors equal bit for bit (-0.0 and NaN included)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 def test_row_launches_replay_from_a_cuda_graph(dev):
-    """K6 over a row window and K4 at row_start recorded in one CUDA graph
-    and replayed 50 times over changing inputs: every replay's energies
-    bit-equal to eager calls' on the same inputs, so each launch leaves
-    its ticket counter at 0 (a counter left over would elect the wrong
-    block and return a wrong sum)."""
+    """K6 and K7 over a row window, K4 and K5 at row_start, and the
+    whole-table K6, K7 and K4, recorded in one CUDA graph and replayed 50
+    times over changing inputs: every replay's energies and gradients
+    bit-equal to eager calls' on the same inputs, so each launch's energy
+    sum finds a new tag (a word left from an earlier replay would be summed
+    in place of this one's and return a wrong energy)."""
     nx, ny = 129, 65
     node, kw = _stencil_case(nx, ny, dev)
     lo, hi = 40, 45
     ba, bnode, slices = _rank_slices(
         pt.generate_mesh_delaunay(lc=0.09, device=dev), 3, 4, 300, dev)
     loc, rs = slices[1]
+    loc5 = dataclasses.replace(loc, re_own_lo=None, re_own_hi=None)
+    ct = torch.tensor(0.75, device=dev)
     static = node.clone()
     bstatic = bnode.clone()
+
+    def calls():
+        return [*ls.lattice_stencil_vg_rows(static, nx, ny, E, NU, W_SUM, lo,
+                                            hi, **kw),
+                ls.lattice_stencil_fwd_rows(static, nx, ny, E, NU, W_SUM, lo,
+                                            hi, **kw),
+                *ls.lattice_stencil_vg(static, nx, ny, E, NU, W_SUM, **kw),
+                ls.lattice_stencil_fwd(static, nx, ny, E, NU, W_SUM, **kw),
+                *be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs),
+                be.banded_bwd_rows(bstatic, loc5, ct, E, NU, W_SUM, rs),
+                *be.banded_vg(bstatic, ba, E, NU, W_SUM)]
+
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):     # warm-up, then the recording
-        ls.lattice_stencil_vg_rows(static, nx, ny, E, NU, W_SUM, lo, hi,
-                                   **kw)
-        be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+        calls()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
-            e6, g6 = ls.lattice_stencil_vg_rows(static, nx, ny, E, NU,
-                                                W_SUM, lo, hi, **kw)
-            e4, g4 = be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+            recorded = calls()
     torch.cuda.current_stream().wait_stream(stream)
     gen = torch.Generator(device=dev).manual_seed(3)
     for i in range(50):
@@ -766,12 +874,46 @@ def test_row_launches_replay_from_a_cuda_graph(dev):
         bstatic.copy_(bnode)
         bstatic[:, 2:] *= scale
         graph.replay()
-        w6, v6 = ls.lattice_stencil_vg_rows(static, nx, ny, E, NU, W_SUM,
-                                            lo, hi, **kw)
-        w4, v4 = be.banded_vg_rows(bstatic, loc, E, NU, W_SUM, rs)
+        eager = calls()
         torch.cuda.synchronize()
-        assert float(e6) == float(w6) and torch.equal(g6, v6), i
-        assert float(e4) == float(w4) and torch.equal(g4, v4), i
+        for j, (got, want) in enumerate(zip(recorded, eager)):
+            assert _bits_equal(got, want), (i, j)
+        assert float(recorded[0]) == float(recorded[2])     # K6 = K7
+
+
+@pytest.mark.parametrize("window", [None, (40, 90)], ids=["whole", "rows"])
+def test_k6_on_two_streams_at_once(dev, window):
+    """K6 launched on two streams at once, 20 calls on each, on two inputs:
+    every call's energy and gradient bit-equal to an eager call's on its
+    input (each stream takes its own slot of the energy sum, so their
+    launches never share a tag or a word)."""
+    nx, ny = 129, 65
+    a, kw = _stencil_case(nx, ny, dev)
+    b = a.clone()
+    b[:, 2:] *= 1.01
+
+    def call(nd):
+        if window is None:
+            return ls.lattice_stencil_vg(nd, nx, ny, E, NU, W_SUM, **kw)
+        return ls.lattice_stencil_vg_rows(nd, nx, ny, E, NU, W_SUM, *window,
+                                          **kw)
+
+    want = {"a": call(a), "b": call(b)}
+    streams = {"a": torch.cuda.Stream(), "b": torch.cuda.Stream()}
+    for st in streams.values():
+        st.wait_stream(torch.cuda.current_stream())
+    got = {"a": [], "b": []}
+    for _ in range(20):
+        for key, nd in (("a", a), ("b", b)):
+            with torch.cuda.stream(streams[key]):
+                got[key].append(call(nd))
+    for st in streams.values():
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for key in got:
+        for e, g in got[key]:
+            assert _bits_equal(e, want[key][0])
+            assert _bits_equal(g, want[key][1])
 
 
 def test_two_rank_gloo_slab_on_one_card(dev, tmp_path):

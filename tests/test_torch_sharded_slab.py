@@ -73,6 +73,8 @@ def _window_cases():
             out.append((shape, diag, masked, n_windows))
     out += [((37, 53), "zigzag", True, NARROW),
             ((37, 21), "up", False, NARROW),
+            ((33, 29), "sel", True, 2),
+            ((29, 37), "down", False, 3),
             ((17, 9), "zigzag", True, "mg3"),
             ((17, 9), "zigzag", True, "mg4")]
     return out
@@ -163,7 +165,8 @@ def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
     packed = {}
 
     def jax_window(nb, bi, r0):
-        """JAX's _pallas_vg over nb blocks of bi rows from row r0."""
+        """JAX's _pallas_vg and _pallas_fwd over nb blocks of bi rows from
+        row r0: (energy, gradient slab, K7's energy)."""
         if (nb, bi) not in packed:
             packed[nb, bi] = (
                 jls._pack(jnp.asarray(node), nx, ny, nb, bi, rows=rows_tot),
@@ -171,9 +174,13 @@ def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
                                 jnp.float32, rows=rows_tot),
                 jax.jit(lambda s, m, r: jls._pallas_vg(
                     s, m, nx, ny, nb, bi, f, NU, W_SUM, sel_up,
+                    all_present, True, row0=r)),
+                jax.jit(lambda s, m, r: jls._pallas_fwd(
+                    s, m, nx, ny, nb, bi, f, NU, W_SUM, sel_up,
                     all_present, True, row0=r)))
-        slab, masks, vg = packed[nb, bi]
-        return vg(slab, masks, jnp.int32(r0))
+        slab, masks, vg, fwd = packed[nb, bi]
+        return (*vg(slab, masks, jnp.int32(r0)),
+                fwd(slab, masks, jnp.int32(r0)))
 
     kw = dict(diag={"up": pls.UP, "down": pls.DOWN, "sel": pls.SEL_MASK,
                     "zigzag": pls.PARITY}[diag],
@@ -183,13 +190,14 @@ def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
     node_t = torch.tensor(node)
     e_whole, g_whole = pls.lattice_stencil_vg_plain(node_t, nx, ny, E, NU,
                                                     W_SUM, **kw)
-    sum_t = sum_j = 0.0
+    sum_t = sum_j = sum_j7 = 0.0
     for nb, bi, r0, end in spans:
-        ej, gj = jax_window(nb, bi, r0)
+        ej, gj, ej7 = jax_window(nb, bi, r0)
         sum_j += float(ej)
+        sum_j7 += float(ej7)
         lo, hi = min(r0, nx), min(end, nx)
         if lo == hi:            # the JAX package's empty last blocks
-            assert float(ej) == 0.0
+            assert float(ej) == 0.0 and float(ej7) == 0.0
             continue
         et, gt = pls.lattice_stencil_vg_rows_plain(node_t, nx, ny, E, NU,
                                                    W_SUM, lo, hi, **kw)
@@ -206,6 +214,9 @@ def test_row_windows_plain_match_jax_interpret(shape, diag, masked,
         np.testing.assert_array_equal(got[lo * ny:hi * ny],
                                       g_whole.numpy()[lo * ny:hi * ny])
     assert_close(sum_t, sum_j, rtol=1e-5, what="sum of window energies")
+    # JAX's K7 owns a window's quads as its K6 does (by their second node
+    # row, not the first): only the sums over the windows meet
+    assert_close(sum_t, sum_j7, rtol=1e-5, what="sum of K7 window energies")
     assert_close(sum_t, float(e_whole), rtol=1e-5, what="whole lattice")
 
 

@@ -162,7 +162,11 @@ def _jax_slice(ba, rank, size):
     pytest.param(3, 4, 300, id="3"), pytest.param(4, 4, 300, id="4"),
     pytest.param(6, 4, 300, id="6"),
     # 16 slices of 128 node blocks of 5 rows: the last slice places no row
-    pytest.param(4, 16, 100, id="4-empty-slice")])
+    pytest.param(4, 16, 100, id="4-empty-slice"),
+    # other rank counts (the block counts are powers of two: no 3 ranks)
+    pytest.param(3, 2, 300, id="3-2-ranks"),
+    pytest.param(4, 2, 300, id="4-2-ranks"),
+    pytest.param(6, 8, 300, id="6-8-ranks")])
 def test_rows_plain_k4_k5_match_jax_interpret(k, size, window_limit):
     mesh = _plate()
     conn = np.asarray(mesh.connectivity)

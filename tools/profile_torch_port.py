@@ -50,10 +50,11 @@ With ``--kernels`` it profiles the redesigned kernels alone instead, at
 full size: K4, K3 and K5 (over the recompute windows, and over the
 two-pass windows) on the 898K Delaunay plate's paired tables, K4 and
 both kinds of K5 on its triangle tables, K4 at ``row_start`` on slice 1
-of its paired tables rebanded for 4 ranks, K6 and K7 on the 922K-class
-zigzag plate (and K6 over its row window 1 of 4) and on the hole-free
-961x481 "up" grid, 20 calls each, and prints each kernel's device µs per
-call by name.  With
+of its paired tables rebanded for 4 ranks (and K5 there), K6 and K7 on
+the 922K-class zigzag plate (and K6 and K7 over its row window 1 of 4,
+and an empty kernel with K7's grid there: the launch floor) and on the
+hole-free 961x481 "up" grid, 20 calls each, and prints each kernel's
+device µs per call by name.  With
 ``--grads DIR`` as well it saves K4's energy and gradient and K5's
 gradient on both kinds of window, for the 898K paired, triangle and strip
 tables, and every kernel case's outputs, to ``DIR/banded_grads.pt``;
@@ -524,12 +525,15 @@ def _kernel_cases(dev):
     lo, hi = row_window(961, 1, 4)
     ba4 = reband_for_shards(mesh, 4).banded_paired
     loc, rs = rank_tables(ba4, 1, 4)
+    loc5 = without_recompute(loc, keep_tables=True)
     cases = {
         "922k_zigzag_K6": lambda: ls.lattice_stencil_vg(
             node, 961, 481, E, nu, w, **kw),
         "922k_zigzag_K7": lambda: ls.lattice_stencil_fwd(
             node, 961, 481, E, nu, w, **kw),
         "922k_zigzag_K6_rows_1_of_4": lambda: ls.lattice_stencil_vg_rows(
+            node, 961, 481, E, nu, w, lo, hi, **kw),
+        "922k_zigzag_K7_rows_1_of_4": lambda: ls.lattice_stencil_fwd_rows(
             node, 961, 481, E, nu, w, lo, hi, **kw),
         "961x481_up_K6": lambda: ls.lattice_stencil_vg(
             gnode, 961, 481, E, nu, w, **gkw),
@@ -538,6 +542,8 @@ def _kernel_cases(dev):
         "898k_paired_K4": lambda: be.banded_vg(bnode, ba, E, nu, w),
         "898k_paired_K4_rows_1_of_4": lambda: be.banded_vg_rows(
             bnode, loc, E, nu, w, rs),
+        "898k_paired_K5_rows_1_of_4": lambda: be.banded_bwd_rows(
+            bnode, loc5, ct, E, nu, w, rs),
         "898k_paired_K3": lambda: be.banded_fwd(bnode, ba, E, nu, w),
         "898k_paired_K5": lambda: be.banded_bwd(bnode, ba5, ct, E, nu, w),
         "898k_paired_K5_two_pass": lambda: be.banded_bwd(bnode, ba5b, ct, E,
@@ -631,10 +637,37 @@ def graph_us(fn, calls=20, replays=20):
     return 1e3 * start.elapsed_time(end) / (replays * calls)
 
 
+def _with_lanes(be, lanes, fn):
+    """fn() with every K5 wrapper at ``lanes`` threads a node."""
+    def call():
+        saved, be.K5_LANES = be.K5_LANES, lanes
+        try:
+            return fn()
+        finally:
+            be.K5_LANES = saved
+    return call
+
+
 def _kernels(dev, card, grads_dir=None, calls=20):
+    from hidenn_fem_tpu_torch.ops import banded_energy as be
+    from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+    from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
+
     cases, mesh, bnode = _kernel_cases(dev)
     if grads_dir:
         _banded_grads(cases, mesh, bnode, dev, grads_dir)
+    if hasattr(be, "K5_LANES"):       # K5 at each count of threads a node
+        for lanes in (1, 4, 8):
+            for name in ("898k_paired_K5", "898k_paired_K5_rows_1_of_4"):
+                cases[f"{name}_lanes_{lanes}"] = _with_lanes(
+                    be, lanes, cases[name])
+    lib = ls._library()
+    if hasattr(lib, "hdnn_lattice_launch_floor"):
+        lo, hi = row_window(961, 1, 4)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cases["922k_K7_rows_1_of_4_launch_floor"] = (
+            lambda: lib.hdnn_lattice_launch_floor(dev.index, hi - lo, 481,
+                                                  stream))
     for name, fn in cases.items():
         per = kernel_profile(fn, calls)
         print(f"== {name}: {sum(per.values()):.2f} us/call device, "
