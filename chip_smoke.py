@@ -1355,10 +1355,9 @@ def banded_layout(be, tag, node, ba, ct, card, timed, ne):
     log(f"  {tag} K5 (recompute windows) equals ct x K4, and K5 (two-pass "
         "windows) equals K5 (recompute windows), bit for bit")
     for which in ("vg", "grad", "grad_two_pass"):
-        lanes = 1 if which == "vg" else be.K5_LANES
-        regs, ctas = be.kernel_occupancy(which, ba.k, node.device, lanes)
-        log(f"  {tag} {which} kernel ({lanes} threads a node): {regs} "
-            f"registers a thread, {ctas} CTAs of 256 threads an SM")
+        regs, ctas = be.kernel_occupancy(which, ba.k, node.device)
+        log(f"  {tag} {which} kernel: {regs} registers a thread, {ctas} "
+            "CTAs of 256 threads an SM")
     torch.cuda.synchronize()
     if not timed:
         return None
@@ -1537,7 +1536,6 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
     one_launch("", "K4 on the whole tables",
                lambda: be.banded_vg(node, ba, *args))
     k4_slice_scaling(be, node, ba, args, card)
-    k5_lane_scaling(be, node, no_own, loc5, rs, ct, args, card)
     ms4, pms4 = ab_ms(lambda: be.banded_vg_rows(node, loc, *args, rs),
                       lambda: be.banded_vg_plain(node, loc, *args, rs))
     ms5, pms5 = ab_ms(lambda: be.banded_bwd_rows(node, loc5, ct, *args, rs),
@@ -1579,38 +1577,9 @@ def phase_rows_banded(ht, be, mesh, dev, card, ranks=4):
         f"[{card}]")
     parent = PARENT_ROWS_US["banded_bwd_rows"]
     log(f"  slice 1 of {ranks} K5: {entries[1]['device_us']:.2f} us in one "
-        f"launch ({be.K5_LANES} threads a node) against "
-        f"the parent's {parent[0]} us in two (kernel {parent[1]}, zero fill "
+        f"launch against the parent's {parent[0]} us in two (kernel {parent[1]}, zero fill "
         f"{parent[2]}; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W) [{card}]")
     return tri, entries
-
-
-def k5_lane_scaling(be, node, ba, loc, rs, ct, args, card):
-    """K5's device time on slice ``loc`` at ``rs`` and on the whole tables
-    ``ba`` (recompute windows) at 1, 4 and 8 threads a node, its registers
-    and CTAs an SM at each; fails unless every lane count gives the same
-    bits."""
-    saved = be.K5_LANES
-    line, first = [], None
-    try:
-        for lanes in (1, 4, 8):
-            be.K5_LANES = lanes
-            rows = lambda: be.banded_bwd_rows(node, loc, ct, *args, rs)
-            whole = lambda: be.banded_bwd(node, ba, ct, *args)
-            out = (rows(), whole())
-            if first is None:
-                first = out
-            elif not all(torch.equal(a, b) for a, b in zip(out, first)):
-                raise AssertionError(f"K5 at {lanes} threads a node differs "
-                                     "from K5 at one")
-            regs, ctas = be.kernel_occupancy("grad", ba.k, node.device, lanes)
-            line.append(f"{lanes}: slice {device_us(rows)[0]:.2f} us, whole "
-                        f"{device_us(whole)[0]:.2f} us ({regs} registers, "
-                        f"{ctas} CTAs an SM)")
-    finally:
-        be.K5_LANES = saved
-    log("  K5 by threads a node (bit-equal): " + "; ".join(line)
-        + f"; in use {saved} [{card}]")
 
 
 def k4_slice_scaling(be, node, ba, args, card):

@@ -35,8 +35,8 @@
 // more for the cotangents).  The element algebra is scalar and per
 // triangle: there is no matrix product for the tensor cores to take.
 //
-// The node gradient (K4's second half, and K5): one thread per node (K5:
-// or G lanes, below), no cotangent buffer.  Thread n lies in node block b = n / NB, which holds
+// The node gradient (K4's second half, and K5): one thread per node, no
+// cotangent buffer.  Thread n lies in node block b = n / NB, which holds
 // table rows [b*NB, (b+1)*NB), placed at global node rows row_start + n:
 // row_start is 0 for the whole tables, and for the contiguous slice of
 // node blocks that one rank of an element-sharded run walks
@@ -87,19 +87,12 @@
 // one that places no row, comes back whole.
 //
 // The gradient alone, times *ct (K5, "grad"): the same node sum, with the
-// same zero CTAs, and no energy.  A node's slots may be spread over G = 4
-// or 8 lanes of a warp (node_gradient_lanes): each lane loads and
-// evaluates every G-th slot, and the node's first lane adds the G
-// cotangents of each round in slot order, so the sum keeps its terms and
-// their order (the bits of G = 1).  That shortens each thread's chain of
-// dependent row loads from degree to ceil(degree / G) and multiplies the
-// threads by G, for a slice of the tables that is less than one wave of
-// one-thread nodes.  On the 898K tables it measured slower, on a slice
-// and on the whole tables (1.24x and 1.6x at G = 4, 2x and 2.8x at G =
-// 8; PERF.md), at the same CTAs an SM on the paired tables (46 and 48
-// registers, 5 CTAs): the 4G shuffles a lane a round and the serial
-// combine cost more than the shorter chains save.  The wrappers run
-// G = 1 (K5_LANES in ops/banded_energy.py).
+// same zero CTAs, and no energy.  Spreading a node's slots over 4 or 8
+// lanes of a warp, added in slot order by the node's first lane (the same
+// bits), shortens each thread's chain of dependent row loads but measured
+// slower on the 898K tables, on a slice and on the whole tables (1.24x
+// and 1.6x at 4 lanes, 2x and 2.8x at 8; PERF.md): the shuffles and the
+// serial combine cost more than the shorter chains save.
 //
 // Determinism: per-block partials reduced in a fixed tree order, then a
 // double sum in a fixed order (K3: a one-block second launch; K4: the
@@ -255,33 +248,14 @@ __device__ __forceinline__ float4 slot_cotangent(const float4* v, int s,
   return acc;
 }
 
-// The cotangent that incidence slot value r names (r != sentinel) of
-// node block b: slot r decodes to a table row and a vertex (the source's
-// header says how on each kind of window), whose row is loaded and whose
-// vertex's cotangent is returned.  `starts`/`rel` are the window tables
-// the slots index: re_nstarts and re_conn_rel [Br, EW, k] for the
-// recompute windows, starts and conn_rel [B, EB, k] with ct_starts for the
-// two-pass windows (TwoPass), where `base` is ct_starts[b] (0 otherwise).
-// The decode runs in 32 bits (every flat cotangent row of the int32
-// tables fits): a division by 3 or 6 costs more in 64.
-template <int K, bool TwoPass>
-__device__ __forceinline__ float4 slot_term(
-    const float4* __restrict__ node, const int* __restrict__ starts,
-    const int* __restrict__ rel, long long rows_per_block, long long b,
-    int base, int r, const Material& m) {
-  const unsigned c = (unsigned)(base + r);
-  const unsigned q = c / K;
-  const long long row = TwoPass ? (long long)q : b * rows_per_block + q;
-  const long long blk =
-      TwoPass ? (long long)(q / (unsigned)rows_per_block) : b;
-  float4 v[K];
-  load_row<K>(node, starts, rel, blk, row, v);
-  return slot_cotangent<K>(v, (int)(c - q * K), m);
-}
-
 // The unscaled gradient of node block b's node whose degree incidence
-// slots are `slots`: the cotangents the slots name, summed in slot order,
-// by one thread (K4).
+// slots are `slots`: the cotangents the slots name, summed in slot order
+// (the source's header says how a slot decodes on each kind of window).
+// `starts`/`rel` are the window tables the slots index: re_nstarts and
+// re_conn_rel [Br, EW, k] for the recompute windows, starts and conn_rel
+// [B, EB, k] with ct_starts for the two-pass windows (TwoPass).  The
+// decode runs in 32 bits (every flat cotangent row of the int32 tables
+// fits): a division by 3 or 6 costs more in 64.
 template <int K, bool TwoPass>
 __device__ __forceinline__ float4 node_gradient(
     const float4* __restrict__ node, const int* __restrict__ starts,
@@ -295,53 +269,14 @@ __device__ __forceinline__ float4 node_gradient(
   for (int d = 0; d < degree; ++d) {
     const int r = __ldg(slots + d);
     if (r == sentinel) continue;
-    add4(&g, slot_term<K, TwoPass>(node, starts, rel, rows_per_block, b,
-                                   base, r, m));
-  }
-  return g;
-}
-
-// The same sum by G lanes of one warp (K5 with G > 1): lane l of the
-// node's G takes the slots d = l (mod G), each round one slot a lane, so
-// its chain of dependent row loads is ceil(degree / G) long; after each
-// round the node's first lane adds the round's G cotangents in slot
-// order, skipping the sentinel, so every add is node_gradient's, in its
-// order (the same bits).  Every lane of the warp calls it (the shuffles
-// need them all); a lane whose node lies past the table (`live` false)
-// loads nothing.  The result is valid in the node's first lane.
-template <int K, bool TwoPass, int G>
-__device__ __forceinline__ float4 node_gradient_lanes(
-    const float4* __restrict__ node, const int* __restrict__ starts,
-    const int* __restrict__ rel, long long rows_per_block,
-    const int* __restrict__ slots, int degree, long long b,
-    const int* __restrict__ ct_starts, int sentinel, const Material& m,
-    bool live) {
-  static_assert(G > 1 && 32 % G == 0, "a node's lanes lie in one warp");
-  const int lane = threadIdx.x & (G - 1);
-  const int first = (threadIdx.x & 31) & ~(G - 1);
-  const int base = TwoPass && live ? __ldg(ct_starts + b) : 0;
-  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int d0 = 0; d0 < degree; d0 += G) {
-    const int d = d0 + lane;
-    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
-    bool have = false;
-    if (live && d < degree) {
-      const int r = __ldg(slots + d);
-      if (r != sentinel) {
-        c = slot_term<K, TwoPass>(node, starts, rel, rows_per_block, b,
-                                  base, r, m);
-        have = true;
-      }
-    }
-    const unsigned ready = __ballot_sync(0xffffffffu, have) >> first;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const float4 cj = make_float4(__shfl_sync(0xffffffffu, c.x, j, G),
-                                    __shfl_sync(0xffffffffu, c.y, j, G),
-                                    __shfl_sync(0xffffffffu, c.z, j, G),
-                                    __shfl_sync(0xffffffffu, c.w, j, G));
-      if ((ready >> j) & 1u) add4(&g, cj);
-    }
+    const unsigned c = (unsigned)(base + r);
+    const unsigned q = c / K;
+    const long long row = TwoPass ? (long long)q : b * rows_per_block + q;
+    const long long blk =
+        TwoPass ? (long long)(q / (unsigned)rows_per_block) : b;
+    float4 v[K];
+    load_row<K>(node, starts, rel, blk, row, v);
+    add4(&g, slot_cotangent<K>(v, (int)(c - q * K), m));
   }
   return g;
 }
@@ -388,10 +323,9 @@ banded_vg_kernel(const float4* __restrict__ node,
 }
 
 // K5: grad[row_start + n] = *scale x the gradient of node row n, over the
-// recompute windows or (TwoPass) the two-pass windows, by G lanes a node
-// (G = 1: one thread a node, node_gradient); the CTAs past the
+// recompute windows or (TwoPass) the two-pass windows; the CTAs past the
 // node_blocks write +0.0 to the other rows of grad [n_out].
-template <int K, bool TwoPass, int G>
+template <int K, bool TwoPass>
 __global__ void __launch_bounds__(kThreads)
 banded_grad_kernel(const float4* __restrict__ node,
                    const int* __restrict__ starts,
@@ -408,21 +342,11 @@ banded_grad_kernel(const float4* __restrict__ node,
                                 blockIdx.x - node_blocks);
     return;
   }
-  const long long n = ((long long)blockIdx.x * kThreads + threadIdx.x) / G;
-  const bool live = n < n_nodes;
-  float4 g;
-  if constexpr (G == 1) {
-    if (!live) return;
-    g = node_gradient<K, TwoPass>(node, starts, rel, rows_per_block,
-                                  inc_rel + n * degree, degree,
-                                  n / nodes_per_block, ct_starts, sentinel,
-                                  m);
-  } else {
-    g = node_gradient_lanes<K, TwoPass, G>(
-        node, starts, rel, rows_per_block, inc_rel + n * degree, degree,
-        n / nodes_per_block, ct_starts, sentinel, m, live);
-    if (!live || (threadIdx.x & (G - 1)) != 0) return;
-  }
+  const long long n = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (n >= n_nodes) return;
+  const float4 g = node_gradient<K, TwoPass>(
+      node, starts, rel, rows_per_block, inc_rel + n * degree, degree,
+      n / nodes_per_block, ct_starts, sentinel, m);
   const float s = __ldg(scale);
   grad[row_start + n] = make_float4(g.x * s, g.y * s, g.z * s, g.w * s);
 }
@@ -439,50 +363,32 @@ void launch_vg(cudaStream_t st, unsigned grid, const float4* node,
       nodes_per_block, degree, n_nodes, row_start, n_out, m, E, grad);
 }
 
-// the lanes a node that K5 takes (hdnn_banded_bwd's `lanes`)
-bool lanes_ok(int lanes) { return lanes == 1 || lanes == 4 || lanes == 8; }
-
-template <int K, bool TwoPass, int G>
+template <int K, bool TwoPass>
 void launch_grad(cudaStream_t st, const float4* node, const int* starts,
                  const int* rel, long long rows_per_block, const int* inc,
                  long long nodes_per_block, int degree, const int* ct_starts,
                  int sentinel, long long n_nodes, long long row_start,
                  long long n_out, const Material& m, const float* scale,
                  float4* grad) {
-  const long long node_blocks = (n_nodes * G + kThreads - 1) / kThreads;
+  const long long node_blocks = (n_nodes + kThreads - 1) / kThreads;
   const long long grid =
       node_blocks + zero_blocks<kThreads>(n_out - n_nodes);
-  banded_grad_kernel<K, TwoPass, G><<<(unsigned)grid, kThreads, 0, st>>>(
+  banded_grad_kernel<K, TwoPass><<<(unsigned)grid, kThreads, 0, st>>>(
       node, starts, rel, rows_per_block, inc, nodes_per_block, degree,
       ct_starts, sentinel, n_nodes, row_start, n_out, node_blocks, m, scale,
       grad);
 }
 
-template <int K, bool TwoPass>
-void launch_grad_lanes(int lanes, cudaStream_t st, const float4* node,
-                       const int* starts, const int* rel,
-                       long long rows_per_block, const int* inc,
-                       long long nodes_per_block, int degree,
-                       const int* ct_starts, int sentinel, long long n_nodes,
-                       long long row_start, long long n_out,
-                       const Material& m, const float* scale, float4* grad) {
-  (lanes == 1   ? launch_grad<K, TwoPass, 1>
-   : lanes == 4 ? launch_grad<K, TwoPass, 4>
-                : launch_grad<K, TwoPass, 8>)(
-      st, node, starts, rel, rows_per_block, inc, nodes_per_block, degree,
-      ct_starts, sentinel, n_nodes, row_start, n_out, m, scale, grad);
-}
-
 template <int K>
-void launch_grad_kind(bool two_pass, int lanes, cudaStream_t st,
+void launch_grad_kind(bool two_pass, cudaStream_t st,
                       const float4* node, const int* starts, const int* rel,
                       long long rows_per_block, const int* inc,
                       long long nodes_per_block, int degree,
                       const int* ct_starts, int sentinel, long long n_nodes,
                       long long row_start, long long n_out, const Material& m,
                       const float* scale, float4* grad) {
-  (two_pass ? launch_grad_lanes<K, true> : launch_grad_lanes<K, false>)(
-      lanes, st, node, starts, rel, rows_per_block, inc, nodes_per_block,
+  (two_pass ? launch_grad<K, true> : launch_grad<K, false>)(
+      st, node, starts, rel, rows_per_block, inc, nodes_per_block,
       degree, ct_starts, sentinel, n_nodes, row_start, n_out, m, scale,
       grad);
 }
@@ -498,29 +404,15 @@ cudaError_t occupancy(Kernel kernel, int* regs, int* ctas) {
                                                        0);
 }
 
-template <int K, bool TwoPass>
-cudaError_t grad_occupancy(int lanes, int* regs, int* ctas) {
-  switch (lanes) {
-    case 1:
-      return occupancy(banded_grad_kernel<K, TwoPass, 1>, regs, ctas);
-    case 4:
-      return occupancy(banded_grad_kernel<K, TwoPass, 4>, regs, ctas);
-    case 8:
-      return occupancy(banded_grad_kernel<K, TwoPass, 8>, regs, ctas);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 template <int K>
-cudaError_t occupancy_of(int which, int lanes, int* regs, int* ctas) {
+cudaError_t occupancy_of(int which, int* regs, int* ctas) {
   switch (which) {
     case 0:
       return occupancy(banded_vg_kernel<K>, regs, ctas);
     case 1:
-      return grad_occupancy<K, false>(lanes, regs, ctas);
+      return occupancy(banded_grad_kernel<K, false>, regs, ctas);
     case 2:
-      return grad_occupancy<K, true>(lanes, regs, ctas);
+      return occupancy(banded_grad_kernel<K, true>, regs, ctas);
     default:
       return cudaErrorInvalidValue;
   }
@@ -596,8 +488,8 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  // counted: K4's blocks run long, and its last block starts early
-  Tail E{n_partials, (float*)out, 0, 0, true};
+  // K4's blocks run long: each thread walks a node's slots
+  Tail E = hdnn::make_tail(n_partials, grid, true, (float*)out);
   const int got = hdnn::tail_slot(device, st, &E);
   if (got != (int)cudaSuccess) return got;
   const Material m = material(f, nu, shear, w_sum);
@@ -632,8 +524,8 @@ int hdnn_banded_vg(int device, const void* node, const void* starts,
 
 // K5: grad [n_out, 4] whole: the gradient of the first n_nodes node rows
 // of the tables times *scale in rows [row_start, row_start + n_nodes),
-// +0.0 in every other row (whatever grad held before), in one launch, by
-// `lanes` (1, 4 or 8) threads a node.  Node row n sums the slots of
+// +0.0 in every other row (whatever grad held before), in one launch, one
+// thread a node.  Node row n sums the slots of
 // inc_rel [Bn, nodes_per_block, degree] that are not `sentinel`, over the
 // window tables starts/rel [B, rows_per_block, k]: the two-pass windows
 // relative to ct_starts[b] when ct_starts is given, else the recompute
@@ -644,11 +536,10 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
                     const void* inc_rel, long long nodes_per_block,
                     int degree, const void* ct_starts, int sentinel,
                     long long n_nodes, long long row_start, long long n_out,
-                    int lanes, const void* scale, void* grad,
-                    void* stream) {
+                    const void* scale, void* grad, void* stream) {
   // a slice that places no row (n_nodes 0) may start past the table
   if (n_nodes < 0 || row_start < 0 || n_out < 1 ||
-      (n_nodes > 0 && row_start + n_nodes > n_out) || !lanes_ok(lanes) ||
+      (n_nodes > 0 && row_start + n_nodes > n_out) ||
       (k != 3 && k != 4 && k != 6))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -665,7 +556,7 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
   const bool two_pass = cs != nullptr;
   (k == 3   ? launch_grad_kind<3>
    : k == 4 ? launch_grad_kind<4>
-            : launch_grad_kind<6>)(two_pass, lanes, st, nd, s, r,
+            : launch_grad_kind<6>)(two_pass, st, nd, s, r,
                                    rows_per_block, inc, nodes_per_block,
                                    degree, cs, sentinel, n_nodes, row_start,
                                    n_out, m, sc, g);
@@ -674,18 +565,18 @@ int hdnn_banded_bwd(int device, const void* node, const void* starts,
 
 // Registers per thread (*regs) and resident CTAs per SM (*ctas) of K4
 // (which 0), K5 over the recompute windows (1) or over the two-pass
-// windows (2) by `lanes` threads a node, for rows of k slots.
-int hdnn_banded_occupancy(int device, int which, int k, int lanes,
-                          int* regs, int* ctas) {
+// windows (2), for rows of k slots.
+int hdnn_banded_occupancy(int device, int which, int k, int* regs,
+                          int* ctas) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   switch (k) {
     case 3:
-      return (int)occupancy_of<3>(which, lanes, regs, ctas);
+      return (int)occupancy_of<3>(which, regs, ctas);
     case 4:
-      return (int)occupancy_of<4>(which, lanes, regs, ctas);
+      return (int)occupancy_of<4>(which, regs, ctas);
     case 6:
-      return (int)occupancy_of<6>(which, lanes, regs, ctas);
+      return (int)occupancy_of<6>(which, regs, ctas);
     default:
       return (int)cudaErrorInvalidValue;
   }

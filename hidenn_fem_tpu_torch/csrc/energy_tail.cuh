@@ -14,20 +14,22 @@
 // When the last block starts long before the others end (a launch with
 // zero CTAs, whose last block is one; K4, whose blocks run long), its
 // threads' loads of words that have not landed slowed the other blocks'
-// loads.  Such a launch is counted: a block that stores a word also adds
-// one to the slot's count (a relaxed add, no fence: it only tells the last
-// block when to look), and one thread of the last block polls the count
-// before its threads load the words.  In the other launches the atomic
-// adds, all on one address, cost more than the polling.
+// loads.  Such a launch is counted (make_tail holds the rule): a block
+// that stores a word also adds one to the slot's count (a relaxed add, no
+// fence: it only tells the last block when to look), and one thread of
+// the last block polls the count before its threads load the words.  In
+// the other launches the atomic adds, all on one address, cost more than
+// the polling.
 //
 // The words are never the caller's memory: g_words, zero when the library
-// is loaded, is cut into one run of words a slot, and only these kernels
-// ever write a slot's words, each with the tag of its launch.  A slot's
-// tag (g_tags) only moves forward: the last block advances it after it
-// has summed, so the next launch on the slot, or the next replay of a CUDA
-// graph, waits for a tag no word holds yet.  A tag is never 0, so a word
-// no launch has written never matches.  (The tag wraps after 2^32 - 1
-// launches of one slot.)
+// is loaded, is cut into slots, each its own run of words, and only these
+// kernels ever write a slot's words, each with the tag of its launch.  A
+// slot's tag (g_tags) only moves forward: the last block advances it
+// after it has summed, so the next launch on the slot, or the next replay
+// of a CUDA graph, waits for a tag no word holds yet.  A tag is never 0,
+// so a word no launch has written never matches.  A slot keeps its words
+// for good, so no word ever holds another slot's tag.  (The tag wraps
+// after 2^32 - 1 launches of one slot.)
 //
 // A slot must never serve two launches that can run at once, so the C
 // entry points take it from tail_slot: one for each (device, stream)
@@ -35,11 +37,15 @@
 // one.  Launches on one stream run in order; the launches a graph
 // captured on one stream run in order too, and two replays of one graph
 // never overlap (CUDA orders a graph's launches), so none of them can
-// meet another on a slot.  Each library keeps its own slots and words.
-// The words are 4M (32 MB); a slot keeps the longest run it has needed
-// (2,208 words for K6 or K7 on the 922K-class plate), so some 1,900
-// captures of such launches fit in one process; past that a launch fails
-// with kErrNoWords.
+// meet another on a slot.  A slot holds a power of two of words, at least
+// the launch's partials; a stream or a capture that needs more than its
+// slot holds takes a larger one and keeps both.  A capture's slots go
+// back to be taken again when CUDA destroys its graph and the graph's
+// last replay has ended (a user object of the graph, release_slots), so a
+// process may record and drop any number of graphs; only the slots of the
+// graphs alive at once, and of the streams, take words.  Each library
+// keeps its own slots and words: 2M words (16 MB), 512 slots of the 4,096
+// that K6 or K7 take on the 922K-class plate (2,208 partials).
 //
 // The same launches may write zeros to the output rows they do not own
 // (zero_rows_outside), in extra blocks of the same grid, instead of a
@@ -52,16 +58,18 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <utility>
+#include <vector>
 
 #include "p1_triangle.cuh"
 
 namespace hdnn {
 
 constexpr int kTailSlots = 1 << 16;
-// the words of every slot's partials: 32 MB
-constexpr long long kTailWords = 1LL << 22;
-// a slot's run of words grows in steps of this many
-constexpr long long kTailRun = 64;
+// the words of every slot's partials: 16 MB
+constexpr long long kTailWords = 1LL << 21;
+// the fewest words a slot holds
+constexpr long long kTailMinWords = 64;
 // returned by tail_slot when every slot or every word is taken
 // (error_string)
 constexpr int kErrNoSlot = 100000;
@@ -81,6 +89,16 @@ struct Tail {
   long long words;
   bool counted;
 };
+
+// The tail of a launch of `grid` blocks, the first n of which have a
+// partial each, summed into *out (its slot comes from tail_slot).  Its
+// partials are counted when the grid's last block starts well before the
+// blocks it waits for end: when zero CTAs follow the partials' blocks
+// (the last block is one, done at once), or when each block runs long
+// (`long_blocks`; K4's threads each walk a node's slots).
+inline Tail make_tail(int n, long long grid, bool long_blocks, float* out) {
+  return Tail{n, out, 0, 0, grid > n || long_blocks};
+}
 
 // A wait on the words sleeps 32 ns after its first try, twice as long
 // after each next, up to kMaxNap ns (a wait on the count, 64 ns each
@@ -283,45 +301,113 @@ inline long long zero_blocks(long long n_zero) {
   return (n_zero + per - 1) / per;
 }
 
-// The slot of a launch of n partials on `st` of `device` (see the
-// header), in E.slot, and its run of at least n words, in E.words (a
-// slot's run is replaced by a longer one when a launch needs more; the
-// old run is never used again).  Returns cudaSuccess, the error of the
-// capture query, kErrNoSlot or kErrNoWords.
-inline int tail_slot(int device, cudaStream_t st, Tail* E) {
-  struct Run {
-    int slot;
+// The slots of tail_slot, one registry a library (never destroyed: a
+// graph's release_slots may run while the process exits).
+struct TailSlots {
+  struct Slot {
+    int id;
     long long words, size;
   };
-  static std::mutex mu;
-  static std::map<std::tuple<int, cudaStream_t, unsigned long long>, Run>
-      runs;
-  static std::map<int, int> slots_taken;
-  static std::map<int, long long> words_taken;
+  using Key = std::tuple<int, cudaStream_t, unsigned long long>;
+  std::mutex mu;
+  // the slots a (device, stream, capture) has taken, the one in use last
+  std::map<Key, std::vector<Slot>> held;
+  // slots given back, by device and size
+  std::map<std::pair<int, long long>, std::vector<Slot>> spare;
+  std::map<int, int> slots_taken;
+  std::map<int, long long> words_taken;
+
+  static TailSlots& get() {
+    static TailSlots* slots = new TailSlots;
+    return *slots;
+  }
+
+  // a slot of `size` words on `device`, given back or new (mu held)
+  int take(int device, long long size, Slot* slot) {
+    auto& back = spare[{device, size}];
+    if (!back.empty()) {
+      *slot = back.back();
+      back.pop_back();
+      return (int)cudaSuccess;
+    }
+    int& n = slots_taken[device];
+    long long& used = words_taken[device];
+    if (n >= kTailSlots) return kErrNoSlot;
+    if (used + size > kTailWords) return kErrNoWords;
+    *slot = Slot{n++, used, size};
+    used += size;
+    return (int)cudaSuccess;
+  }
+
+  // gives back every slot of `key`
+  void give_back(const Key& key) {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = held.find(key);
+    if (it == held.end()) return;
+    for (const Slot& s : it->second)
+      spare[{std::get<0>(key), s.size}].push_back(s);
+    held.erase(it);
+  }
+};
+
+// A graph's user object: gives back the slots of its capture once CUDA
+// has destroyed the graph and every replay of it has ended.  It runs on a
+// thread of CUDA's and calls no CUDA function.
+inline void CUDART_CB release_slots(void* key) {
+  TailSlots::Key* k = (TailSlots::Key*)key;
+  TailSlots::get().give_back(*k);
+  delete k;
+}
+
+// The slot of a launch of E->n partials on `st` of `device` (see the
+// header), in E->slot and E->words.  Returns cudaSuccess, a CUDA error of
+// the capture query or of the graph's user object, kErrNoSlot or
+// kErrNoWords.
+inline int tail_slot(int device, cudaStream_t st, Tail* E) {
   cudaStreamCaptureStatus status;
   unsigned long long id = 0;
-  const cudaError_t err = cudaStreamGetCaptureInfo(st, &status, &id);
+  cudaGraph_t graph = nullptr;
+  cudaError_t err = cudaStreamGetCaptureInfo(st, &status, &id, &graph);
   if (err != cudaSuccess) return (int)err;
   if (status != cudaStreamCaptureStatusActive) id = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(device, st, id);
-  auto it = runs.find(key);
-  if (it == runs.end()) {
-    int& n = slots_taken[device];
-    if (n >= kTailSlots) return kErrNoSlot;
-    it = runs.emplace(key, Run{n++, 0, 0}).first;
+  long long size = kTailMinWords;
+  while (size < E->n) size *= 2;
+  TailSlots& slots = TailSlots::get();
+  const TailSlots::Key key = std::make_tuple(device, st, id);
+  bool first;
+  TailSlots::Slot slot;
+  {
+    std::lock_guard<std::mutex> lock(slots.mu);
+    auto it = slots.held.find(key);
+    first = it == slots.held.end();
+    if (!first && it->second.back().size >= E->n) {
+      slot = it->second.back();
+    } else {
+      const int got = slots.take(device, size, &slot);
+      if (got != (int)cudaSuccess) return got;
+      slots.held[key].push_back(slot);
+    }
   }
-  Run& run = it->second;
-  if (E->n > run.size) {
-    const long long size = (E->n + kTailRun - 1) / kTailRun * kTailRun;
-    long long& used = words_taken[device];
-    if (used + size > kTailWords) return kErrNoWords;
-    run.words = used;
-    run.size = size;
-    used += size;
+  if (first && id != 0) {
+    // the capture's slots go back when its graph is destroyed
+    TailSlots::Key* owned = new TailSlots::Key(key);
+    cudaUserObject_t object;
+    err = cudaUserObjectCreate(&object, owned, release_slots, 1,
+                               cudaUserObjectNoDestructorSync);
+    if (err != cudaSuccess) {
+      delete owned;
+      slots.give_back(key);
+      return (int)err;
+    }
+    err = cudaGraphRetainUserObject(graph, object, 1,
+                                    cudaGraphUserObjectMove);
+    if (err != cudaSuccess) {
+      cudaUserObjectRelease(object, 1);  // release_slots gives them back
+      return (int)err;
+    }
   }
-  E->slot = run.slot;
-  E->words = run.words;
+  E->slot = slot.id;
+  E->words = slot.words;
   return (int)cudaSuccess;
 }
 
@@ -330,8 +416,8 @@ inline const char* error_string(int err) {
     return "every slot of the one-launch energy sum is taken (one a "
            "stream and one a stream a CUDA-graph capture)";
   if (err == kErrNoWords)
-    return "the one-launch energy sum's partial words are all taken (a "
-           "run of them a stream and a stream a CUDA-graph capture)";
+    return "the one-launch energy sum's partial words are all taken (by "
+           "the slots of the streams and of the CUDA graphs alive)";
   return cudaGetErrorString((cudaError_t)err);
 }
 

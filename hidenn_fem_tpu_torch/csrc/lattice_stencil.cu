@@ -66,8 +66,8 @@
 // warp, and its halo column's lane loads the column right of the tile.
 // Each quad row is summed by block_sum's warp tree and the tile's row
 // sums are added in row order, so a tile's partial, and the energy, keep
-// K6's bits.  (One warp over all 7 rows, four tiles a CTA, ran 2x slower:
-// too few warps to hide a row's latency; PERF.md.)
+// K6's bits.  A CTA is one tile.  (One warp over all 7 rows, four tiles a
+// CTA, ran 2x slower: too few warps to hide a row's latency; PERF.md.)
 //
 // Row windows (the sharded lattice energy, hidenn_fem_tpu/parallel/
 // sharded_slab.py, where the TPU kernels took a `row0` SMEM scalar that
@@ -129,12 +129,11 @@ constexpr int kTileCols = kQuadCols - 1;
 // node rows staged: the quad tile's corners
 constexpr int kNodeRows = kQuadRows + 1;
 constexpr int kNodeCols = kQuadCols + 1;
-// K7: the quad rows of a tile one warp walks, the warps of a tile, the
-// tiles of a CTA
+// K7: the quad rows of a tile one warp walks, and the warps of its CTA,
+// which is one tile
 constexpr int kFwdWarpRows = 2;
-constexpr int kFwdTileWarps = (kTileRows + kFwdWarpRows - 1) / kFwdWarpRows;
-constexpr int kFwdTiles = 1;
-constexpr int kFwdThreads = 32 * kFwdTileWarps * kFwdTiles;
+constexpr int kFwdWarps = (kTileRows + kFwdWarpRows - 1) / kFwdWarpRows;
+constexpr int kFwdThreads = 32 * kFwdWarps;
 
 // how each quad picks its diagonal
 enum Diag : int { kUp = 0, kDown = 1, kSelMask = 2, kParity = 3 };
@@ -272,9 +271,9 @@ __device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
   if (s2 >= 0 && T.t2[q] != 0.f) add_scaled(g, T.t2[q], T.cot[3 + s2][q]);
 }
 
-// K7: the energy of tile `tile` of CTA slot `slot` by kFwdTileWarps
-// warps, each on kFwdWarpRows quad rows of it (rows ty >= 1 of K6's
-// 8 x 32 quad tile), lane tx on K6's thread (ty, tx) of each.  Lane tx loads the node column
+// K7: the energy of tile blockIdx.x by kFwdWarps warps, each on
+// kFwdWarpRows quad rows of it (rows ty >= 1 of K6's 8 x 32 quad tile),
+// lane tx on K6's thread (ty, tx) of each.  Lane tx loads the node column
 // of K6's thread tx (lane 0, whose quads K6 does not count, the column
 // right of the tile instead) in each node row the rows touch, once: a
 // quad's right-hand corners are lane tx + 1's (lane 0's for lane 31), by
@@ -285,59 +284,53 @@ __device__ __forceinline__ void add_quad(const Tile& T, int q, float4* g) {
 template <int kDiag, bool kMasked>
 __global__ void __launch_bounds__(kFwdThreads)
 stencil_fwd_kernel(Lattice L, Material m, Tail E) {
-  __shared__ float row_sums[kFwdTiles][kTileRows];
+  __shared__ float row_sums[kTileRows];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int slot = warp / kFwdTileWarps;
-  const int tile = blockIdx.x * kFwdTiles + slot;
-  const int ty0 = 1 + (warp % kFwdTileWarps) * kFwdWarpRows;
+  const int ty0 = 1 + (threadIdx.x >> 5) * kFwdWarpRows;
   const int rows = min(kFwdWarpRows, kQuadRows - ty0);
-  // the tile's first thread stores its partial
-  const bool leader = threadIdx.x % (32 * kFwdTileWarps) == 0;
-  const unsigned int tag = leader && tile < E.n ? tail_tag(E) : 0u;
-  if (tile < E.n) {
-    int i0, j0;
-    tile_origin(L, tile, &i0, &j0);
-    const int col = lane == 0 ? j0 + kTileCols : j0 - 1 + lane;
-    const int qj = j0 - 1 + lane;
-    // node rows i0 - 1 + ty0 + r, r = 0 .. rows, at column col
-    float4 v[kFwdWarpRows + 1];
+  // thread 0 stores the tile's partial
+  const unsigned int tag = threadIdx.x == 0 ? tail_tag(E) : 0u;
+  int i0, j0;
+  tile_origin(L, blockIdx.x, &i0, &j0);
+  const int col = lane == 0 ? j0 + kTileCols : j0 - 1 + lane;
+  const int qj = j0 - 1 + lane;
+  // node rows i0 - 1 + ty0 + r, r = 0 .. rows, at column col
+  float4 v[kFwdWarpRows + 1];
 #pragma unroll
-    for (int r = 0; r <= kFwdWarpRows; ++r) {
-      const int i = i0 - 1 + ty0 + r;
-      v[r] = r <= rows && i < L.nx && col < L.ny
-                 ? __ldg(L.node + (long long)i * L.ny + col)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    const int right = (lane + 1) & 31;
-    float4 upper = shfl4(v[0], right);
+  for (int r = 0; r <= kFwdWarpRows; ++r) {
+    const int i = i0 - 1 + ty0 + r;
+    v[r] = r <= rows && i < L.nx && col < L.ny
+               ? __ldg(L.node + (long long)i * L.ny + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int right = (lane + 1) & 31;
+  float4 upper = shfl4(v[0], right);
 #pragma unroll
-    for (int r = 1; r <= kFwdWarpRows; ++r) {
-      if (r > rows) break;
-      const int ty = ty0 + r - 1;
-      const int qi = i0 - 1 + ty;
-      const float4 lower = shfl4(v[r], right);
-      float acc = 0.f;
-      if (lane >= 1 && qi < L.row_hi && quad_exists(L, qi, qj)) {
-        Quad Q;
-        Q.n00 = v[r - 1];
-        Q.n01 = upper;
-        Q.n10 = v[r];
-        Q.n11 = lower;
-        quad_flags<kDiag, kMasked>(L, qi, qj, &Q);
-        acc = quad_energy(Q, m);
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if (lane == 0) row_sums[slot][ty - 1] = acc;
-      upper = lower;
+  for (int r = 1; r <= kFwdWarpRows; ++r) {
+    if (r > rows) break;
+    const int ty = ty0 + r - 1;
+    const int qi = i0 - 1 + ty;
+    const float4 lower = shfl4(v[r], right);
+    float acc = 0.f;
+    if (lane >= 1 && qi < L.row_hi && quad_exists(L, qi, qj)) {
+      Quad Q;
+      Q.n00 = v[r - 1];
+      Q.n01 = upper;
+      Q.n10 = v[r];
+      Q.n11 = lower;
+      quad_flags<kDiag, kMasked>(L, qi, qj, &Q);
+      acc = quad_energy(Q, m);
     }
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) row_sums[ty - 1] = acc;
+    upper = lower;
   }
   __syncthreads();
-  if (leader && tile < E.n) {
+  if (threadIdx.x == 0) {
     float total = 0.f;
-    for (int ty = 1; ty < kQuadRows; ++ty) total += row_sums[slot][ty - 1];
-    tail_put(E, tag, tile, total);
+    for (int ty = 1; ty < kQuadRows; ++ty) total += row_sums[ty - 1];
+    tail_put(E, tag, blockIdx.x, total);
   }
   tail_finish<kFwdThreads>(E);
 }
@@ -419,27 +412,29 @@ stencil_vg_kernel(Lattice L, Material m, float4* __restrict__ grad,
   energy_tail<kThreads>(total, blockIdx.x, tag, E);
 }
 
-// One launch: the E.n tiles (and, for K6, the zero CTAs after them).
+// One launch: the E.n tiles (and, for K6, the `zeros` zero CTAs after
+// them).
 template <int kDiag, bool kMasked>
 cudaError_t launch(bool vg, const Lattice& L, const Material& m,
-                   float4* grad, const Tail& E, cudaStream_t st) {
+                   float4* grad, const Tail& E, long long zeros,
+                   cudaStream_t st) {
   if (vg) {
-    const long long zeros = zero_blocks<kThreads>(
-        (long long)(L.nx - (L.row_hi - L.row_lo)) * L.ny);
     stencil_vg_kernel<kDiag, kMasked>
         <<<(unsigned)(E.n + zeros), kThreads, 0, st>>>(L, m, grad, E);
   } else {
     stencil_fwd_kernel<kDiag, kMasked>
-        <<<(E.n + kFwdTiles - 1) / kFwdTiles, kFwdThreads, 0, st>>>(L, m, E);
+        <<<E.n, kFwdThreads, 0, st>>>(L, m, E);
   }
   return cudaGetLastError();
 }
 
 template <int kDiag>
 cudaError_t launch_masked(bool vg, const Lattice& L, const Material& m,
-                          float4* grad, const Tail& E, cudaStream_t st) {
-  if (L.t1 != nullptr) return launch<kDiag, true>(vg, L, m, grad, E, st);
-  return launch<kDiag, false>(vg, L, m, grad, E, st);
+                          float4* grad, const Tail& E, long long zeros,
+                          cudaStream_t st) {
+  if (L.t1 != nullptr)
+    return launch<kDiag, true>(vg, L, m, grad, E, zeros, st);
+  return launch<kDiag, false>(vg, L, m, grad, E, zeros, st);
 }
 
 // the tiles (energy partials) of a window of nx rows of a lattice ny wide
@@ -459,9 +454,12 @@ int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  // counted when K6 has zero CTAs, the last of which starts early
-  Tail E{n_tiles(row_hi - row_lo, ny), (float*)out, 0, 0,
-         vg && row_hi - row_lo < nx};
+  // K6's zero CTAs after its tiles (none for K7 or the whole lattice)
+  const int tiles = n_tiles(row_hi - row_lo, ny);
+  const long long zeros =
+      vg ? zero_blocks<kThreads>((long long)(nx - (row_hi - row_lo)) * ny)
+         : 0;
+  Tail E = hdnn::make_tail(tiles, tiles + zeros, false, (float*)out);
   const int got = hdnn::tail_slot(device, st, &E);
   if (got != (int)cudaSuccess) return got;
   const Lattice L{(const float4*)node, nx, ny, (const float*)sel,
@@ -470,13 +468,13 @@ int run(int device, bool vg, const void* node, int nx, int ny, int row_lo,
   float4* g = (float4*)grad;
   switch (diag) {
     case kUp:
-      return (int)launch_masked<kUp>(vg, L, m, g, E, st);
+      return (int)launch_masked<kUp>(vg, L, m, g, E, zeros, st);
     case kDown:
-      return (int)launch_masked<kDown>(vg, L, m, g, E, st);
+      return (int)launch_masked<kDown>(vg, L, m, g, E, zeros, st);
     case kSelMask:
-      return (int)launch_masked<kSelMask>(vg, L, m, g, E, st);
+      return (int)launch_masked<kSelMask>(vg, L, m, g, E, zeros, st);
     case kParity:
-      return (int)launch_masked<kParity>(vg, L, m, g, E, st);
+      return (int)launch_masked<kParity>(vg, L, m, g, E, zeros, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -541,8 +539,7 @@ int hdnn_lattice_stencil_vg_rows(int device, const void* node, int nx,
 int hdnn_lattice_launch_floor(int device, int nx, int ny, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  empty_kernel<<<(n_tiles(nx, ny) + kFwdTiles - 1) / kFwdTiles, kFwdThreads,
-                 0, (cudaStream_t)stream>>>();
+  empty_kernel<<<n_tiles(nx, ny), kFwdThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -32,7 +32,7 @@ In this module:
   (``parallel/sharding.py``), the gradient rows placed at global row
   ``row_start`` of an [N, 4] table whose other rows are 0, as the TPU
   package's ``_recompute_vg``/``_recompute_bwd`` place them (each writes
-  those zeros in its own launch).  ``K5_LANES``: K5's threads a node.
+  those zeros in its own launch).
 * ``banded_fwd_plain``, ``banded_vg_plain``, ``banded_bwd_plain``: the
   same functions in plain torch, walking the same tables (window gather,
   the per-layout energy of ``element_energy_plain``'s algebra and the
@@ -71,12 +71,6 @@ __all__ = ["banded_element_energy", "banded_fwd", "banded_vg", "banded_bwd",
 _TRIS = {3: ((0, 1, 2),),
          4: ((0, 1, 2), (0, 1, 3)),
          6: ((0, 1, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5))}
-
-# K5's threads a node (1, 4 or 8; csrc/banded_energy.cu,
-# node_gradient_lanes): 1 was the fastest on the 898K tables, on one
-# rank's slice and on the whole tables (PERF.md; every count gives the
-# same bits)
-K5_LANES = 1
 
 # launches of each kernel wrapper since the last reset
 launch_counts = {"banded_fwd": 0, "banded_vg": 0, "banded_bwd": 0,
@@ -203,10 +197,10 @@ def _library() -> ctypes.CDLL:
         i, vp, vp, ll, i, ll, ll, ll, vp, vp]
     lib.hdnn_banded_vg.restype = i
     lib.hdnn_banded_bwd.argtypes = [i, vp, vp, vp, ll, i] + mat + [
-        vp, ll, i, vp, i, ll, ll, ll, i, vp, vp, vp]
+        vp, ll, i, vp, i, ll, ll, ll, vp, vp, vp]
     lib.hdnn_banded_bwd.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
-    lib.hdnn_banded_occupancy.argtypes = [i, i, i, i, pi, pi]
+    lib.hdnn_banded_occupancy.argtypes = [i, i, i, pi, pi]
     lib.hdnn_banded_occupancy.restype = i
     return lib
 
@@ -341,7 +335,7 @@ def banded_bwd_rows(node, ba, ct, E, nu, w_sum, row_start: int
 def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start, grad=None):
     """K5 in one launch, writing every row of ``grad`` (a new [N, 4] tensor
     when None), whatever it held: ``ct`` times the tables' node rows at
-    ``row_start``, 0 elsewhere; ``K5_LANES`` threads a node."""
+    ``row_start``, 0 elsewhere."""
     if ba.re_conn_rel is not None:
         starts, rel, inc = ba.re_nstarts, ba.re_conn_rel, ba.re_inc_rel
         ct_starts, sentinel = None, ba.k * ba.re_ew
@@ -363,26 +357,26 @@ def _bwd_launch(name, node, ba, ct, E, nu, w_sum, row_start, grad=None):
     err = lib.hdnn_banded_bwd(
         *head[:5], *head[6:], inc.data_ptr(), inc.shape[1], inc.shape[2],
         None if ct_starts is None else ct_starts.data_ptr(), sentinel,
-        n_nodes, row_start, node.shape[0], K5_LANES, ct.data_ptr(),
-        grad.data_ptr(), stream)
+        n_nodes, row_start, node.shape[0], ct.data_ptr(), grad.data_ptr(),
+        stream)
     raise_on(lib, err, name)
     launch_counts[name] += 1
     return grad
 
 
-def kernel_occupancy(which: str, k: int, device: torch.device,
-                     lanes: int = 1) -> Tuple[int, int]:
+def kernel_occupancy(which: str, k: int,
+                     device: torch.device) -> Tuple[int, int]:
     """(registers per thread, resident CTAs per SM) of K4 (``"vg"``), K5
     over the recompute windows (``"grad"``) or over the two-pass windows
-    (``"grad_two_pass"``) by ``lanes`` threads a node, for rows of ``k``
-    slots, on the CUDA ``device``."""
+    (``"grad_two_pass"``) for rows of ``k`` slots, on the CUDA
+    ``device``."""
     lib = _library()
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     index = device.index
     err = lib.hdnn_banded_occupancy(
         torch.cuda.current_device() if index is None else index,
-        ("vg", "grad", "grad_two_pass").index(which), k, lanes,
-        ctypes.byref(regs), ctypes.byref(ctas))
+        ("vg", "grad", "grad_two_pass").index(which), k, ctypes.byref(regs),
+        ctypes.byref(ctas))
     raise_on(lib, err, "banded_occupancy")
     return regs.value, ctas.value
 

@@ -749,8 +749,7 @@ def _proxy_plate(dev):
                          ids=lambda v: str(v))
 def test_banded_bwd_rows_fills_a_nan_output(dev, k, ranks, window_limit):
     """K5 at row_start on each rank's slice into a NaN-filled output through
-    the private ``grad=``, one launch a call (``K5_LANES`` threads a node):
-    the placed rows bit-equal to the whole-table K5's, the whole output
+    the private ``grad=``, one launch a call: the placed rows bit-equal to the whole-table K5's, the whole output
     bit-equal to ct x K4 at the same row_start, every other row +0.0, also
     for a slice that places no row (16 ranks)."""
     ba, node, slices = _rank_slices(_proxy_plate(dev), k, ranks,
@@ -776,51 +775,6 @@ def test_banded_bwd_rows_fills_a_nan_output(dev, k, ranks, window_limit):
         assert torch.equal(g, ct * g4)
         assert _is_plus_zero(g[:rs]) and _is_plus_zero(g[end:])
     assert empty == (1 if ranks == 16 else 0)
-
-
-def _widened(ba, lanes, seed=0):
-    """The tables without ownership, each node's incidence row widened by
-    sentinel slots to a degree of 1 (mod ``lanes``) and its slots shuffled,
-    so that sentinels lie inside rows and each node's last round of
-    ``lanes`` slots is partial."""
-    inc = ba.re_inc_rel.cpu().numpy()
-    deg = inc.shape[2]
-    extra = (1 - deg) % lanes + lanes
-    wide = np.concatenate([inc, np.full(inc.shape[:2] + (extra,),
-                                        ba.k * ba.re_ew, inc.dtype)], 2)
-    wide = np.random.default_rng(seed).permuted(wide, axis=2)
-    assert wide.shape[2] % lanes == 1
-    return dataclasses.replace(
-        ba, re_own_lo=None, re_own_hi=None,
-        re_inc_rel=torch.tensor(wide, dtype=torch.int32,
-                                device=ba.re_inc_rel.device))
-
-
-@pytest.mark.parametrize("lanes", [4, 8])
-@pytest.mark.parametrize("k", [3, 4, 6])
-def test_k5_lanes_take_any_degree(dev, monkeypatch, k, lanes):
-    """K5 with a node's slots spread over ``lanes`` lanes, on tables whose
-    degree is 1 (mod lanes) with sentinel slots inside the rows: the whole
-    tables and each slice of 4 ranks bit-equal to K5 at one thread a node,
-    each against the plain version."""
-    from hidenn_fem_tpu_torch.parallel.sharding import rank_tables
-
-    ba, node, _ = _rank_slices(_proxy_plate(dev), k, 4, 300, dev)
-    wide = _widened(ba, lanes)
-    slices = [rank_tables(wide, r, 4) for r in range(4)]
-    ct = torch.tensor(-1.25, device=dev)
-    out = {}
-    for g in (1, lanes):
-        monkeypatch.setattr(be, "K5_LANES", g)
-        out[g] = [be.banded_bwd(node, wide, ct, E, NU, W_SUM)] + [
-            be.banded_bwd_rows(node, loc, ct, E, NU, W_SUM, rs)
-            for loc, rs in slices]
-    torch.cuda.synchronize()
-    for got, want in zip(out[lanes], out[1]):
-        assert torch.equal(got, want)
-    _close(out[lanes][0], be.banded_bwd_plain(node, wide, ct, E, NU, W_SUM))
-    for (loc, rs), got in zip(slices, out[lanes][1:]):
-        _close(got, be.banded_bwd_plain(node, loc, ct, E, NU, W_SUM, rs))
 
 
 def _bits_equal(a, b):
@@ -879,6 +833,54 @@ def test_row_launches_replay_from_a_cuda_graph(dev):
         for j, (got, want) in enumerate(zip(recorded, eager)):
             assert _bits_equal(got, want), (i, j)
         assert float(recorded[0]) == float(recorded[2])     # K6 = K7
+
+
+def _record(fn):
+    """A CUDA graph of ``fn()`` recorded on the current stream (not the
+    default one), and its outputs (``torch.cuda.graph`` would also collect
+    garbage before each recording)."""
+    graph = torch.cuda.CUDAGraph()
+    graph.capture_begin()
+    try:
+        out = fn()
+    finally:
+        graph.capture_end()
+    return graph, out
+
+
+def test_dropped_graphs_give_their_tail_slots_back(dev):
+    """2,500 CUDA graphs recorded in one process, each of K7 and K6 on a
+    lattice of 900 tiles (a slot of 1,024 words of the energy sum's 2M),
+    replayed once and dropped in turn, while one graph recorded first stays
+    alive: more graphs than the words could hold at once, so a graph's
+    slot must go back when it is destroyed, and never while it lives.
+    Every replay's energies and gradient bit-equal to eager calls'."""
+    nx, ny = 700, 249               # 100 x 9 tiles of 7 x 31 nodes
+    node, kw = _stencil_case(nx, ny, dev)
+
+    def calls():
+        return [ls.lattice_stencil_fwd(node, nx, ny, E, NU, W_SUM, **kw),
+                *ls.lattice_stencil_vg(node, nx, ny, E, NU, W_SUM, **kw)]
+
+    want = calls()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        calls()
+        kept, kept_out = _record(calls)
+        for i in range(2500):
+            graph, out = _record(calls)
+            graph.replay()
+            if i % 250 == 0:
+                kept.replay()
+                torch.cuda.synchronize()
+                for got, w in zip(kept_out, want):
+                    assert _bits_equal(got, w), i
+            torch.cuda.synchronize()
+            for got, w in zip(out, want):
+                assert _bits_equal(got, w), i
+            del graph, out
+    torch.cuda.current_stream().wait_stream(stream)
 
 
 @pytest.mark.parametrize("window", [None, (40, 90)], ids=["whole", "rows"])

@@ -637,30 +637,13 @@ def graph_us(fn, calls=20, replays=20):
     return 1e3 * start.elapsed_time(end) / (replays * calls)
 
 
-def _with_lanes(be, lanes, fn):
-    """fn() with every K5 wrapper at ``lanes`` threads a node."""
-    def call():
-        saved, be.K5_LANES = be.K5_LANES, lanes
-        try:
-            return fn()
-        finally:
-            be.K5_LANES = saved
-    return call
-
-
 def _kernels(dev, card, grads_dir=None, calls=20):
-    from hidenn_fem_tpu_torch.ops import banded_energy as be
     from hidenn_fem_tpu_torch.ops import lattice_slab as ls
     from hidenn_fem_tpu_torch.parallel.sharded_slab import row_window
 
     cases, mesh, bnode = _kernel_cases(dev)
     if grads_dir:
         _banded_grads(cases, mesh, bnode, dev, grads_dir)
-    if hasattr(be, "K5_LANES"):       # K5 at each count of threads a node
-        for lanes in (1, 4, 8):
-            for name in ("898k_paired_K5", "898k_paired_K5_rows_1_of_4"):
-                cases[f"{name}_lanes_{lanes}"] = _with_lanes(
-                    be, lanes, cases[name])
     lib = ls._library()
     if hasattr(lib, "hdnn_lattice_launch_floor"):
         lo, hi = row_window(961, 1, 4)
