@@ -252,7 +252,39 @@ Phases (each raises on failure, and the script then exits non-zero):
     launches); the captured solve at each READ_EVERY_SWEEP period (bits
     equal to the shipped period's, ms).
 
-Every ``run_lbfgs``/``run_optimizer`` solve of phases 4-23 (and those
+24. Analytic validation (the JAX package's own analytic checks, at its
+    tests' sizes and with their bounds; ``tests/test_torch_validation.py``
+    on the CPU), every solve from rest (u = 0), each check's value printed
+    beside the JAX test's and the JAX package's from rest, with its seconds
+    and launches:
+    a. Kirsch/Howland: one hole (d = 0.2) in the 2x1 plate under t = 1e5,
+       on the hybrid mesh (lc 0.012, 27,264 elements; the plain hybrid
+       route, K6 in the aux V-cycle) and on the Delaunay mesh (31,418
+       elements, below the banded threshold: K1, K2 and ``incidence_sum``
+       each matvec, K6 in the V-cycle), ``aux_pcg_solve`` to relres 1e-6:
+       the last relres below 1e-6, the peak P1 centroid von Mises within
+       [0.91, 1.05] x 3.14 t and within 2 lc of the rim's top or bottom,
+       and within 1% of JAX's;
+    b. O(h^2): the manufactured solution on the clamped Delaunay unit
+       square (lc 1/8 -> 1/16, CG cap 4000) and the clamped hybrid 2x1
+       plate with a hole of radius 0.25 (lc 0.1 -> 0.05, cap 8000; the rim
+       traction a work term built once as device tensors), ``cg_solve`` to
+       tol 1e-8 on the plain route (JAX's ``backend="xla"``, so no kernel,
+       which is checked): order > 1.8, e2 < 1e-2 A, both errors within 1%
+       of JAX's;
+    c. r-adaptivity: the example-3 bar (``examples/example3_torch.py``'s
+       ``b_force`` and ``u_true``) at 41 nodes, 2000 L-BFGS steps fixed and
+       r-adapted (the history kernels at P = 39 and 79): the adapted energy
+       lower, its L2 error < 0.85 x the fixed one's, the grid moved by
+       > 0.05, the fixed error within 1% of JAX's; the adapted run again on
+       the plain history passes, its first 50 losses within 1e-4 of the
+       kernels' run and its end within the bounds;
+    d. diagonal independence: the 21x11 proxy plate, "zigzag" and "up",
+       200 L-BFGS steps on the lattice route (K6 each step, K7 the no-grad
+       energy at the solution): the plateaus within rel 5e-3 of each other
+       and within 1e-4 of JAX's and of the no-grad energy.
+
+Every ``run_lbfgs``/``run_optimizer`` solve of phases 4-24 (and those
 inside the linear solvers' r-adaptive epochs) replays a captured step on
 the card, and so does every linear solve's iteration (CG, Jacobi-PCG,
 MG-PCG, aux-PCG, the one-rank NCCL sharded MG), except the zoom line
@@ -266,7 +298,7 @@ library in ``hidenn_fem_tpu_torch/csrc/build/``, so every run takes the
 same path and phase 11b holds the colors to the JAX package's numpy
 rounds.  Phase 20 alone turns the library on.
 
-Each path of phases 4-23 (and K8's timed A/B) runs with every launch
+Each path of phases 4-24 (and K8's timed A/B) runs with every launch
 count set to 0 just before it and read just after (in each rank for
 phase 10), and fails if a kernel of that path did not launch; a solve
 whose residual turns non-finite fails.  Every compact L-BFGS update on
@@ -3936,6 +3968,399 @@ def solver_cases(ht, counts, mesh898, dev, card):
     return cases
 
 
+# Phase 24: the JAX package's analytic checks on the card, at the JAX
+# tests' own sizes and with their bounds (tests/test_torch_validation.py
+# holds the port to them, and to JAX, on the CPU).  Every solve starts
+# from rest.  The JAX values printed beside the card's: the JAX test's
+# docstring (from its random start) and the JAX package's from rest on the
+# CPU, made with that test file's helpers (f32), e.g.
+#   JAX_PLATFORMS=cpu python -c "
+#   import sys; sys.path[:0] = ['tests', '.']
+#   import hidenn_fem_tpu as ht, test_torch_validation as v
+#   m = ht.generate_mesh_hybrid(holes=(v.KIRSCH_HOLE,), lc=0.012)
+#   u, vm, cent, h = v._kirsch(ht, m); print(v._peak(vm, cent, 0.012))
+#   jm, _ = v._mms_meshes('delaunay', 1 / 8); print(v._mms_solve(ht,
+#       'delaunay', jm)[1])
+#   print(v._bar(ht, True, 2000)[:2])
+#   print(v._plateau(ht, ht.proxy_plate_mesh(nx=21, ny=11,
+#       variant='zigzag')))"
+# Kirsch/Howland: one hole (d/W = 0.2) in the 2x1 plate under t = F/L,
+# aux_pcg_solve to relres 1e-6; the peak P1 centroid von Mises within
+# KIRSCH_BAND x sigma_max = (2 + (1 - d/W)^3) / (1 - d/W) t (Heywood's fit
+# to Howland's series) and within 2 lc of the rim's top or bottom.
+KIRSCH_HOLE, KIRSCH_LC = (1.0, 0.5, 0.1), 0.012
+KIRSCH_BAND = (0.91, 1.05)
+# peak / sigma_max: (the JAX test's doc, JAX from rest)
+JAX_KIRSCH = {"hybrid": (0.966, 0.9660271282663391),
+              "delaunay": (0.976, 0.9753011536601744)}
+# The manufactured solution u = (A sin(ax x) sin(by y), 0) on the clamped
+# Delaunay unit square and the clamped hybrid 2x1 plate with a hole of
+# radius 0.25 (the rim traction sigma(u) n as a midpoint work term over
+# the rim edges), cg_solve to tol 1e-8 on the plain route (JAX's
+# backend="xla"); order log2(e1 / e2) > MMS_ORDER and e2 < MMS_E2 x A.
+# kind: (length, holes, (lc1, lc2), CG cap, (ax, by)).  From rest the CG's
+# recursive residual reaches 1e-8 in 37-151 f32 iterations on the CPU, in
+# both packages, so the captured loop stops on its device flag before the
+# cap.
+MMS_A, MMS_ORDER, MMS_E2 = 1e-2, 1.8, 1e-2
+MMS_CASES = {"delaunay": (1.0, (), (1 / 8, 1 / 16), 4000, (np.pi, np.pi)),
+             "hybrid": (2.0, ((1.0, 0.5, 0.25),), (0.1, 0.05), 8000,
+                        (np.pi / 2, np.pi))}
+# (e1, e2): the JAX test's doc, JAX from rest
+JAX_MMS = {"delaunay": ((1.75e-4, 3.90e-5),
+                        (1.7336585733573884e-4, 3.903258402715437e-05)),
+           "hybrid": ((1.40e-4, 3.57e-5),
+                      (1.404473150614649e-4, 3.572701461962424e-05))}
+# The example-3 bar at 41 nodes, 2000 L-BFGS steps, fixed and r-adapted:
+# the adapted energy lower, its L2 error < BAR_RATIO x the fixed one's,
+# its grid moved by > BAR_MOVED.  (fixed, adapted) L2 errors: the JAX
+# test's doc, JAX from rest.  The adapted run is also made on the plain
+# history passes (a P of 79 on the card's kernels otherwise): the first
+# BAR_PATHS_STEPS losses within BAR_PATHS_RTOL of the kernels' (JAX and
+# the port in f32 on the CPU lie 5e-6 apart at step 50; later, f32
+# rounding may take a run off the -0.0307 plateau to a lower one, so each
+# run is held to the bounds alone).
+BAR_NODES, BAR_STEPS, BAR_RATIO, BAR_MOVED = 41, 2000, 0.85, 0.05
+JAX_BAR = ((3.27e-4, 2.49e-4),
+           (0.00032653913283580354, 0.0002490607759711886))
+BAR_PATHS_STEPS, BAR_PATHS_RTOL = 50, 1e-4
+# The 21x11 proxy plate, 200 L-BFGS steps from rest on the lattice route:
+# the "zigzag" and "up" plateaus within DIAGONAL_RTOL of each other; each
+# within PLATEAU_RTOL of JAX's from rest and of its no-grad energy at the
+# solution (K7).
+DIAGONAL_RTOL, PLATEAU_RTOL = 5e-3, 1e-4
+JAX_PLATEAUS = {"zigzag": -0.9930872321128845, "up": -0.99286288022995}
+# the card's peak ratio and errors against JAX's from rest (the slow CPU
+# mirrors' limit)
+MIRROR_RTOL = 1e-2
+
+
+def kirsch_check(ht, backend, dev, card):
+    """One Kirsch/Howland case (phase 24); returns peak / sigma_max."""
+    from hidenn_fem_tpu_torch.postproc import von_mises_per_element
+
+    E, nu, f_total = 10e9, 0.3, 100e3
+    cx, cy, a = KIRSCH_HOLE
+    t0 = time.perf_counter()
+    mesh = getattr(ht, f"generate_mesh_{backend}")(
+        holes=(KIRSCH_HOLE,), lc=KIRSCH_LC, device=dev)
+    if backend == "delaunay" and mesh.banded is not None:
+        raise AssertionError("the Kirsch Delaunay plate has banded tables")
+    model = ht.TriangleP1()
+    energy = ht.PlaneStressEnergy(model=model, E=E, nu=nu, F_total=f_total)
+    coords0 = mesh.coords
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    sol, hist = ht.aux_pcg_solve(loss, {"u": torch.zeros((mesh.n_nodes, 2), device=dev)},
+                                 (coords0, mesh), mesh=mesh, max_iters=100,
+                                 tol=1e-6)
+    params = {"u": sol["u"], "coords": coords0}
+    with torch.no_grad():
+        vm = von_mises_per_element(model, params, mesh, E, nu)
+        coords = model.coords(params, mesh)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    h = hist.cpu().numpy()
+    vm = vm.double().cpu().numpy()
+    cent = coords.double().cpu().numpy()[
+        mesh.connectivity.long().cpu().numpy()].mean(1)
+    d_w = 2 * a / 1.0
+    sigma_max = (2 + (1 - d_w) ** 3) / (1 - d_w) * (f_total / 1.0)
+    i = int(np.argmax(vm))
+    ratio = float(vm[i] / sigma_max)
+    dist = float(min(np.hypot(cent[i, 0] - cx, cent[i, 1] - (cy + a)),
+                     np.hypot(cent[i, 0] - cx, cent[i, 1] - (cy - a))))
+    last = float(h[h > 0][-1])
+    doc, rest = JAX_KIRSCH[backend]
+    log(f"  Kirsch/Howland on the {backend} plate (lc {KIRSCH_LC}, "
+        f"{mesh.connectivity.shape[0]} elements, {mesh.n_nodes} nodes): "
+        f"peak von Mises / sigma_max {ratio!r} (limits {KIRSCH_BAND}; JAX "
+        f"{doc} from its random start, {rest!r} from rest), at "
+        f"({cent[i, 0]:.5f}, {cent[i, 1]:.5f}), {dist / KIRSCH_LC:.4f} lc "
+        f"from the rim's top or bottom (limit 2); aux-PCG "
+        f"{int((h > 0).sum())} iterations, last relres {last!r} (limit "
+        f"1e-6); {sec:.3f} s with the mesh and the set-up [{card}]")
+    if not last < 1e-6:
+        raise AssertionError(f"Kirsch {backend}: aux-PCG stopped at relres "
+                             f"{last}")
+    if not KIRSCH_BAND[0] <= ratio <= KIRSCH_BAND[1]:
+        raise AssertionError(f"Kirsch {backend}: peak ratio {ratio}")
+    if not dist < 2 * KIRSCH_LC:
+        raise AssertionError(f"Kirsch {backend}: the peak lies off the "
+                             "rim's top and bottom")
+    if abs(ratio - rest) > MIRROR_RTOL * rest:
+        raise AssertionError(f"Kirsch {backend}: peak ratio off JAX's")
+    return ratio
+
+
+def mms_error(ht, kind, lc, dev):
+    """The manufactured-solution solve from rest on the ``kind`` mesh at
+    ``lc``; (area-weighted centroid L2 error, CG iterations, seconds)."""
+    length, holes, _, cap, (ax, by) = MMS_CASES[kind]
+    E, nu, A = 10.0, 0.3, MMS_A
+    c11 = E / (1 - nu ** 2)
+    c12, c33 = nu * c11, 0.5 * (1 - nu) * c11
+
+    def u_exact(x):
+        ux = A * torch.sin(ax * x[:, 0]) * torch.sin(by * x[:, 1])
+        return torch.stack([ux, 0.0 * ux], 1)
+
+    def body_force(x):
+        s = torch.sin(ax * x[:, 0]) * torch.sin(by * x[:, 1])
+        c = torch.cos(ax * x[:, 0]) * torch.cos(by * x[:, 1])
+        return torch.stack([A * (c11 * ax ** 2 + c33 * by ** 2) * s,
+                            -A * ax * by * (c33 + c12) * c], 1)
+
+    t0 = time.perf_counter()
+    mesh = getattr(ht, f"generate_mesh_{kind}")(
+        length=length, height=1.0, holes=holes, lc=lc, device=dev,
+        boundaries={"left": 1, "right": 1, "up": 1, "down": 1})
+    model = ht.TriangleP1()
+    energy = ht.PlaneStressEnergy(model=model, E=E, nu=nu,
+                                  body_force=body_force, backend="plain")
+    coords0 = mesh.coords
+
+    def loss(p, coords, m):
+        return energy({"u": p["u"], "coords": coords}, m)
+    if holes:
+        # the rim traction as device tensors built once: the captured CG
+        # body reads nothing from the host
+        (cx, cy, r), = holes
+        n_lat = mesh.hybrid.lattice.nx * mesh.hybrid.lattice.ny
+        pts = mesh.coords[n_lat:].cpu().numpy()
+        ids = n_lat + np.argsort(np.arctan2(pts[:, 1] - cy, pts[:, 0] - cx))
+        edges = torch.tensor(np.stack([ids, np.roll(ids, -1)], 1),
+                             device=dev)
+        center = torch.tensor([cx, cy], device=dev)
+        domain = loss
+
+        def loss(p, coords, m):
+            u_full = model.u_full({"u": p["u"], "coords": coords}, m)
+            c1, c2 = coords[edges[:, 0]], coords[edges[:, 1]]
+            xm = 0.5 * (c1 + c2)
+            um = 0.5 * (u_full[edges[:, 0]] + u_full[edges[:, 1]])
+            dl = torch.sqrt(torch.sum((c2 - c1) ** 2, 1))
+            nvec = -(xm - center) / r
+            exx = A * ax * torch.cos(ax * xm[:, 0]) * torch.sin(by * xm[:, 1])
+            gxy = A * by * torch.sin(ax * xm[:, 0]) * torch.cos(by * xm[:, 1])
+            sxx, syy, sxy = c11 * exx, c12 * exx, c33 * gxy
+            tx = sxx * nvec[:, 0] + sxy * nvec[:, 1]
+            ty = sxy * nvec[:, 0] + syy * nvec[:, 1]
+            return domain(p, coords, m) - torch.sum(
+                dl * (tx * um[:, 0] + ty * um[:, 1]))
+    sol, hist = ht.cg_solve(loss, {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}, (coords0, mesh),
+                            max_iters=cap, tol=1e-8)
+    params = {"u": sol["u"], "coords": coords0}
+    with torch.no_grad():
+        conn = mesh.connectivity.long()
+        cent = model.coords(params, mesh)[conn].mean(1)
+        uh = model.u_full(params, mesh)[conn].mean(1)
+        det, _ = model.element_fields(params, mesh)
+        err = float(torch.sqrt(torch.sum(
+            0.5 * torch.abs(det) * torch.sum((uh - u_exact(cent)) ** 2, 1))))
+    sec = time.perf_counter() - t0
+    h = hist.cpu().numpy()
+    if not np.all(np.isfinite(h)):
+        raise AssertionError(f"{kind} manufactured solution: non-finite "
+                             "residual")
+    return err, int((h > 0).sum()), sec, mesh.n_nodes
+
+
+def mms_check(ht, kind, dev, card):
+    """One manufactured-solution order check (phase 24)."""
+    lcs, cap = MMS_CASES[kind][2], MMS_CASES[kind][3]
+    runs = [mms_error(ht, kind, lc, dev) for lc in lcs]
+    (e1, it1, s1, n1), (e2, it2, s2, n2) = runs
+    order = float(np.log2(e1 / e2))
+    doc, rest = JAX_MMS[kind]
+    log(f"  manufactured solution on the {kind} meshes, lc {lcs[0]:.4g} -> "
+        f"{lcs[1]:.4g} ({n1} -> {n2} nodes): L2 error {e1!r} -> {e2!r}, "
+        f"order {order:.4f} (limit > {MMS_ORDER}), e2 / A {e2 / MMS_A:.4e} "
+        f"(limit {MMS_E2}); JAX {doc[0]} -> {doc[1]} from its random start, "
+        f"{rest[0]!r} -> {rest[1]!r} from rest; CG {it1} and {it2} "
+        f"iterations (cap {cap}), {s1:.3f} and {s2:.3f} s [{card}]")
+    if not (order > MMS_ORDER and e2 < MMS_E2 * MMS_A):
+        raise AssertionError(f"{kind}: not second order")
+    for got, want in zip((e1, e2), rest):
+        if abs(got - want) > MIRROR_RTOL * want:
+            raise AssertionError(f"{kind}: L2 error off JAX's")
+    return order
+
+
+@contextlib.contextmanager
+def plain_history():
+    """The compact L-BFGS on the plain history passes (a comparison, not a
+    path of the port)."""
+    from hidenn_fem_tpu_torch.ops import lbfgs_history as lh
+    from hidenn_fem_tpu_torch.solve import optimizers
+
+    saved = optimizers.history_dots, optimizers.history_combine
+    optimizers.history_dots = lh.history_dots_plain
+    optimizers.history_combine = lh.history_combine_plain
+    try:
+        yield
+    finally:
+        optimizers.history_dots, optimizers.history_combine = saved
+
+
+def bar_solve(ht, r_adapt, dev):
+    """The example-3 bar at BAR_NODES nodes, BAR_STEPS L-BFGS steps;
+    (loss history, L2 error against u_true, grid moved, seconds)."""
+    from examples.example3_torch import b_force, u_true
+
+    t0 = time.perf_counter()
+    model, params = ht.Linear1D.from_node_coords(
+        np.linspace(0, 10, BAR_NODES), r_adapt=r_adapt, u0=0.0, uN=0.0,
+        device=dev)
+    params, hist = ht.run_lbfgs(
+        lambda p: ht.bar_energy_1d(model, p, 4, b_force, 175.0), params,
+        num_steps=BAR_STEPS)
+    xs = np.linspace(0, 10, 4001)
+    with torch.no_grad():
+        u = model.apply(params, torch.tensor(xs, dtype=torch.float32,
+                                             device=dev))
+        grid = model.grid(params)
+    u = u.double().cpu().numpy()
+    sec = time.perf_counter() - t0
+    err = float(np.sqrt(np.trapezoid((u - u_true(xs, 175.0)) ** 2, xs)))
+    moved = float(np.abs(grid.double().cpu().numpy()
+                         - np.linspace(0, 10, BAR_NODES)).max())
+    hist = hist.double().cpu().numpy()
+    if not np.all(np.isfinite(hist)):
+        raise AssertionError("the bar's loss history is not finite")
+    return hist, err, moved, sec
+
+
+def bar_check(ht, counts, dev, card):
+    """The r-adapted bar against the fixed one (phase 24), then the
+    adapted run on the plain history passes; returns the kernels' path
+    launches."""
+    (h_fix, e_fix, _, s_fix), launches = run_path(
+        counts, "bar fixed", ("lbfgs_history_dots", "lbfgs_history_combine"),
+        lambda: bar_solve(ht, False, dev))
+    (h_ad, e_ad, moved, s_ad), ad_launches = run_path(
+        counts, "bar r-adapted",
+        ("lbfgs_history_dots", "lbfgs_history_combine"),
+        lambda: bar_solve(ht, True, dev))
+    doc, rest = JAX_BAR
+    log(f"  bar, {BAR_NODES} nodes, {BAR_STEPS} steps: energy fixed "
+        f"{float(h_fix[-1])!r}, r-adapted {float(h_ad[-1])!r}; L2 error fixed {e_fix!r}, "
+        f"r-adapted {e_ad!r}, ratio {e_ad / e_fix:.4f} (limit {BAR_RATIO}; "
+        f"JAX {doc[1] / doc[0]:.2f} from its doc, {rest[1] / rest[0]:.4f} "
+        f"from the same init: {rest[0]!r}, {rest[1]!r}); grid moved "
+        f"{moved:.4f} (limit > {BAR_MOVED}); {s_fix:.3f} and {s_ad:.3f} s "
+        f"[{card}]")
+    if not (h_ad[-1] < h_fix[-1] and e_ad < BAR_RATIO * e_fix
+            and moved > BAR_MOVED):
+        raise AssertionError("the r-adapted bar does not beat the fixed one")
+    if abs(e_fix - rest[0]) > MIRROR_RTOL * rest[0]:
+        raise AssertionError("the fixed bar's error is off JAX's")
+    with plain_history():
+        (h_pl, e_pl, moved_pl, s_pl), pl_launches = run_path(
+            counts, "bar r-adapted, plain history passes", (),
+            lambda: bar_solve(ht, True, dev))
+    if any(pl_launches.values()):
+        raise AssertionError("the plain history passes launched a kernel")
+    n = BAR_PATHS_STEPS
+    step_rel = np.abs(h_pl[:n] - h_ad[:n]) / np.abs(h_ad[:n]).clip(min=1e-30)
+    rel = float(step_rel.max())
+    log(f"  bar r-adapted on the plain history passes: energy "
+        f"{float(h_pl[-1])!r}, L2 error {e_pl!r}, ratio {e_pl / e_fix:.4f}, "
+        f"grid moved {moved_pl:.4f}; the first {n} losses within rel "
+        f"{rel:.3e} of the kernels' (limit {BAR_PATHS_RTOL}; at steps 1, 2, "
+        f"5, 10, 20, {n - 1}: "
+        f"{', '.join(f'{step_rel[k]:.2e}' for k in (1, 2, 5, 10, 20, n - 1))}"
+        f"); {s_pl:.3f} s [{card}]")
+    if rel > BAR_PATHS_RTOL:
+        raise AssertionError("the bar's history kernels depart from the "
+                             "plain passes")
+    if not (h_pl[-1] < h_fix[-1] and e_pl < BAR_RATIO * e_fix
+            and moved_pl > BAR_MOVED):
+        raise AssertionError("the bar on the plain history passes misses "
+                             "a bound")
+    return sum_launches((launches, ad_launches))
+
+
+def diagonal_check(ht, counts, dev, card):
+    """The 21x11 plate's plateaus on the two diagonals (phase 24);
+    returns the path launches."""
+    plateaus, paths = {}, []
+    for variant in ("zigzag", "up"):
+        def solve():
+            t0 = time.perf_counter()
+            mesh = ht.proxy_plate_mesh(nx=21, ny=11, variant=variant,
+                                       device=dev)
+            if mesh.lattice is None:
+                raise AssertionError(f"{variant}: no lattice route")
+            energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
+            coords0 = mesh.coords
+
+            def loss(p):
+                return energy({"u": p["u"], "coords": coords0}, mesh)
+            sol, losses = ht.run_lbfgs(loss, {"u": torch.zeros((mesh.n_nodes, 2), device=dev)},
+                                       num_steps=200)
+            with torch.no_grad():
+                at_solution = float(loss(sol))
+            return (losses.double().cpu().numpy(), at_solution,
+                    time.perf_counter() - t0)
+        (losses, at_solution, sec), launches = run_path(
+            counts, f"21x11 {variant}",
+            ("lattice_stencil_vg", "lattice_stencil_fwd",
+             "lbfgs_history_dots", "lbfgs_history_combine"), solve)
+        paths.append(launches)
+        plateau = float(losses[-1])
+        want = JAX_PLATEAUS[variant]
+        log(f"  21x11 {variant}: plateau {plateau!r} (JAX from rest "
+            f"{want!r}, rel {abs(plateau - want) / abs(want):.3e}, limit "
+            f"{PLATEAU_RTOL}); no-grad energy at the solution "
+            f"{at_solution!r}; 200 steps in {sec:.3f} s [{card}]")
+        if not np.all(np.isfinite(losses)) or \
+                abs(plateau - want) > PLATEAU_RTOL * abs(want) or \
+                abs(at_solution - plateau) > PLATEAU_RTOL * abs(plateau):
+            raise AssertionError(f"21x11 {variant}: plateau off")
+        plateaus[variant] = plateau
+    rel = abs(plateaus["zigzag"] - plateaus["up"]) / abs(plateaus["up"])
+    log(f"  diagonal independence: zigzag against up rel {rel:.3e} (limit "
+        f"{DIAGONAL_RTOL}; JAX from rest "
+        f"{abs(JAX_PLATEAUS['zigzag'] - JAX_PLATEAUS['up']) / abs(JAX_PLATEAUS['up']):.3e})")
+    if rel > DIAGONAL_RTOL:
+        raise AssertionError("the plateau depends on the diagonal")
+    return sum_launches(paths)
+
+
+def phase_validation(ht, counts, dev, card):
+    """Phase 24: the five analytic checks; returns each kernel path's
+    launches by check."""
+    launches = {}
+    for backend, needs in (
+            ("hybrid", ("lattice_stencil_vg",)),
+            ("delaunay", ("element_energy_fwd", "element_energy_bwd",
+                          "incidence_sum", "lattice_stencil_vg"))):
+        t0 = time.perf_counter()
+        _, launches[f"Kirsch {backend}"] = run_path(
+            counts, f"Kirsch {backend}", needs,
+            lambda: kirsch_check(ht, backend, dev, card))
+        log(f"  Kirsch {backend}: {time.perf_counter() - t0:.3f} s")
+    for kind in ("delaunay", "hybrid"):
+        t0 = time.perf_counter()
+        _, mms_launches = run_path(counts, f"{kind} manufactured solution",
+                                   (), lambda: mms_check(ht, kind, dev, card))
+        if any(mms_launches.values()):
+            raise AssertionError(f"the {kind} manufactured solution on the "
+                                 "plain route launched a kernel")
+        log(f"  {kind} order: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    launches["bar"] = bar_check(ht, counts, dev, card)
+    log(f"  bar: {time.perf_counter() - t0:.3f} s, launches "
+        f"{launches['bar']}")
+    t0 = time.perf_counter()
+    launches["diagonals"] = diagonal_check(ht, counts, dev, card)
+    log(f"  diagonals: {time.perf_counter() - t0:.3f} s, launches "
+        f"{launches['diagonals']}")
+    return launches
+
+
 def main():
     import os
 
@@ -3963,7 +4388,7 @@ def main():
     def phase(title):
         log(f"{title} (t = {time.perf_counter() - t_start:.1f} s)")
 
-    phase("[1/23] environment")
+    phase("[1/24] environment")
     card = card_line()
     dev = torch.device("cuda", 0)
     log(f"  card: {card}; torch {torch.__version__}, CUDA "
@@ -3973,7 +4398,7 @@ def main():
         raise AssertionError("TF32 must be off")
     log("  TF32 off for matmul and cuDNN")
 
-    phase("[2/23] build")
+    phase("[2/24] build")
     build = cuda_build.build_kernels()
     for stem, path in build["libraries"].items():
         log(f"  {stem}: {path}")
@@ -3983,7 +4408,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    phase("[3/23] kernel vs plain at full size")
+    phase("[3/24] kernel vs plain at full size")
     mesh922 = plate_922k(ht, dev)
     kernels = phase_gather(ht, ee, mesh922, dev, card)
     stencil = phase_lattice(ht, ls, mesh922, dev, card)
@@ -4002,7 +4427,7 @@ def main():
         ("922K-class plate", HISTORY_M, 4 * mesh922.n_nodes),
         ("example 6", *EX6_HISTORY)), dev, card)
 
-    phase("[4/23] example 4 on its default route (lattice), 600 steps")
+    phase("[4/24] example 4 on its default route (lattice), 600 steps")
     ex4_final, lattice_launches = run_path(
         counts, "example-4 lattice-route",
         ("lattice_stencil_vg", "lattice_stencil_fwd") + history,
@@ -4010,7 +4435,7 @@ def main():
                                JAX_EX4_LATTICE_FINAL_ENERGY,
                                "lattice route"))
 
-    phase("[5/23] example 4 on the gather route (lattice stripped), 600 steps")
+    phase("[5/24] example 4 on the gather route (lattice stripped), 600 steps")
     _, gather_launches = run_path(
         counts, "example-4 gather-route",
         ("element_energy_fwd", "element_energy_bwd", "incidence_sum")
@@ -4019,16 +4444,16 @@ def main():
                                dev, card, JAX_EX4_FINAL_ENERGY,
                                "gather route"))
 
-    phase("[6/23] example 6: 1000x500 structured plate, 600 steps")
+    phase("[6/24] example 6: 1000x500 structured plate, 600 steps")
     run_path(counts, "example-6", ("lattice_stencil_vg",
                                    "lattice_stencil_fwd") + history,
              lambda: phase_example6(dev, card))
 
-    phase("[7/23] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
+    phase("[7/24] scale: 922K-class plate, 50 L-BFGS steps, lattice route")
     run_path(counts, "922K-class", ("lattice_stencil_vg",) + history,
              lambda: phase_scale(ht, mesh922, dev, card))
 
-    phase("[8/23] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
+    phase("[8/24] 898K Delaunay plate: 50 L-BFGS steps on the banded route")
     (main_losses, delaunay_params), delaunay_launches = run_path(
         counts, "898K Delaunay banded-route",
         ("banded_vg", "banded_fwd") + history,
@@ -4042,18 +4467,18 @@ def main():
             lambda: phase_banded_fallback(ht, mesh898, dev, card,
                                           main_losses, name, keep))
 
-    phase("[9/23] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
+    phase("[9/24] hybrid lattice+collar plate at scale, 10 L-BFGS steps")
     solve, hybrid = phase_hybrid(ht, ee, dev, card)
     _, hybrid_launches = run_path(counts, "847K hybrid-route", history,
                                   solve)
     if any(energy_launches(hybrid_launches).values()):
         raise AssertionError("the hybrid route launched an energy kernel")
 
-    phase("[10/23] the sharded paths as groups of ranks on the one card")
+    phase("[10/24] the sharded paths as groups of ranks on the one card")
     sharded = phase_sharded(ht, sharded_inputs(ht, mesh922, tri898, mesh4,
                                                hybrid, dev), card)
 
-    phase("[11/23] the CG family: example 8, the 898K plate, minimize")
+    phase("[11/24] the CG family: example 8, the 898K plate, minimize")
     run_path(counts, "example-8 CG", ("lattice_stencil_vg",
                                       "lattice_stencil_fwd"),
              lambda: phase_example8(dev, card))
@@ -4062,22 +4487,22 @@ def main():
              ("lattice_stencil_vg", "lattice_stencil_fwd"),
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
-    phase("[12/23] multigrid: example 9 at 961x481")
+    phase("[12/24] multigrid: example 9 at 961x481")
     phase_multigrid(ht, ls, dev, card, counts)
 
-    phase("[13/23] node-space L-BFGS on example 4, 600 steps")
+    phase("[13/24] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
                                               "lattice_stencil_fwd"),
              lambda: phase_node_space(ht, mesh4, dev, card, ex4_final))
 
-    phase("[14/23] auxiliary-space PCG: examples 10-12, the 898K and 847K "
+    phase("[14/24] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
     phase_aux_898k(ht, counts, mesh898, dev, card)
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
-    phase("[15/23] example 5: the 1000x500 plate, slope-timed "
+    phase("[15/24] example 5: the 1000x500 plate, slope-timed "
         "value-and-grad and 2 x 200 L-BFGS steps")
     _, ex5_launches = run_path(counts, "example-5", history,
                                lambda: phase_example5(dev, card))
@@ -4085,18 +4510,18 @@ def main():
         raise AssertionError("example 5's plain lattice route launched an "
                              "energy kernel")
 
-    phase("[16/23] the zoom line search and the two-loop L-BFGS on "
+    phase("[16/24] the zoom line search and the two-loop L-BFGS on "
         "example 4")
     variants = phase_lbfgs_variants(ht, mesh4, dev, card, counts)
 
-    phase("[17/23] utils: a checkpointed and resumed solve, check_gradients")
+    phase("[17/24] utils: a checkpointed and resumed solve, check_gradients")
     utils_launches = phase_utils(ht, mesh4, dev, card, counts)
 
-    phase("[18/23] examples 1-3 at their own sizes")
+    phase("[18/24] examples 1-3 at their own sizes")
     run_path(counts, "examples 1-3", (),
              lambda: phase_examples_1d(ht, dev, card))
 
-    phase("[19/23] point evaluation: 10^6 points on the 898K plate's "
+    phase("[19/24] point evaluation: 10^6 points on the 898K plate's "
         "solution")
     run_path(counts, "point evaluation", (),
              lambda: phase_point_eval(ht, mesh898, delaunay_params, dev,
@@ -4104,12 +4529,12 @@ def main():
     arrays898 = [t.cpu().numpy() for t in mesh898.astuple()]
     del delaunay_params
 
-    phase("[20/23] the native mesh loader: the 898K plate's host tables "
+    phase("[20/24] the native mesh loader: the 898K plate's host tables "
         "both ways")
     run_path(counts, "native loader", (),
              lambda: phase_native(ht, arrays898, dev, card))
 
-    phase("[21/23] the captured step against the eager loop")
+    phase("[21/24] the captured step against the eager loop")
     capture_routes = capture_cases(ht, mesh4, mesh898, dev)
     captured = {}
     for route, (loss, params, args, steps, m, needs) in \
@@ -4121,13 +4546,13 @@ def main():
     del capture_routes
     two_loop_copies(mesh922, dev, card)
 
-    phase("[22/23] figure parity: the 81x41 proxy plate against the "
+    phase("[22/24] figure parity: the 81x41 proxy plate against the "
         "reference run, 600 captured steps")
     # the reference numerics take the plain route: no energy kernel
     run_path(counts, "figure parity", (),
              lambda: phase_figure_parity(ht, dev, card))
 
-    phase("[23/23] the linear solvers' captured while loops against the "
+    phase("[23/24] the linear solvers' captured while loops against the "
         "eager loop")
     for name, (solve, max_iters, check, needs, caps) in solver_cases(
             ht, counts, mesh898, dev, card).items():
@@ -4135,17 +4560,30 @@ def main():
                           caps, card)
     del mesh898
 
+    phase("[24/24] analytic validation: Kirsch/Howland, O(h^2) on Delaunay "
+          "and hybrid meshes, the r-adapted bar, diagonal independence")
+    validation = phase_validation(ht, counts, dev, card)
+
     # each entry's launches: (the path's counts, the wrapper's counter);
     # K6 and its row variant also count slice 9's paths
     k6_paths = (lattice_launches, variants["zoom"], variants["two-loop"],
-                variants["compact"], utils_launches, sharded["sharded MG"])
+                variants["compact"], utils_launches, sharded["sharded MG"],
+                validation["Kirsch hybrid"], validation["Kirsch delaunay"],
+                validation["diagonals"])
+    # phase 24's paths count too: the Kirsch solves for K6 (the Delaunay one
+    # for the gather kernels), the 21x11 plates for K6, K7 and the history
+    # kernels, the bar for the history kernels
+    gather_paths = sum_launches((gather_launches,
+                                 validation["Kirsch delaunay"]))
     path_launches = {
         "lattice_stencil_vg": (sum_launches(k6_paths),
                                "lattice_stencil_vg"),
-        "lattice_stencil_fwd": (lattice_launches, "lattice_stencil_fwd"),
-        "element_energy_fwd": (gather_launches, "element_energy_fwd"),
-        "element_energy_bwd": (gather_launches, "element_energy_bwd"),
-        "incidence_sum": (gather_launches, "incidence_sum"),
+        "lattice_stencil_fwd": (sum_launches((lattice_launches,
+                                              validation["diagonals"])),
+                                "lattice_stencil_fwd"),
+        "element_energy_fwd": (gather_paths, "element_energy_fwd"),
+        "element_energy_bwd": (gather_paths, "element_energy_bwd"),
+        "incidence_sum": (gather_paths, "incidence_sum"),
         "banded_fwd": (delaunay_launches, "banded_fwd"),
         "banded_vg": (delaunay_launches, "banded_vg"),
         "banded_bwd": (fallback_launches[True], "banded_bwd"),
@@ -4160,10 +4598,11 @@ def main():
                             "banded_bwd_rows"),
     }
     # the history kernels: every compact L-BFGS update of example 4's
-    # lattice route and of the 898K plate's banded route
+    # lattice route, of the 898K plate's banded route and of phase 24
     for name in history:
-        path_launches[name] = (sum_launches((lattice_launches,
-                                             delaunay_launches)), name)
+        path_launches[name] = (sum_launches((
+            lattice_launches, delaunay_launches, validation["bar"],
+            validation["diagonals"])), name)
     for k in kernels:
         if k["launches"] is None:
             launches, counter = path_launches[k["name"]]
