@@ -46,6 +46,7 @@ import torch
 
 from ..models.structured_grid import StructuredGrid, StructuredGridP1
 from ..ops.assembly import weighted_incidence_gather_sum
+from ..utils.profiling import annotate
 from . import multigrid as mg
 from .linear import _grad, _pcg, _tree_axpy, jacobi_diagonal
 
@@ -595,23 +596,24 @@ def aux_pcg_solve(loss_fn, params, loss_args: tuple = (), mesh=None,
     (``build_aux_preconditioner``) to amortize the set-up across solves.
     Returns (solution params, per-iteration relative residual norms
     [max_iters], zero for iterations never run)."""
-    if pre is None:
-        pre = build_aux_preconditioner(
-            loss_fn, params, tuple(loss_args), mesh, bg_model=bg_model,
-            bg_shape=bg_shape, u_key=u_key)
-    # the V-cycle must run the model the hierarchy was built with (its
-    # dinv and lmax): a mismatch would silently degrade convergence
-    if pre.bg_model is not None:
-        if bg_model is not None and bg_model != pre.bg_model:
-            raise ValueError(
-                "bg_model does not match the model the preconditioner "
-                "was built with; rebuild with build_aux_preconditioner"
-                f" (got {bg_model!r}, built with {pre.bg_model!r})")
-        bg_model = pre.bg_model
-    elif bg_model is None:
-        bg_model = StructuredGridP1(E=10e9, nu=0.3)
-    return _aux_pcg(loss_fn, bg_model, int(max_iters), float(tol), u_key,
-                    params, tuple(loss_args), pre)
+    with annotate("hidenn.aux_pcg_solve"):
+        if pre is None:
+            pre = build_aux_preconditioner(
+                loss_fn, params, tuple(loss_args), mesh, bg_model=bg_model,
+                bg_shape=bg_shape, u_key=u_key)
+        # the V-cycle must run the model the hierarchy was built with (its
+        # dinv and lmax): a mismatch would silently degrade convergence
+        if pre.bg_model is not None:
+            if bg_model is not None and bg_model != pre.bg_model:
+                raise ValueError(
+                    "bg_model does not match the model the preconditioner "
+                    "was built with; rebuild with build_aux_preconditioner"
+                    f" (got {bg_model!r}, built with {pre.bg_model!r})")
+            bg_model = pre.bg_model
+        elif bg_model is None:
+            bg_model = StructuredGridP1(E=10e9, nu=0.3)
+        return _aux_pcg(loss_fn, bg_model, int(max_iters), float(tol),
+                        u_key, params, tuple(loss_args), pre)
 
 
 def radapt_aux_solve(loss_fn, params, mesh, loss_args: tuple = (),

@@ -48,6 +48,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from . import loop as _loop
 from . import optimizers as _opt
 from .optimizers import lbfgs, ravel_params, unravel_params
@@ -164,7 +165,7 @@ class _Stepper:
             if state is not None:           # an eager step
                 self.state = state
             done += 1
-            if self.tol is not None and bool(self.stop):    # one read
+            if self.tol is not None and _loop.read_flag(self.stop):
                 break
         replays = self.loop.settle()
         if replays:
@@ -232,24 +233,29 @@ def _solve(loss_fn, params, optimizer, num_steps, loss_args=(), tol=None,
            capture=None):
     """``run_optimizer``; ``capture=False`` runs the same steps eagerly on
     the card (how ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold
-    a captured solve to the loop)."""
-    vg = _value_and_grad(loss_fn, params, tuple(loss_args))
-    if isinstance(optimizer, _opt.ZoomLBFGS):
-        x = ravel_params(params).detach()
-        state = optimizer.init(x, like=params)
-        x, _, losses = _linesearch_steps(vg, optimizer, x, state,
-                                         num_steps, tol)
-        history = torch.stack(losses)
-        if history.shape[0] < num_steps:
-            history = torch.cat([history, history[-1:].expand(
-                num_steps - history.shape[0])])
-        return _params_out(x, params), history
-    leaf = _leaf(params)
-    stepper = _Stepper(vg, optimizer, leaf,
-                       optimizer.init(leaf.detach(), like=params),
-                       n_hist=num_steps, tol=tol, capture=capture)
-    done = stepper.run(num_steps)
-    return _params_out(leaf.detach(), params), stepper.history(done)
+    a captured solve to the loop).  Spans (``utils/profiling.annotate``):
+    the solve is one ``hidenn.run_optimizer``, and the static leaf and
+    the optimizer's state (the L-BFGS history's allocation) one
+    ``hidenn.optimizer.init`` in it."""
+    with annotate("hidenn.run_optimizer"):
+        vg = _value_and_grad(loss_fn, params, tuple(loss_args))
+        if isinstance(optimizer, _opt.ZoomLBFGS):
+            x = ravel_params(params).detach()
+            state = optimizer.init(x, like=params)
+            x, _, losses = _linesearch_steps(vg, optimizer, x, state,
+                                             num_steps, tol)
+            history = torch.stack(losses)
+            if history.shape[0] < num_steps:
+                history = torch.cat([history, history[-1:].expand(
+                    num_steps - history.shape[0])])
+            return _params_out(x, params), history
+        with annotate("hidenn.optimizer.init"):
+            leaf = _leaf(params)
+            state = optimizer.init(leaf.detach(), like=params)
+        stepper = _Stepper(vg, optimizer, leaf, state, n_hist=num_steps,
+                           tol=tol, capture=capture)
+        done = stepper.run(num_steps)
+        return _params_out(leaf.detach(), params), stepper.history(done)
 
 
 def run_lbfgs(loss_fn: Callable, params, num_steps: int = 600,

@@ -43,6 +43,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from . import loop as _loop
 
 __all__ = ["cg_solve", "radapt_cg_solve", "jacobi_diagonal",
@@ -80,23 +81,27 @@ def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
     ``r`` (a dict of tensors; ``matvec``, ``precond`` map such dicts and
     ``dot`` two of them to a 0-dim tensor), one masked body run by
     ``loop.while_loop`` (module doc).  Returns (x, relres history
-    [max_iters])."""
-    z = precond(r)
-    # carried in place: p must not share storage with r (precond may be
-    # the identity)
-    p = {k: v.clone() for k, v in z.items()}
-    x = {k: torch.zeros_like(v) for k, v in r.items()}
-    rs0 = dot(r, r)
-    rz = dot(r, z)
-    rs = rs0.clone()
-    # hist[max_iters] takes the masked iterations' writes
-    hist = torch.zeros((max_iters + 1,), dtype=rs0.dtype, device=rs0.device)
-    thresh = (tol * tol) * rs0
-    i = torch.zeros((), dtype=torch.int64, device=rs0.device)
+    [max_iters]).  What comes before the loop (the first preconditioner
+    application, the dots, the carried tensors) is a ``hidenn.pcg.start``
+    span."""
+    with annotate("hidenn.pcg.start"):
+        z = precond(r)
+        # carried in place: p must not share storage with r (precond may
+        # be the identity)
+        p = {k: v.clone() for k, v in z.items()}
+        x = {k: torch.zeros_like(v) for k, v in r.items()}
+        rs0 = dot(r, r)
+        rz = dot(r, z)
+        rs = rs0.clone()
+        # hist[max_iters] takes the masked iterations' writes
+        hist = torch.zeros((max_iters + 1,), dtype=rs0.dtype,
+                           device=rs0.device)
+        thresh = (tol * tol) * rs0
+        i = torch.zeros((), dtype=torch.int64, device=rs0.device)
 
-    def cond():
-        return (i < max_iters) & (rs > thresh) & (rs > atol * atol)
-    active = cond()
+        def cond():
+            return (i < max_iters) & (rs > thresh) & (rs > atol * atol)
+        active = cond()
 
     def body():
         Ap = matvec(p)
@@ -191,14 +196,16 @@ def jacobi_pcg_solve(loss_fn: Callable, params, loss_args: tuple = (),
     ``node_colors``.  Plain CG is already well-scaled on uniform meshes;
     Jacobi pays off when element sizes vary (r-adapted or graded meshes)
     or materials are heterogeneous."""
-    if node_colors is None:
-        from ..mesh.coloring import color_nodes
-        node_colors = color_nodes(mesh.connectivity, mesh.n_nodes)
-    diag = jacobi_diagonal(loss_fn, params, loss_args, node_colors)
-    dinv = {k: torch.where(d > _TINY, 1.0 / torch.clamp_min(d, _TINY),
-                           torch.zeros_like(d)) for k, d in diag.items()}
-    return _cg(loss_fn, int(max_iters), float(tol), params,
-               tuple(loss_args), dinv=dinv, atol=float(atol))
+    with annotate("hidenn.jacobi_pcg_solve"):
+        if node_colors is None:
+            from ..mesh.coloring import color_nodes
+            node_colors = color_nodes(mesh.connectivity, mesh.n_nodes)
+        diag = jacobi_diagonal(loss_fn, params, loss_args, node_colors)
+        dinv = {k: torch.where(d > _TINY, 1.0 / torch.clamp_min(d, _TINY),
+                               torch.zeros_like(d))
+                for k, d in diag.items()}
+        return _cg(loss_fn, int(max_iters), float(tol), params,
+                   tuple(loss_args), dinv=dinv, atol=float(atol))
 
 
 def cg_solve(loss_fn: Callable, params, loss_args: tuple = (),
@@ -226,8 +233,9 @@ def cg_solve(loss_fn: Callable, params, loss_args: tuple = (),
       (solution dict, per-iteration relative residual norms [max_iters],
       zero for iterations never run).
     """
-    return _cg(loss_fn, int(max_iters), float(tol), params,
-               tuple(loss_args), atol=float(atol))
+    with annotate("hidenn.cg_solve"):
+        return _cg(loss_fn, int(max_iters), float(tol), params,
+                   tuple(loss_args), atol=float(atol))
 
 
 def radapt_cg_solve(loss_fn: Callable, params, loss_args: tuple = (),

@@ -16,7 +16,18 @@ body's tens to hundreds of kernels.  The
 kernels' launch counters (and the collective counters of
 ``parallel.sharding``) count each replay: the launches recorded at
 capture, times the replays (``settle``).  ``captures`` counts the graphs
-recorded and the host seconds spent recording them.
+recorded, the host seconds spent recording them, and the graphs freed
+(their ``CUDAGraph`` destroyed, which gives their pool back): recorded
+minus freed is how many graphs the process still holds.
+
+Spans (``utils/profiling.annotate``, entered only while a profiler runs):
+``hidenn.loop.eager`` around an eager call (the warm-up included),
+``hidenn.loop.record`` around a recording (the graph's pool allocated in
+it), one ``hidenn.loop.replay`` from a ``Replayer``'s first replay to
+the next ``settle``, over every replay between, and
+``hidenn.loop.flag_read`` around each read of a stop flag
+(``read_flag``).  No span is recorded inside a captured body (it would
+run once, at recording) or around a single replay.
 
 ``while_loop`` is JAX's ``lax.while_loop`` for a body that masks itself:
 the body computes the loop condition on the device into a flag, and a
@@ -55,17 +66,32 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
+import weakref
 
 import torch
 
+from ..utils.profiling import Span, annotate
+
 __all__ = ["READ_EVERY", "MIN_CAPTURED", "Replayer", "while_loop",
-           "capturable", "captures"]
+           "read_flag", "capturable", "captures"]
 
 READ_EVERY = 4
 MIN_CAPTURED = 3
 
-# graphs recorded since the last reset, and the host seconds it took
-captures = {"graphs": 0, "seconds": 0.0}
+# graphs recorded since the last reset, the host seconds it took, and
+# the graphs among them since destroyed
+captures = {"graphs": 0, "seconds": 0.0, "freed": 0}
+
+
+def _freed() -> None:
+    captures["freed"] += 1
+
+
+def read_flag(flag: torch.Tensor) -> bool:
+    """The host's read of a device stop flag (a wait for the device), in
+    a ``hidenn.loop.flag_read`` span."""
+    with annotate("hidenn.loop.flag_read"):
+        return bool(flag)
 
 
 def _counters() -> tuple:
@@ -118,6 +144,7 @@ class Replayer:
         self.capture, self.eager = capture, eager
         self.calls = self.replays = 0
         self.graph = self.side = self.per_replay = None
+        self._replaying = Span("hidenn.loop.replay")
 
     def _warm_up(self):
         cur = torch.cuda.current_stream(self.device)
@@ -138,7 +165,8 @@ class Replayer:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(self.side):
+            with annotate("hidenn.loop.record"), \
+                    torch.cuda.stream(self.side):
                 graph.capture_begin()
                 try:
                     self.body()     # recorded, not run: the state stands
@@ -148,6 +176,7 @@ class Replayer:
             if collecting:
                 gc.enable()
         captures["graphs"] += 1
+        weakref.finalize(graph, _freed).atexit = False
         captures["seconds"] += time.perf_counter() - t0
         self.per_replay = [{k: c[k] - b[k] for k in c}
                            for c, b in zip(counters, before)]
@@ -162,16 +191,20 @@ class Replayer:
             self._capture()
         self.calls += 1
         if self.graph is not None:
+            if not self.replays:
+                self._replaying.open()
             self.graph.replay()
             self.replays += 1
             return None
-        if self.capture and self.calls == self.eager:
-            return self._warm_up()
-        return self.body()
+        with annotate("hidenn.loop.eager"):
+            if self.capture and self.calls == self.eager:
+                return self._warm_up()
+            return self.body()
 
     def settle(self) -> int:
-        """Move the counters by the replays since the last ``settle`` and
-        return how many there were."""
+        """Move the counters by the replays since the last ``settle``,
+        close their span, and return how many there were."""
+        self._replaying.close()
         n, self.replays = self.replays, 0
         if n:
             for c, d in zip(_counters(), self.per_replay):
@@ -189,7 +222,7 @@ def while_loop(body, active: torch.Tensor, max_iters: int,
     loop = Replayer(body, device,
                     capturable(device) and max_iters >= MIN_CAPTURED)
     done = 0
-    while done < max_iters and bool(active):
+    while done < max_iters and read_flag(active):
         n = min(READ_EVERY, max_iters - done)
         for _ in range(n):
             loop()

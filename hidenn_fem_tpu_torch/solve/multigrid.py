@@ -54,6 +54,7 @@ import torch
 from ..models.structured_grid import StructuredGrid
 from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
                                 structured_stencil)
+from ..utils.profiling import annotate
 from .linear import _pcg
 
 __all__ = ["coarsen_grid", "prolong", "build_hierarchy", "vcycle",
@@ -340,12 +341,13 @@ def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
             nu: int, coarse_degree: int):
     u0 = params["u"].detach()
     coords = levels[0].coords
-    u = u0.clone().requires_grad_(True)
-    (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid), u)
-
-    # loop invariants: every level's operator (level 0's is K of the full
-    # energy: the traction term is linear in u), built once
-    ops = _level_ops(model, levels)
+    with annotate("hidenn.mg.level_ops"):
+        u = u0.clone().requires_grad_(True)
+        (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid),
+                                    u)
+        # loop invariants: every level's operator (level 0's is K of the
+        # full energy: the traction term is linear in u), built once
+        ops = _level_ops(model, levels)
     x, hist = _pcg(lambda v: {"u": ops[0](v["u"])},
                    lambda r: {"u": _vcycle(ops, levels, r["u"], nu,
                                            coarse_degree)},
@@ -374,12 +376,13 @@ def mg_pcg_solve(model, grid: StructuredGrid, params,
     Returns (solved params, per-iteration relative residual norms
     [max_iters], zero for iterations never run).
     """
-    with torch.no_grad():
-        coords = model.coords(params, grid)
-    if levels is None:
-        levels = build_hierarchy(model, grid, coords)
-    return _mg_pcg(model, levels, grid, params, int(max_iters), float(tol),
-                   int(nu), int(coarse_degree))
+    with annotate("hidenn.mg_pcg_solve"):
+        with torch.no_grad():
+            coords = model.coords(params, grid)
+        if levels is None:
+            levels = build_hierarchy(model, grid, coords)
+        return _mg_pcg(model, levels, grid, params, int(max_iters),
+                       float(tol), int(nu), int(coarse_degree))
 
 
 def radapt_mg_solve(model, grid: StructuredGrid, params,

@@ -1,8 +1,16 @@
 """Tracing and timing helpers (port of
 ``hidenn_fem_tpu/utils/profiling.py``).
 
-* ``annotate``: a named range in ``torch.profiler`` traces
-  (``record_function``), and an NVTX range when a card is present;
+* ``annotate`` and ``Span``: the port's one span primitive, a
+  ``record_function`` range named ``hidenn.<layer>.<phase>`` (or
+  ``hidenn.<entry point>`` for a solve's root), entered only while a
+  profiler runs: with none, a span costs one read of
+  ``torch.autograd._profiler_enabled()``.  ``torch.profiler`` puts the
+  ranges in its kineto trace, on the clock of the device's activities;
+  under ``torch.autograd.profiler.emit_nvtx()`` every ``record_function``
+  is an NVTX range, for nsys.  ``annotate(name)`` is a ``with`` block;
+  a ``Span`` may also be opened in one call and closed in a later one
+  (``solve/loop.py``'s replay span);
 * ``trace_to``: ``torch.profiler`` (CPU and, with a card, CUDA
   activities) over the enclosed block, its Chrome trace written into a
   directory;
@@ -26,25 +34,47 @@ import time
 from typing import Callable
 
 import torch
+from torch.autograd import _profiler_enabled
 from torch.profiler import (ProfilerActivity, profile, record_function,
                             tensorboard_trace_handler)
 
-__all__ = ["annotate", "trace_to", "slope_time_scan", "sync_time"]
+__all__ = ["annotate", "Span", "trace_to", "slope_time_scan", "sync_time"]
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named scope visible in profiler traces (``record_function``; an
-    NVTX range as well when a card is present)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+class Span:
+    """A ``record_function`` range named ``name``, entered by ``open()``
+    only while a profiler runs and left by ``close()``, in this call or a
+    later one on the same thread (inner spans close first); also a
+    ``with`` block.  ``close()`` of a span that is not open does
+    nothing."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name, self._range = name, None
+
+    def open(self) -> None:
+        if self._range is None and _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+
+    def close(self) -> None:
+        if self._range is not None:
+            r, self._range = self._range, None
+            r.__exit__(None, None, None)
+
+    def __enter__(self) -> "Span":
+        self.open()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def annotate(name: str) -> Span:
+    """Named scope visible in profiler traces: ``with annotate(name):``
+    (module doc)."""
+    return Span(name)
 
 
 @contextlib.contextmanager
