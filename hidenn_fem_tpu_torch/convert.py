@@ -100,14 +100,14 @@ def grid_from_numpy(grid, device=None, dtype=torch.float32
 
 
 def levels_from_numpy(levels, grid=None, device=None, dtype=torch.float32):
-    """A multigrid hierarchy (``solve.multigrid.build_hierarchy``'s tuple)
-    from the levels of another one, for example the JAX package's: each
-    level's grid, coords, inverse diagonal ``dinv``, Chebyshev bound
-    ``lmax`` and ``free`` mask, taken as they are.  ``grid``, when given,
-    is the port's fine grid and stands for level 0's; every other grid is
-    carried by ``grid_from_numpy``.  Both packages' V-cycles can then run
-    on the same levels."""
-    from .solve.multigrid import _Level
+    """A multigrid hierarchy (a ``solve.multigrid.Hierarchy``, as
+    ``build_hierarchy`` returns) from the levels of another one, for
+    example the JAX package's: each level's grid, coords, inverse
+    diagonal ``dinv``, Chebyshev bound ``lmax`` and ``free`` mask, taken
+    as they are.  ``grid``, when given, is the port's fine grid and stands
+    for level 0's; every other grid is carried by ``grid_from_numpy``.
+    Both packages' V-cycles can then run on the same levels."""
+    from .solve.multigrid import Hierarchy, _Level
 
     device = resolve_device(device)
 
@@ -122,7 +122,7 @@ def levels_from_numpy(levels, grid=None, device=None, dtype=torch.float32):
         out.append(_Level(grid=g, coords=t(lev.coords), dinv=t(lev.dinv),
                           lmax=lmax, free=t(lev.free),
                           lmax_host=float(lmax)))
-    return tuple(out)
+    return Hierarchy(out)
 
 
 def aux_from_numpy(pre, device=None):

@@ -30,7 +30,11 @@ eager warm-up and replayed, and the host reads the flag once every
 the same reads); a solve allowed fewer than ``loop.MIN_CAPTURED``
 iterations stays eager.  The calls past the stop are masked device work
 and launch their kernels like any other (the launch counters count
-them).  The multigrid and auxiliary-space solvers run the same body.
+them).  The carried tensors, the start and the iteration make a
+``PCGLoop``: a solve makes one and drops it, except where
+``multigrid``'s plan keeps one for the solves on a hierarchy, which then
+record the start once too and only replay.  The multigrid and
+auxiliary-space solvers run the same body.
 The Jacobi diagonal's colored probing is set-up and stays eager.  The
 history has ``max_iters`` entries and holds zeros for iterations never
 run.  Params are dicts of tensors; leaves are taken in sorted-key order,
@@ -39,6 +43,7 @@ as ``jax.tree.leaves`` orders a dict.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -75,33 +80,52 @@ def _grad(loss_fn: Callable, params: dict, loss_args: tuple) -> dict:
             for k, leaf, g in zip(keys, leaves, grads)}
 
 
-def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
-         atol: float = 0.0):
-    """The JAX package's PCG ``while_loop`` from x = 0 and the residual
-    ``r`` (a dict of tensors; ``matvec``, ``precond`` map such dicts and
-    ``dot`` two of them to a 0-dim tensor), one masked body run by
-    ``loop.while_loop`` (module doc).  Returns (x, relres history
-    [max_iters]).  What comes before the loop (the first preconditioner
-    application, the dots, the carried tensors) is a ``hidenn.pcg.start``
-    span."""
-    with annotate("hidenn.pcg.start"):
-        z = precond(r)
-        # carried in place: p must not share storage with r (precond may
-        # be the identity)
-        p = {k: v.clone() for k, v in z.items()}
-        x = {k: torch.zeros_like(v) for k, v in r.items()}
-        rs0 = dot(r, r)
-        rz = dot(r, z)
-        rs = rs0.clone()
-        # hist[max_iters] takes the masked iterations' writes
-        hist = torch.zeros((max_iters + 1,), dtype=rs0.dtype,
-                           device=rs0.device)
-        thresh = (tol * tol) * rs0
-        i = torch.zeros((), dtype=torch.int64, device=rs0.device)
+class _Carried:
+    """The carried tensors of one PCG loop: ``r`` as given (dicts of
+    leaves), x and p shaped like it, the 0-dim dots, the history
+    [max_iters + 1], the counter and the stop flag."""
 
-        def cond():
-            return (i < max_iters) & (rs > thresh) & (rs > atol * atol)
-        active = cond()
+    def __init__(self, r: dict, max_iters: int):
+        # the dots' dtype: ``dot`` sums products of the leaves
+        dt = functools.reduce(torch.promote_types,
+                              (v.dtype for v in r.values()))
+        dev = next(iter(r.values())).device
+        self.r = r
+        self.x = {k: torch.empty_like(v) for k, v in r.items()}
+        self.p = {k: torch.empty_like(v) for k, v in r.items()}
+        self.rs0, self.rz, self.rs, self.thresh = (
+            torch.empty((), dtype=dt, device=dev) for _ in range(4))
+        # hist[max_iters] takes the masked iterations' writes
+        self.hist = torch.empty((max_iters + 1,), dtype=dt, device=dev)
+        self.i = torch.empty((), dtype=torch.int64, device=dev)
+        self.active = torch.empty((), dtype=torch.bool, device=dev)
+
+
+def _bodies(matvec, precond, dot, c: _Carried, max_iters: int, tol: float,
+            atol: float):
+    """(start, body) of the PCG loop on the carried tensors ``c``, each
+    updating them in place.  ``start``: the first preconditioner
+    application, p = z, x = 0, the dots, the history and counter cleared,
+    the flag; ``body``: one masked iteration."""
+    x, r, p, rs0, rz, rs = c.x, c.r, c.p, c.rs0, c.rz, c.rs
+    hist, thresh, i, active = c.hist, c.thresh, c.i, c.active
+
+    def cond():
+        return (i < max_iters) & (rs > thresh) & (rs > atol * atol)
+
+    def start():
+        z = precond(r)
+        for k in r:
+            # p must not share storage with r (precond may be the identity)
+            p[k].copy_(z[k])
+            x[k].zero_()
+        rs0.copy_(dot(r, r))
+        rz.copy_(dot(r, z))
+        rs.copy_(rs0)
+        hist.zero_()
+        torch.mul(rs0, tol * tol, out=thresh)
+        i.zero_()
+        active.copy_(cond())
 
     def body():
         Ap = matvec(p)
@@ -127,8 +151,68 @@ def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
         i.add_(active.to(i.dtype))
         active.copy_(cond())
 
-    _loop.while_loop(body, active, max_iters, rs0.device)
-    return x, hist[:max_iters]
+    return start, body
+
+
+class PCGLoop:
+    """The JAX package's PCG ``while_loop`` of one system (``matvec``,
+    ``precond``, ``dot``, ``max_iters``, ``tol``, ``atol``; module doc),
+    run from x = 0 by calls on a residual: its carried tensors (the first
+    call's ``r`` becomes the carried residual), its start and its masked
+    iteration, which a ``loop.Replayer`` runs through ``loop.while_loop``.
+    With ``keep`` the loop serves repeated solves: a ``Replayer`` runs the
+    start too and both are kept, so on the card the first call warms up
+    both bodies and records the iteration, the second records the start,
+    and every later call copies its residual in and replays the two
+    graphs.  Without it the start runs eagerly and the loop serves one
+    call.  The closures hold the carried tensors, never the loop, so
+    dropping the loop frees its graphs without a collection."""
+
+    def __init__(self, matvec, precond, dot, r: dict, max_iters: int,
+                 tol: float, atol: float = 0.0, keep: bool = False):
+        self.carried = _Carried(r, max_iters)
+        start, body = _bodies(matvec, precond, dot, self.carried, max_iters,
+                              tol, atol)
+        self.max_iters, self.keep = max_iters, keep
+        self.device = self.carried.rs0.device
+        capture = (_loop.capturable(self.device)
+                   and max_iters >= _loop.MIN_CAPTURED)
+        self.body = _loop.Replayer(body, self.device, capture)
+        self.start = (_loop.Replayer(start, self.device, capture) if keep
+                      else start)
+
+    def __call__(self, r: dict):
+        """One solve from x = 0 and the residual ``r``: (x, relres history
+        [max_iters]).  x is the carried tensor; with ``keep`` the history
+        is a copy, so a later call changes neither what an earlier one
+        returned nor what its caller made of x."""
+        c = self.carried
+        for k, v in r.items():
+            if v is not c.r[k]:
+                c.r[k].copy_(v)
+        with annotate("hidenn.pcg.start"):
+            self.start()
+            if self.keep:
+                self.start.settle()
+        _loop.while_loop(self.body, c.active, self.max_iters, self.device)
+        hist = c.hist[:self.max_iters]
+        return c.x, hist.clone() if self.keep else hist
+
+
+def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
+         atol: float = 0.0, loop: "PCGLoop | None" = None):
+    """The JAX package's PCG ``while_loop`` from x = 0 and the residual
+    ``r`` (a dict of tensors; ``matvec``, ``precond`` map such dicts and
+    ``dot`` two of them to a 0-dim tensor), one masked body run by
+    ``loop.while_loop`` (module doc).  Returns (x, relres history
+    [max_iters]).  ``loop``: a kept ``PCGLoop`` of these same arguments
+    (bar ``r``) from an earlier call, run again from ``r``; None runs a
+    ``PCGLoop`` made for this call.  What comes before the iterations
+    (the first preconditioner application, the dots, the carried tensors)
+    is a ``hidenn.pcg.start`` span."""
+    if loop is None:
+        loop = PCGLoop(matvec, precond, dot, r, max_iters, tol, atol)
+    return loop(r)
 
 
 def _cg(loss_fn, max_iters: int, tol: float, params: dict,

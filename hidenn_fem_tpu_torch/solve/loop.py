@@ -34,6 +34,10 @@ the body computes the loop condition on the device into a flag, and a
 call on a false flag changes no carried tensor (bit for bit), so calls
 past the stop are harmless.  The host reads the flag before the first
 call and then once every ``READ_EVERY`` calls, never once a kernel.
+A loop makes its own ``Replayer`` (one warm-up and one recording a
+loop), or runs one it is given: a solver that keeps its carried tensors
+across solves (``multigrid``'s plan) keeps its ``Replayer`` too, and
+every loop after the one that recorded only replays.
 
 ``READ_EVERY = 4``.  A read costs the device its idle time while the
 host waits and launches the next replay, tens of µs; a call past the
@@ -218,9 +222,11 @@ def while_loop(body, active: torch.Tensor, max_iters: int,
     """Call ``body`` while the device flag ``active`` holds, at most
     ``max_iters`` times; the body keeps ``active`` current and changes
     nothing once it is false.  The host reads ``active`` before the first
-    call and after every ``READ_EVERY`` calls (module doc)."""
-    loop = Replayer(body, device,
-                    capturable(device) and max_iters >= MIN_CAPTURED)
+    call and after every ``READ_EVERY`` calls (module doc).  ``body`` is a
+    function, run by a ``Replayer`` made for this loop, or a ``Replayer``
+    kept across loops."""
+    loop = body if isinstance(body, Replayer) else Replayer(
+        body, device, capturable(device) and max_iters >= MIN_CAPTURED)
     done = 0
     while done < max_iters and read_flag(active):
         n = min(READ_EVERY, max_iters - done)

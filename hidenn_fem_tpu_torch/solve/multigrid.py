@@ -37,9 +37,14 @@ the graph reads is built before the first iteration: each level's
 operator (its pinned coordinates, stencil weights and gradient at zero:
 ``_level_ops``) and each level's Chebyshev coefficients, computed once on
 the host from ``lmax_host`` in the level's dtype and baked into the
-graph, which is therefore replayed only within the solve that recorded
-it (a new hierarchy, as ``radapt_mg_solve`` builds every epoch, is a new
-capture).
+graph.  None of it depends on the load: the traction enters only the
+right-hand side.  So a solve on a hierarchy from ``build_hierarchy``
+keeps its plan (``_Plan``: the level operators and a kept
+``linear.PCGLoop``, whose start and iteration are each recorded once) on
+that hierarchy, and the next solve on it with the same key replays both
+graphs after one copy of its right-hand side (``plan_counts`` counts the
+plans built and reused).  A solve with no prebuilt hierarchy, as
+``radapt_mg_solve``'s on every epoch, builds a plan and drops it.
 """
 
 from __future__ import annotations
@@ -55,12 +60,17 @@ from ..models.structured_grid import StructuredGrid
 from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
                                 structured_stencil)
 from ..utils.profiling import annotate
-from .linear import _pcg
+from . import loop as _loop
+from .linear import PCGLoop, _pcg
 
 __all__ = ["coarsen_grid", "prolong", "build_hierarchy", "vcycle",
            "mg_pcg_solve", "radapt_mg_solve"]
 
 _TINY = 1e-30
+
+# MG-PCG plans built (every solve on a new hierarchy or a new key) and
+# reused (a solve on a hierarchy that held a plan of its key)
+plan_counts = {"built": 0, "reused": 0}
 
 
 # --------------------------------------------------------------- hierarchy
@@ -133,6 +143,18 @@ class _Level:
     lmax: torch.Tensor
     free: torch.Tensor
     lmax_host: float
+
+
+class Hierarchy(tuple):
+    """``build_hierarchy``'s levels, finest first: a tuple of ``_Level``s
+    that also holds the plan of the last ``mg_pcg_solve`` on it
+    (``plan``, None before one), which dies with it.  Nothing of the plan
+    refers back to the hierarchy; a copy or a pickle leaves it out."""
+
+    plan = None
+
+    def __reduce__(self):
+        return Hierarchy, (tuple(self),)
 
 
 def _level_grad(model, grid: StructuredGrid, coords: torch.Tensor):
@@ -230,7 +252,7 @@ def _setup_level(model, grid: StructuredGrid, coords: torch.Tensor,
 
 def build_hierarchy(model, grid: StructuredGrid, coords: torch.Tensor,
                     min_size: int = 4, max_levels: int = 16,
-                    power_iters: int = 30) -> Tuple[_Level, ...]:
+                    power_iters: int = 30) -> Hierarchy:
     """Coarsen ``grid`` (with the given, possibly r-adapted, pinned node
     coordinates) while the quad lattice divides by 2 and stays at least
     ``min_size`` nodes per axis; set up diagonals and Chebyshev bounds
@@ -246,7 +268,7 @@ def build_hierarchy(model, grid: StructuredGrid, coords: torch.Tensor,
         coords = coords[::2, ::2].contiguous()
         levels.append(_setup_level(model, gc, coords, int(power_iters)))
         g = gc
-    return tuple(levels)
+    return Hierarchy(levels)
 
 
 # --------------------------------------------------------------- smoothing
@@ -337,21 +359,63 @@ def _udot(a: dict, b: dict) -> torch.Tensor:
     return torch.sum(a["u"] * b["u"])
 
 
+class _Plan:
+    """What an MG-PCG solve on one hierarchy runs besides its right-hand
+    side, under ``key`` (``_plan_key``): the level operators (their
+    gradients at zero included) and the PCG loop on them.  ``keep``: the
+    loop is kept for later solves (``linear.PCGLoop``).  Its closures hold
+    the ``_Level``s, not the ``Hierarchy`` that holds the plan."""
+
+    def __init__(self, key: tuple, model, levels: tuple, r: dict,
+                 max_iters: int, tol: float, nu: int, coarse_degree: int,
+                 keep: bool):
+        ops = _level_ops(model, levels)
+        self.key = key
+        self.matvec = lambda v: {"u": ops[0](v["u"])}
+        self.precond = lambda r: {"u": _vcycle(ops, levels, r["u"], nu,
+                                               coarse_degree)}
+        self.loop = PCGLoop(self.matvec, self.precond, _udot, r, max_iters,
+                            tol, keep=keep)
+
+
+def _plan_key(model, u0: torch.Tensor, max_iters: int, tol: float,
+              nu: int, coarse_degree: int) -> tuple:
+    """What a plan is built from besides the hierarchy: what the level
+    operators read of the model, the solution's dtype and device, whether
+    the loop is captured, and the solve's settings."""
+    return (type(model), model.E, model.nu, model.dtype, model.u_fixed,
+            model.backend, u0.dtype, u0.device, _loop.capturable(u0.device),
+            max_iters, tol, nu, coarse_degree)
+
+
 def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
-            nu: int, coarse_degree: int):
+            nu: int, coarse_degree: int, keep: bool = False):
     u0 = params["u"].detach()
     coords = levels[0].coords
+    key = _plan_key(model, u0, max_iters, tol, nu, coarse_degree)
+    plan = levels.plan if keep else None
+    if plan is not None:
+        # detached while it runs: a solve that raises leaves no plan
+        levels.plan = None
+        if plan.key != key:
+            plan = None
     with annotate("hidenn.mg.level_ops"):
         u = u0.clone().requires_grad_(True)
         (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid),
                                     u)
-        # loop invariants: every level's operator (level 0's is K of the
-        # full energy: the traction term is linear in u), built once
-        ops = _level_ops(model, levels)
-    x, hist = _pcg(lambda v: {"u": ops[0](v["u"])},
-                   lambda r: {"u": _vcycle(ops, levels, r["u"], nu,
-                                           coarse_degree)},
-                   _udot, {"u": -g0}, max_iters, tol)
+        r = {"u": -g0}
+        if plan is None:
+            # loop invariants: every level's operator (level 0's is K of
+            # the full energy: the traction term is linear in u)
+            plan = _Plan(key, model, tuple(levels), r, max_iters, tol, nu,
+                         coarse_degree, keep)
+            plan_counts["built"] += 1
+        else:
+            plan_counts["reused"] += 1
+    x, hist = _pcg(plan.matvec, plan.precond, _udot, r, max_iters, tol,
+                   loop=plan.loop)
+    if keep:
+        levels.plan = plan
     return {"coords": params["coords"], "u": u0 + x["u"]}, hist
 
 
@@ -370,19 +434,35 @@ def mg_pcg_solve(model, grid: StructuredGrid, params,
       params: ``{"coords", "u"}``; coordinates are frozen (pinned by the
         model's getter, so r-adapted meshes work), ``u`` is the initial
         guess.
-      levels: a prebuilt ``build_hierarchy(...)`` to amortize set-up over
-        repeated solves at the same coordinates.
+      levels: a prebuilt ``build_hierarchy(...)`` (or
+        ``convert.levels_from_numpy(...)``) to amortize set-up over
+        repeated solves at the same coordinates.  The solve keeps its
+        plan on it: the level operators with their gradients at zero,
+        the PCG loop's carried tensors and, on the card, its start (the
+        first V-cycle and the dots) and iteration, each recorded once in
+        a CUDA graph.  A later solve on the same hierarchy copies in its
+        right-hand side and replays both, where the key matches: the
+        model's type, E, nu, dtype, ``u_fixed`` and backend (not its
+        tractions), u's dtype and device, whether the card captures,
+        ``max_iters``, ``tol``, ``nu`` and ``coarse_degree``.  Otherwise
+        it builds a new plan, which replaces the held one.  The
+        first solve on a plan warms up and records the iteration, the
+        second records the start; at most these two graphs stay alive,
+        and they die with the hierarchy.  Without ``levels`` the solve
+        builds a hierarchy and a plan and drops both.
 
     Returns (solved params, per-iteration relative residual norms
-    [max_iters], zero for iterations never run).
+    [max_iters], zero for iterations never run); neither shares memory
+    with the plan.
     """
     with annotate("hidenn.mg_pcg_solve"):
         with torch.no_grad():
             coords = model.coords(params, grid)
+        keep = isinstance(levels, Hierarchy)
         if levels is None:
             levels = build_hierarchy(model, grid, coords)
         return _mg_pcg(model, levels, grid, params, int(max_iters),
-                       float(tol), int(nu), int(coarse_degree))
+                       float(tol), int(nu), int(coarse_degree), keep)
 
 
 def radapt_mg_solve(model, grid: StructuredGrid, params,

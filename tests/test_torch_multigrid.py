@@ -14,7 +14,17 @@ Tolerances:
   ``cg_solve`` (as ``tests/test_multigrid.py::test_mg_matches_cg``), and
   on JAX's levels the first 5 residuals rtol 1e-3; f64 to relres 1e-10,
   within 1e-8 x max|u| of the port's f64 CG solution.
+
+The plan a hierarchy keeps (``multigrid._Plan``, port only): a solve on
+a kept plan is bit-equal to the same load case on a fresh hierarchy (f32
+and f64, from rest and from the noise start), returns nothing that a
+later solve overwrites, and a plan is rebuilt where its key differs and
+kept nowhere without a prebuilt hierarchy; ``plan_counts`` counts each.
 """
+
+import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -213,3 +223,124 @@ def test_example9_small():
     assert h[h > 0][-1] <= 1e-6
     assert [(lv.grid.nx, lv.grid.ny) for lv in levels] == [
         (33, 17), (17, 9), (9, 5)]
+
+
+# ------------------------------------------------- the plan a hierarchy keeps
+PLAN_KW = dict(max_iters=12, tol=1e-6, nu=1, coarse_degree=4)
+LOADS = ((8e4, 0.0), (5e4, 3e4), (1.2e5, -4e4))
+
+
+def _load_cases(f64=False, warm=False):
+    """The 17x9 zigzag plate with a hole (two levels): (grid, params from
+    rest or from the noise start, the model under a traction on the right
+    face, a maker of fresh hierarchies)."""
+    with jax.enable_x64(f64):
+        _, _, _, tg, tm, tp = _setup(17, 9, "zigzag", HOLE, f64=f64)
+    if not warm:
+        tp["u"] = torch.zeros_like(tp["u"])
+
+    def loaded(t, **kw):
+        return dataclasses.replace(tm, tractions={"right": t}, **kw)
+
+    def hierarchy():
+        with torch.no_grad():
+            return tmg.build_hierarchy(tm, tg, tm.coords(tp, tg))
+    return tg, tp, loaded, hierarchy
+
+
+def _moved(before):
+    return {k: tmg.plan_counts[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("warm", [False, True], ids=["rest", "warm"])
+def test_a_kept_plan_solves_as_a_fresh_hierarchy(f64, warm):
+    tg, tp, loaded, hierarchy = _load_cases(f64, warm)
+    held, before = hierarchy(), dict(tmg.plan_counts)
+    kept = [tmg.mg_pcg_solve(loaded(t), tg, tp, levels=held, **PLAN_KW)
+            for t in LOADS]
+    assert _moved(before) == {"built": 1, "reused": len(LOADS) - 1}
+    assert held.plan is not None
+    for t, (sol, hist) in zip(LOADS, kept):
+        fresh, fh = tmg.mg_pcg_solve(loaded(t), tg, tp, levels=hierarchy(),
+                                     **PLAN_KW)
+        assert sol["u"].dtype == tp["u"].dtype
+        assert torch.equal(sol["u"], fresh["u"]) and torch.equal(hist, fh)
+        assert float(hist[0]) > 0
+
+
+def test_a_later_solve_leaves_an_earlier_answer_alone():
+    """No returned tensor shares memory with the plan's carried tensors,
+    so a second solve on the plan changes nothing the first returned; and
+    the plan dies with its hierarchy, no collection needed."""
+    tg, tp, loaded, hierarchy = _load_cases()
+    held = hierarchy()
+    sol, hist = tmg.mg_pcg_solve(loaded(LOADS[0]), tg, tp, levels=held,
+                                 **PLAN_KW)
+    u1, h1 = sol["u"].clone(), hist.clone()
+    c = held.plan.loop.carried
+    carried = [t for d in (c.x, c.r, c.p) for t in d.values()] + [
+        c.rs0, c.rz, c.rs, c.thresh, c.hist, c.i, c.active]
+    plan_memory = {t.untyped_storage().data_ptr() for t in carried}
+    for t in (sol["u"], hist):
+        assert t.untyped_storage().data_ptr() not in plan_memory
+    tmg.mg_pcg_solve(loaded(LOADS[1]), tg, tp, levels=held, **PLAN_KW)
+    assert torch.equal(sol["u"], u1) and torch.equal(hist, h1)
+    plan = weakref.ref(held.plan)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del held, c, carried
+        assert plan() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
+@pytest.mark.parametrize("change", [{"E": 2e10}, {"tol": 1e-4},
+                                    {"max_iters": 10}],
+                         ids=["E", "tol", "max_iters"])
+def test_a_key_that_differs_builds_a_new_plan(change):
+    """A solve whose key differs from the held plan's builds its own,
+    which replaces the held one and solves as a fresh hierarchy does; the
+    first key's next solve then builds again."""
+    tg, tp, loaded, hierarchy = _load_cases()
+    model_kw = {k: v for k, v in change.items() if k == "E"}
+    kw = dict(PLAN_KW, **{k: v for k, v in change.items() if k != "E"})
+    held, before = hierarchy(), dict(tmg.plan_counts)
+    tmg.mg_pcg_solve(loaded(LOADS[0]), tg, tp, levels=held, **PLAN_KW)
+    first = held.plan
+    sol, hist = tmg.mg_pcg_solve(loaded(LOADS[1], **model_kw), tg, tp,
+                                 levels=held, **kw)
+    assert _moved(before) == {"built": 2, "reused": 0}
+    assert held.plan is not first and held.plan.key != first.key
+    fresh, fh = tmg.mg_pcg_solve(loaded(LOADS[1], **model_kw), tg, tp,
+                                 levels=hierarchy(), **kw)
+    assert torch.equal(sol["u"], fresh["u"]) and torch.equal(hist, fh)
+    before = dict(tmg.plan_counts)
+    tmg.mg_pcg_solve(loaded(LOADS[2]), tg, tp, levels=held, **PLAN_KW)
+    tmg.mg_pcg_solve(loaded(LOADS[0]), tg, tp, levels=held, **PLAN_KW)
+    assert _moved(before) == {"built": 1, "reused": 1}
+
+
+@pytest.mark.parametrize("entry", ["levels_none", "radapt"])
+def test_a_solve_without_a_prebuilt_hierarchy_keeps_no_plan(entry,
+                                                            monkeypatch):
+    """Each solve builds its hierarchy and a plan, and keeps neither."""
+    tg, tp, loaded, _ = _load_cases()
+    built, build = [], tmg.build_hierarchy
+
+    def recorded(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+    monkeypatch.setattr(tmg, "build_hierarchy", recorded)
+    before = dict(tmg.plan_counts)
+    if entry == "radapt":
+        tmg.radapt_mg_solve(loaded(LOADS[0]), tg, tp, outer_epochs=2,
+                            mg_iters=6, coord_steps=1, coord_lr=1e-4)
+    else:
+        for t in LOADS[:2]:
+            tmg.mg_pcg_solve(loaded(t), tg, tp, **PLAN_KW)
+    assert len(built) == 2
+    assert all(h.plan is None for h in built)
+    assert _moved(before) == {"built": 2, "reused": 0}

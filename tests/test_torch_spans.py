@@ -16,7 +16,13 @@ solves, and the gauge of CUDA graphs still alive (``solve/loop.py``'s
   graph, and every ``cudaGraphLaunch`` of the solve lies inside a replay
   span (the spans and the runtime's events share one clock); the gauge of
   graphs recorded minus freed matches the graphs alive, before and after
-  a collection.
+  a collection.  Load cases on one hierarchy (``mg_pcg_solve`` with
+  ``levels``) record two graphs in all, the plan's start and iteration;
+  they move the launch counters as solves on fresh hierarchies do, less
+  the level operators' gradients at zero that only the first plan
+  computes, answer bit for bit as those do, record nothing from the
+  third solve on, and give both graphs back when the hierarchy goes,
+  with the collector off.
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_spans.py``.
@@ -247,3 +253,61 @@ def test_the_gauge_of_graphs_alive_matches_the_graphs_alive(dev):
     gc.collect()
     assert gauge() == gauge0
     assert alive() == alive0
+
+
+@pytest.mark.cuda
+def test_load_cases_on_one_hierarchy_replay_its_two_graphs(dev):
+    from hidenn_fem_tpu_torch.solve import multigrid
+
+    grid = generate_structured_grid(nx=33, ny=17, split="zigzag",
+                                    holes=(), device=dev)
+    model = StructuredGridP1(E=10e9, nu=0.3)
+    params = {"coords": grid.coords,
+              "u": torch.zeros_like(grid.coords)}
+    loads = [(5e4 + 2e4 * k, 1e4 * (k - 3)) for k in range(6)]
+    kw = dict(max_iters=12, tol=1e-6, nu=1, coarse_degree=4)
+
+    def hierarchy():
+        with torch.no_grad():
+            return multigrid.build_hierarchy(model, grid, grid.coords)
+
+    def solve(load, levels):
+        loaded = StructuredGridP1(E=10e9, nu=0.3,
+                                  tractions={"right": load})
+        before = [dict(c) for c in loop._counters()]
+        sol, hist = pt.mg_pcg_solve(loaded, grid, params, levels=levels,
+                                    **kw)
+        torch.cuda.synchronize()
+        return sol["u"], hist, [{k: c[k] - b.get(k, 0) for k in c}
+                                for c, b in zip(loop._counters(), before)]
+
+    fresh = [solve(load, hierarchy()) for load in loads]
+    held = hierarchy()
+    n_levels = len(held)
+    gc.collect()
+    graphs0, freed0 = loop.captures["graphs"], loop.captures["freed"]
+    kept, recorded = [], []
+    for i, load in enumerate(loads):
+        if i == 3:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                kept.append(solve(load, held))
+        else:
+            kept.append(solve(load, held))
+        recorded.append(loop.captures["graphs"] - graphs0)
+    assert recorded == [1, 2, 2, 2, 2, 2]
+    spans = _spans(prof)
+    assert not _named(spans, "hidenn.loop.record")
+    assert _named(spans, "hidenn.loop.replay")
+    for i, ((u, h, moved), (fu, fh, fmoved)) in enumerate(zip(kept, fresh)):
+        assert torch.equal(u, fu) and torch.equal(h, fh), i
+        if i:
+            fmoved[1]["lattice_stencil_vg"] -= n_levels
+        assert moved == fmoved, (i, moved, fmoved)
+    assert moved[1]["lattice_stencil_vg"] > 0
+    gc.disable()
+    try:
+        del held
+        assert loop.captures["freed"] - freed0 == 2
+    finally:
+        gc.enable()
