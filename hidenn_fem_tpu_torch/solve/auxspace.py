@@ -564,13 +564,13 @@ def _apply_aux(bg_model, pre: _AuxPrecond, r, ops=None):
 def _aux_pcg(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
              params, loss_args: tuple, pre: _AuxPrecond):
     params = {k: v.detach() for k, v in params.items()}
-    g0 = _grad(loss_fn, params, loss_args)
+    with annotate("hidenn.aux.level_ops"):
+        g0 = _grad(loss_fn, params, loss_args)
+        ops = mg._level_ops(bg_model, pre.levels)     # loop-invariant
 
     def matvec(v):
         gv = _grad(loss_fn, _tree_axpy(1.0, v, params), loss_args)
         return {k: gv[k] - g0[k] for k in gv}
-
-    ops = mg._level_ops(bg_model, pre.levels)     # loop-invariant
 
     def precond(rt):
         return {u_key: _apply_aux(bg_model, pre, rt[u_key], ops)}

@@ -9,6 +9,9 @@ solves, and the gauge of CUDA graphs still alive (``solve/loop.py``'s
   ``hidenn.jacobi_pcg_solve``, ``hidenn.aux_pcg_solve``), with the
   solve's phases nested in it by time; on the CPU nothing is captured,
   so there is no recording and no replay span.
+* An aux-space PCG solve builds its right-hand side and its background
+  levels' operators in ``hidenn.aux.level_ops``, inside its root span and
+  before the loop's first span.
 * A ``Replayer`` whose graph is stood in for on the CPU opens one replay
   span at its first replay and closes it in ``settle``: every replay and
   the stop-flag reads between lie inside it.
@@ -22,7 +25,9 @@ solves, and the gauge of CUDA graphs still alive (``solve/loop.py``'s
   the level operators' gradients at zero that only the first plan
   computes, answer bit for bit as those do, record nothing from the
   third solve on, and give both graphs back when the hierarchy goes,
-  with the collector off.
+  with the collector off.  A captured aux-space PCG solve on a mesh with
+  banded tables moves K4's launch counter as the eager solve does, and
+  answers as it does.
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_spans.py``.
@@ -49,7 +54,7 @@ ROOTS = {"lbfgs": "hidenn.run_optimizer", "mg": "hidenn.mg_pcg_solve",
 PHASES = {"lbfgs": ["hidenn.optimizer.init"],
           "mg": ["hidenn.mg.level_ops", "hidenn.pcg.start"],
           "cg": ["hidenn.pcg.start"], "jacobi": ["hidenn.pcg.start"],
-          "aux": ["hidenn.pcg.start"]}
+          "aux": ["hidenn.aux.level_ops", "hidenn.pcg.start"]}
 
 
 @pytest.fixture
@@ -158,6 +163,18 @@ def test_a_solve_records_its_phases_inside_its_root_span(kind):
     assert not _named(spans, "hidenn.loop.replay")
     if kind != "lbfgs":         # a while loop reads its stop flag
         assert _named(spans, "hidenn.loop.flag_read")
+
+
+def test_the_aux_level_ops_come_before_the_loop():
+    torch.manual_seed(0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _solve("aux", CPU)
+    spans = _spans(prof)
+    (root,) = _named(spans, ROOTS["aux"])
+    (ops,) = _named(spans, "hidenn.aux.level_ops")
+    assert _inside(ops, root)
+    first_loop = min(s[0] for s in spans if s[2].startswith("hidenn.loop."))
+    assert ops[1] <= first_loop
 
 
 class _StandInGraph:
@@ -311,3 +328,48 @@ def test_load_cases_on_one_hierarchy_replay_its_two_graphs(dev):
         assert loop.captures["freed"] - freed0 == 2
     finally:
         gc.enable()
+
+
+def _banded_delaunay(device):
+    """A small Delaunay plate with its banded tables (built by default
+    only above 250,000 gather rows), on ``device``."""
+    m = pt.generate_mesh_delaunay(lc=0.05, device=CPU)
+    arrays = {k: getattr(m, k).numpy() for k in (
+        "coords", "connectivity", "geom_boundary_mask", "dirichlet_mask",
+        "neumann_mask", "neumann_edges")}
+    return pt.TriMesh.from_arrays(**arrays, build_banded=True,
+                                  device=device)
+
+
+@pytest.mark.cuda
+def test_a_captured_aux_solve_counts_k4_as_an_eager_one(dev, monkeypatch):
+    from hidenn_fem_tpu_torch.ops import banded_energy
+
+    mesh = _banded_delaunay(dev)
+    assert mesh.banded_paired is not None and mesh.lattice is None
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def u_loss(p, coords, m):
+        return energy.total({"coords": coords, "u": p["u"]}, m)
+
+    up = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    args = (mesh.coords, mesh)
+    bg = StructuredGridP1(E=10e9, nu=0.3)
+    pre = pt.build_aux_preconditioner(u_loss, up, args, mesh, bg_model=bg)
+
+    def solve():
+        before = banded_energy.launch_counts["banded_vg"]
+        sol, hist = pt.aux_pcg_solve(u_loss, up, args, pre=pre, bg_model=bg,
+                                     max_iters=60, tol=1e-6)
+        torch.cuda.synchronize()
+        return (sol["u"], hist,
+                banded_energy.launch_counts["banded_vg"] - before)
+
+    graphs = loop.captures["graphs"]
+    u, hist, launches = solve()
+    assert loop.captures["graphs"] - graphs == 1
+    monkeypatch.setattr(loop, "capturable", lambda device: False)
+    eu, ehist, elaunches = solve()
+    assert loop.captures["graphs"] - graphs == 1
+    assert launches == elaunches > 0
+    assert torch.equal(hist, ehist) and torch.equal(u, eu)
