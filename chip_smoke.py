@@ -172,11 +172,15 @@ Phases (each raises on failure, and the script then exits non-zero):
     tables; the hybrid route launches no kernel, so K6 comes from the
     V-cycle only), then example 12 at its own size; d. example 11 at its
     own size (gather route) and 2 epochs of ``radapt_aux_solve`` on its
-    mesh (the energies fall, the pins stay).  Each solve from rest counts
-    its launches exactly (K6: the levels' gradients once and a V-cycle
-    before the loop and each call of the loop body; the fine kernel once
-    and each call: the iterations rounded up to ``READ_EVERY``) and
-    prints its set-up seconds and ms per iteration.
+    mesh (the energies fall, the pins stay).  Each solve from rest runs
+    three times, the first building the aux plan on a copy of the
+    preconditioner without one and the two others replaying it (bit for
+    bit the first's answer), and counts its launches exactly (K6: the
+    levels' gradients once where the plan is built and a V-cycle before
+    the loop and each call of the loop body; the fine kernel once and
+    each call, the iterations rounded up to ``READ_EVERY``, and twice
+    more in a replay's check) and prints its set-up seconds and ms per
+    iteration.
 
 15. Example 5 (``examples/example5_scaling_torch.py``) at its own size:
     the 1000x500 plate with the three holes (922,250 elements; the hole
@@ -2475,42 +2479,68 @@ def check_aux_iters(name, iters, want):
 
 
 def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
-    """A solve from rest on a prebuilt preconditioner, timed on the host
-    clock, with its launches counted exactly: the levels' gradients at
-    zero once, a V-cycle (7 level operators a level, 24 on the coarsest:
-    K6 each) before the loop and each call of the loop body (the
-    iterations, and the masked calls past the stop), and the fine
-    gradient at the start and once a call on ``fine``'s kernel (None: the
-    hybrid route, no kernel).  Returns (solution, history, seconds)."""
+    """Three solves from rest, timed on the host clock, with their
+    launches counted exactly: the first on a copy of the prebuilt
+    preconditioner without its plan, so it builds one, the second and
+    the third on the plan it keeps (the second records the loop's start,
+    the third replays both graphs).  A solve that builds the plan
+    launches the levels' gradients at zero once, a V-cycle (7 level
+    operators a level, 24 on the coarsest: K6 each) before the loop and
+    each call of the loop body (the iterations, and the masked calls past
+    the stop), and the fine gradient at the start and once a call on
+    ``fine``'s kernel (None: the hybrid route, no kernel).  A replay
+    builds no level operators and takes the fine gradient twice more, in
+    the check of its answer, which is the first's bit for bit (the same
+    loss from the same start).  Returns (solution, history, seconds) of
+    the first."""
+    from hidenn_fem_tpu_torch.solve import auxspace
+
     mesh = args[1]
     u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=mesh.coords.device)}
-    torch.cuda.synchronize()
-    counts.reset()
-    t0 = time.perf_counter()
-    sol, hist = ht.aux_pcg_solve(loss, u0, args, pre=pre,
-                                 max_iters=AUX_MAX_ITERS, tol=1e-6)
-    h = check_hist(name, hist)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launched = {k: v for k, v in counts.read().items() if v}
-    iters, n_lev = len(h), len(pre.levels)
-    calls = loop_calls(iters, AUX_MAX_ITERS)
-    want = {"lattice_stencil_vg": n_lev + (calls + 1)
-            * (7 * (n_lev - 1) + 24)}
-    if fine is not None:
-        want[fine] = want.get(fine, 0) + 1 + calls
-    log(f"  {name} from rest: {iters} iterations ({calls} calls of the "
-        f"loop body) to {h[-1]:.6e} in {seconds:.3f} s, "
-        f"{1e3 * seconds / iters:.3f} ms per iteration; launches "
-        f"{launched} (expected {want}), per call "
-        + ", ".join(f"{k} {v / calls:.2f}" for k, v in launched.items())
-        + f" [{card}]")
-    if launched != want:
-        raise AssertionError(f"{name}: launches {launched}, expected "
-                             f"{want}")
-    if h[-1] > 1e-6:
-        raise AssertionError(f"{name}: did not reach relres 1e-6")
-    return sol, h, seconds
+    pre = dataclasses.replace(pre)          # no plan: the first builds one
+    before = dict(auxspace.plan_counts)
+    runs = []
+    for i, what in enumerate(("builds the plan", "replays the iteration",
+                              "replays both graphs")):
+        torch.cuda.synchronize()
+        counts.reset()
+        t0 = time.perf_counter()
+        sol, hist = ht.aux_pcg_solve(loss, u0, args, pre=pre,
+                                     max_iters=AUX_MAX_ITERS, tol=1e-6)
+        h = check_hist(name, hist)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in counts.read().items() if v}
+        iters, n_lev = len(h), len(pre.levels)
+        calls = loop_calls(iters, AUX_MAX_ITERS)
+        want = {"lattice_stencil_vg": (0 if i else n_lev) + (calls + 1)
+                * (7 * (n_lev - 1) + 24)}
+        if fine is not None:
+            want[fine] = want.get(fine, 0) + 1 + calls + (2 if i else 0)
+        log(f"  {name} from rest, solve {i + 1} ({what}): {iters} "
+            f"iterations ({calls} calls of the loop body) to "
+            f"{h[-1]:.6e} in {seconds:.3f} s, "
+            f"{1e3 * seconds / iters:.3f} ms per iteration; launches "
+            f"{launched} (expected {want}), per call "
+            + ", ".join(f"{k} {v / calls:.2f}" for k, v in launched.items())
+            + f" [{card}]")
+        if launched != want:
+            raise AssertionError(f"{name}, solve {i + 1}: launches "
+                                 f"{launched}, expected {want}")
+        if h[-1] > 1e-6:
+            raise AssertionError(f"{name}: did not reach relres 1e-6")
+        if runs and not (torch.equal(sol["u"], runs[0][0]["u"])
+                         and torch.equal(hist, runs[0][3])):
+            raise AssertionError(f"{name}, solve {i + 1}: the kept plan's "
+                                 "answer is not the first solve's")
+        runs.append((sol, h, seconds, hist))
+    moved = {k: auxspace.plan_counts[k] - before[k] for k in before}
+    log(f"  {name}: aux plans {moved}; the replays bit-equal to the first "
+        "solve")
+    if moved != {"built": 1, "reused": 2, "refused": 0}:
+        raise AssertionError(f"{name}: aux plans {moved}, expected one "
+                             "built and two reused")
+    return runs[0][:3]
 
 
 def phase_aux_example10(ht, counts, dev, card):

@@ -33,11 +33,20 @@ the iteration is ``solve/linear.py``'s masked body, which
 reading the stop flag once every ``loop.READ_EVERY`` iterations; the
 background levels' operators and the windowed P^T's gather index are
 built before the first iteration, and the history holds zeros past the
-stop.
+stop.  None of that depends on the load, so a solve on a prebuilt
+preconditioner keeps its plan there (``_Plan``: the level operators, the
+fine operator at the plan's base point and a kept ``linear.PCGLoop``,
+whose start and iteration are each recorded once), and the next solve
+with the same key replays both graphs after one copy of its right-hand
+side.  The fine operator is the caller's loss, which the key cannot see,
+so a replayed answer is returned only where the solve's own loss passes
+it (``_replayed``); ``plan_counts`` counts the plans built, reused and
+refused.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -47,12 +56,19 @@ import torch
 from ..models.structured_grid import StructuredGrid, StructuredGridP1
 from ..ops.assembly import weighted_incidence_gather_sum
 from ..utils.profiling import annotate
+from . import loop as _loop
 from . import multigrid as mg
-from .linear import _grad, _pcg, _tree_axpy, jacobi_diagonal
+from .linear import PCGLoop, _grad, _pcg, _tree_axpy, jacobi_diagonal
 
 __all__ = ["build_aux_preconditioner", "aux_pcg_solve", "radapt_aux_solve"]
 
 _TINY = 1e-30
+
+# aux-space PCG plans built (a solve on a prebuilt preconditioner with no
+# plan of its key, or whose held plan's answer was refused), reused (a
+# solve that replayed the held plan and returned its answer) and refused
+# (a replayed answer that the check threw away)
+plan_counts = {"built": 0, "reused": 0, "refused": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +113,11 @@ class _AuxPrecond:
     # row), derived from the window tables once, not on every application
     ptw_idx: Optional[torch.Tensor] = dataclasses.field(init=False,
                                                         default=None)
+    # the plan of the last ``aux_pcg_solve`` on this preconditioner
+    # (``_Plan``; None before one), which dies with it:
+    # ``dataclasses.replace`` makes a preconditioner without it
+    plan: Optional["_Plan"] = dataclasses.field(init=False, default=None,
+                                                repr=False, compare=False)
 
     def __post_init__(self):
         if self.ptw_rel is not None:
@@ -561,15 +582,16 @@ def _apply_aux(bg_model, pre: _AuxPrecond, r, ops=None):
     return pre.free * (pre.omega * pre.dinv * r + z_coarse)
 
 
-def _aux_pcg(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
-             params, loss_args: tuple, pre: _AuxPrecond):
-    params = {k: v.detach() for k, v in params.items()}
-    with annotate("hidenn.aux.level_ops"):
-        g0 = _grad(loss_fn, params, loss_args)
-        ops = mg._level_ops(bg_model, pre.levels)     # loop-invariant
+def _system(loss_fn, bg_model, pre: _AuxPrecond, u0: dict, g0: dict,
+            loss_args: tuple, u_key: str):
+    """(matvec, precond, dot) of the PCG loop: v -> grad loss(u0 + v) - g0
+    with g0 = grad loss(u0), which is K v for a quadratic loss whatever
+    its load, and M^{-1} on the background levels' operators, built here
+    once (loop-invariant)."""
+    ops = mg._level_ops(bg_model, pre.levels)
 
     def matvec(v):
-        gv = _grad(loss_fn, _tree_axpy(1.0, v, params), loss_args)
+        gv = _grad(loss_fn, _tree_axpy(1.0, v, u0), loss_args)
         return {k: gv[k] - g0[k] for k in gv}
 
     def precond(rt):
@@ -578,10 +600,134 @@ def _aux_pcg(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
     def dot(a, b):
         return torch.sum(a[u_key] * b[u_key])
 
+    return matvec, precond, dot
+
+
+class _Plan:
+    """What an aux-PCG solve on one preconditioner runs besides its
+    right-hand side, under ``key`` (``_plan_key``): the ``_system`` at
+    static copies of the base point u0 and of g0 = grad loss(u0) of the
+    loss it was built with, and a kept ``linear.PCGLoop`` on it.  It
+    holds ``loss_args``, so their identities in its key stay theirs.  Its
+    closures hold the preconditioner's tables through a copy without the
+    plan (``_unplanned``), never the ``_AuxPrecond`` that holds it."""
+
+    def __init__(self, key: tuple, loss_fn, bg_model, pre: _AuxPrecond,
+                 params: dict, g0: dict, loss_args: tuple, r: dict,
+                 max_iters: int, tol: float, u_key: str):
+        self.key, self.loss_args = key, loss_args
+        self.max_iters, self.tol = max_iters, tol
+        u0 = {k: v.clone() for k, v in params.items()}
+        self.matvec, self.precond, self.dot = _system(
+            loss_fn, bg_model, _unplanned(pre), u0, g0, loss_args, u_key)
+        self.loop = PCGLoop(self.matvec, self.precond, self.dot, r,
+                            max_iters, tol, keep=True)
+
+
+def _unplanned(pre: _AuxPrecond) -> _AuxPrecond:
+    """``pre`` without its plan: the same tensors (none copied or derived
+    again), for a plan to hold."""
+    out = copy.copy(pre)
+    object.__setattr__(out, "plan", None)
+    return out
+
+
+def _plan_key(bg_model, params: dict, loss_args: tuple, max_iters: int,
+              tol: float, u_key: str) -> tuple:
+    """What a plan is built from that the code can see: each of
+    ``loss_args`` by identity, a tensor with its in-place version too;
+    the params' keys, shapes, dtypes and devices; ``u_key``, the solve's
+    settings, the background model, and whether the card captures.  What
+    the loss computes from them it cannot see: the check does."""
+    return (tuple((id(a), a._version if isinstance(a, torch.Tensor)
+                   else None) for a in loss_args),
+            tuple((k, tuple(v.shape), v.dtype, v.device)
+                  for k, v in sorted(params.items())),
+            u_key, max_iters, tol, bg_model,
+            _loop.capturable(params[u_key].device))
+
+
+def _replayed(plan: _Plan, loss_fn, params: dict, loss_args: tuple):
+    """The held plan's (solution, history) for this solve's loss and
+    start, or None where the check refuses the answer.
+
+    The check holds the two operators to each other on the answer x: the
+    solve's own loss, grad loss(u0 + x) - grad loss(u0), against the
+    plan's matvec of x.  Their difference, (K_solve - K_plan) x, must lie
+    within max(tol, the loop's final relative residual) of ||grad
+    loss(u0)||: a stiffness off by more than the tolerance the caller
+    asked for is refused.  The answer's own float32 rounding is in both
+    terms and cancels (on a new load the difference reads at most 3.6e-8
+    of ||grad loss(u0)||, PERF.md section 6), whereas the true residual
+    of a float32 answer lies near eps x cond(K), far above ``tol``, so it
+    cannot be held to it.  A load enters both gradients of the solve's
+    loss alike, so a new load passes.  The host reads the comparison
+    once the loop has stopped."""
+    with annotate("hidenn.aux.level_ops"):
+        r = {k: -g for k, g in _grad(loss_fn, params, loss_args).items()}
+    # through ``_pcg``, as ``multigrid``'s plan: with ``loop=`` it runs the
+    # kept loop, on the system the loop was made with, which the other
+    # arguments name
+    x, hist = _pcg(plan.matvec, plan.precond, plan.dot, r, plan.max_iters,
+                   plan.tol, loop=plan.loop)
+    sol = {k: params[k] + x[k] for k in params}
+    with annotate("hidenn.aux.check"):
+        g = _grad(loss_fn, sol, loss_args)
+        kx = plan.matvec(x)
+        d = {k: g[k] + r[k] - kx[k] for k in g}
+        c = plan.loop.carried
+        # rs0 = ||grad loss(u0)||^2, rs the loop's last recursive ||r||^2
+        limit = torch.maximum(plan.tol * plan.tol * c.rs0, c.rs)
+        passed = bool(plan.dot(d, d) <= limit)
+    return (sol, hist) if passed else None
+
+
+def _kept(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
+          params: dict, loss_args: tuple, pre: _AuxPrecond):
+    """``_aux_pcg`` through the plan held on ``pre`` (``aux_pcg_solve``):
+    the held plan replayed where its key matches and the check passes its
+    answer, else a new plan, built, run and held in its place."""
+    key = _plan_key(bg_model, params, loss_args, max_iters, tol, u_key)
+    plan = pre.plan
+    # detached while it runs: a solve that raises leaves no plan
+    object.__setattr__(pre, "plan", None)
+    if plan is not None and plan.key == key:
+        out = _replayed(plan, loss_fn, params, loss_args)
+        plan_counts["reused" if out is not None else "refused"] += 1
+        if out is not None:
+            object.__setattr__(pre, "plan", plan)
+            return out
+    plan = None                 # its graphs go before new ones are made
+    with annotate("hidenn.aux.level_ops"):
+        g0 = _grad(loss_fn, params, loss_args)
+        r = {k: -g for k, g in g0.items()}
+        plan = _Plan(key, loss_fn, bg_model, pre, params, g0, loss_args, r,
+                     max_iters, tol, u_key)
+    plan_counts["built"] += 1
+    x, hist = _pcg(plan.matvec, plan.precond, plan.dot, r, max_iters, tol,
+                   loop=plan.loop)
+    object.__setattr__(pre, "plan", plan)
+    return {k: params[k] + x[k] for k in params}, hist
+
+
+def _aux_pcg(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
+             params, loss_args: tuple, pre: _AuxPrecond,
+             keep: bool = False):
+    """Solve from ``params`` (module doc).  ``keep``: through the plan
+    held on ``pre`` (``_kept``); without it the solve makes its own loop
+    and touches no plan (the sharded solve's all-reduced loss and
+    ``radapt_aux_solve``, whose preconditioner lives one epoch)."""
+    params = {k: v.detach() for k, v in params.items()}
+    if keep:
+        return _kept(loss_fn, bg_model, max_iters, tol, u_key, params,
+                     loss_args, pre)
+    with annotate("hidenn.aux.level_ops"):
+        g0 = _grad(loss_fn, params, loss_args)
+        system = _system(loss_fn, bg_model, pre, params, g0, loss_args,
+                         u_key)
     # the stop flag is identical on every rank of a sharded solve, whose
     # matvecs are all-reduced
-    x, hist = _pcg(matvec, precond, dot, {k: -g for k, g in g0.items()},
-                   max_iters, tol)
+    x, hist = _pcg(*system, {k: -g for k, g in g0.items()}, max_iters, tol)
     return {k: params[k] + x[k] for k in params}, hist
 
 
@@ -592,11 +738,49 @@ def aux_pcg_solve(loss_fn, params, loss_args: tuple = (), mesh=None,
                   max_iters: int = 200, tol: float = 1e-6,
                   u_key: str = "u") -> Tuple[dict, torch.Tensor]:
     """Auxiliary-space-preconditioned CG for quadratic losses on
-    unstructured meshes (module doc).  Pass a prebuilt ``pre``
-    (``build_aux_preconditioner``) to amortize the set-up across solves.
+    unstructured meshes (module doc).
+
+    Pass a prebuilt ``pre`` (``build_aux_preconditioner``) to amortize
+    the set-up across solves.  The solve keeps its plan on it: the
+    background levels' operators, static copies of the start u0 and of
+    g0 = grad loss(u0) of its loss, the matvec v -> grad loss(u0 + v) -
+    g0 (K v for a quadratic loss, whatever its load), the PCG loop's
+    carried tensors and, on the card, its start (the first
+    preconditioner application and the dots) and iteration, each
+    recorded once in a CUDA graph.  A later solve on ``pre`` whose key
+    matches builds its right-hand side -grad loss(u0) with its own loss,
+    copies it in and replays both.  The key: each of ``loss_args`` by
+    identity (a tensor with its in-place version), the params' keys,
+    shapes, dtypes and devices, ``u_key``, ``max_iters``, ``tol``, the
+    background model and whether the card captures; otherwise the solve
+    builds a new plan, which replaces the held one.  The key cannot see
+    what the loss computes (its E, nu, coordinates held elsewhere), so a
+    replayed answer u0 + x is checked with the solve's own loss: it is
+    returned where grad loss(u0 + x) - grad loss(u0) and the plan's
+    matvec of x differ by at most max(tol, the loop's final relative
+    residual) x ||grad loss(u0)|| (``_replayed``), two more gradients and
+    one host read a solve.  Otherwise the answer is thrown away
+    (``plan_counts["refused"]``) and the solve runs afresh on its own
+    loss, on a new plan that replaces the held one.  So the plan pays
+    where solves on ``pre`` repeat with the same ``loss_args`` objects and
+    one stiffness, as a sweep of load cases from rest does.  A refused
+    solve costs the replay and the check on top of a fresh solve, up to
+    twice a solve without a plan: a loss of another stiffness, and a
+    start near its answer and away from the plan's base point, which can
+    be refused for float32 rounding alone (its two gradients then cancel
+    their large terms in ||grad loss(u0)||'s small units).  The first
+    solve on a plan warms up and records the iteration, the second
+    records the start; at most these two graphs stay alive, and they die
+    with the preconditioner (``dataclasses.replace`` makes one without
+    the plan).  Without ``pre`` the solve builds a preconditioner and
+    keeps no plan.
+
     Returns (solution params, per-iteration relative residual norms
-    [max_iters], zero for iterations never run)."""
+    [max_iters], zero for iterations never run); neither shares memory
+    with the plan.
+    """
     with annotate("hidenn.aux_pcg_solve"):
+        keep = pre is not None
         if pre is None:
             pre = build_aux_preconditioner(
                 loss_fn, params, tuple(loss_args), mesh, bg_model=bg_model,
@@ -613,7 +797,7 @@ def aux_pcg_solve(loss_fn, params, loss_args: tuple = (), mesh=None,
         elif bg_model is None:
             bg_model = StructuredGridP1(E=10e9, nu=0.3)
         return _aux_pcg(loss_fn, bg_model, int(max_iters), float(tol),
-                        u_key, params, tuple(loss_args), pre)
+                        u_key, params, tuple(loss_args), pre, keep=keep)
 
 
 def radapt_aux_solve(loss_fn, params, mesh, loss_args: tuple = (),
@@ -663,8 +847,11 @@ def radapt_aux_solve(loss_fn, params, mesh, loss_args: tuple = (),
         else:                        # refresh only the exact diagonal
             diag = jacobi_diagonal(u_loss, up, args, colors)[u_key]
             pre = dataclasses.replace(pre, dinv=_guarded_inverse(diag))
-        pu, _ = aux_pcg_solve(u_loss, up, args, pre=pre, bg_model=bg_model,
-                              max_iters=pcg_iters, tol=pcg_tol, u_key=u_key)
+        # no plan: an epoch's preconditioner serves one solve
+        with annotate("hidenn.aux_pcg_solve"):
+            pu, _ = _aux_pcg(u_loss, pre.bg_model or bg_model,
+                             int(pcg_iters), float(pcg_tol), u_key, up, args,
+                             pre)
         params = {u_key: pu[u_key], coord_key: coords0}
         with torch.no_grad():
             energies.append(loss_fn(params, *loss_args))

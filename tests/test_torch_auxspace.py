@@ -38,6 +38,8 @@ ten-epoch drop is 8.5708e-3 against 8.5680e-3 (JAX measured 8.6e-3).
 
 import dataclasses
 import functools
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -590,3 +592,264 @@ def test_radapt_2d_lowers_equilibrated_energy():
     assert float(dc.max()) > 0.01
     pin = (tm.geom_boundary_mask | tm.dirichlet_mask).numpy()
     assert float(dc.numpy()[pin].max()) == 0.0
+
+
+# ------------------------------------------- the plan a preconditioner keeps
+MAGS = (1e5, 5e4, 1.5e5)
+PLAN_KW = dict(max_iters=200, tol=1e-6)
+PLAN_KW64 = dict(max_iters=400, tol=1e-10)
+# a loss the key cannot tell from the plan's, with another stiffness: 1%
+# off, and E off by three times the tolerance, just above the check's limit
+STIFFER = {"E": dict(E=1.01 * E), "nu": dict(nu=0.31),
+           "stretch": dict(stretch=1.01),
+           "E_3tol": dict(E=(1 + 3 * PLAN_KW["tol"]) * E)}
+
+
+@functools.lru_cache(maxsize=None)
+def _delaunay(f64=False):
+    """The lc=0.05 Delaunay plate (1,653 elements) with its banded
+    tables: the benchmark's route for unstructured meshes."""
+    m = pt.generate_mesh_delaunay(lc=0.05, device=CPU)
+    arrays = {k: getattr(m, k).numpy() for k in (
+        "coords", "connectivity", "geom_boundary_mask", "dirichlet_mask",
+        "neumann_mask", "neumann_edges")}
+    return pt.TriMesh.from_arrays(
+        **arrays, build_banded=True, device=CPU,
+        dtype=torch.float64 if f64 else torch.float32)
+
+
+def _plate_loss(mag, f64=False, E=E, nu=NU, stretch=1.0):
+    """The plate's energy under a resultant ``mag`` along +x, as a loss
+    of ``{"u"}`` (a new closure a call, as a load-case sweep makes it);
+    ``stretch`` scales x inside the loss, where the key cannot see it."""
+    dt = torch.float64 if f64 else torch.float32
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1(dtype=dt), E=E,
+                                  nu=nu, F_total=mag)
+    scale = torch.tensor([stretch, 1.0], dtype=dt)
+
+    def u_loss(p, coords, m):
+        return energy.total({"coords": coords * scale, "u": p["u"]}, m)
+    return u_loss
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_pre(f64=False):
+    mesh = _delaunay(f64)
+    bg = TBG(E=E, nu=NU, dtype=torch.float64 if f64 else torch.float32)
+    return tax.build_aux_preconditioner(
+        _plate_loss(MAGS[0], f64), _rest(mesh), (mesh.coords, mesh), mesh,
+        bg_model=bg)
+
+
+def _rest(mesh):
+    return {"u": torch.zeros((mesh.n_nodes, 2), dtype=mesh.coords.dtype)}
+
+
+def _fresh():
+    """A preconditioner with no plan: the cached one's tables."""
+    return dataclasses.replace(_plan_pre())
+
+
+def _plan_moved(before):
+    return {k: tax.plan_counts[k] - before[k] for k in before}
+
+
+@functools.lru_cache(maxsize=None)
+def _solved64(mag):
+    """The float64 answer of a load case, to relres 1e-10."""
+    mesh = _delaunay(True)
+    sol, _ = tax.aux_pcg_solve(_plate_loss(mag, True), _rest(mesh),
+                               (mesh.coords, mesh),
+                               pre=dataclasses.replace(_plan_pre(True)),
+                               **PLAN_KW64)
+    return sol["u"]
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_a_kept_plan_solves_as_a_fresh_preconditioner(f64):
+    """One loss object twice: bit for bit the fresh solve.  Other loads
+    on the plan of the first: float64 within 1e-8 of the fresh answer;
+    float32 no farther from the float64 answer than the fresh answers
+    are, times two (the fresh ones lie 2.8e-7-6.7e-7 from it with the
+    load, the kept ones 1.8e-7-7.7e-7, over four plans and five loads)."""
+    mesh, pre = _delaunay(f64), _plan_pre(f64)
+    args, kw = (mesh.coords, mesh), PLAN_KW64 if f64 else PLAN_KW
+    held, before = dataclasses.replace(pre), dict(tax.plan_counts)
+    loss = _plate_loss(MAGS[0], f64)
+    kept = [tax.aux_pcg_solve(loss, _rest(mesh), args, pre=held, **kw)
+            for _ in range(2)]
+    kept += [tax.aux_pcg_solve(_plate_loss(m, f64), _rest(mesh), args,
+                               pre=held, **kw) for m in MAGS[1:]]
+    assert _plan_moved(before) == {"built": 1, "reused": 3, "refused": 0}
+    fresh = [tax.aux_pcg_solve(_plate_loss(m, f64), _rest(mesh), args,
+                               pre=dataclasses.replace(pre), **kw)
+             for m in MAGS]
+    for sol, hist in kept[:2]:
+        assert torch.equal(sol["u"], fresh[0][0]["u"])
+        assert torch.equal(hist, fresh[0][1])
+    if not f64:
+        fresh_err = max(float((fsol["u"].double() - _solved64(m)).norm())
+                        for (fsol, _), m in zip(fresh, MAGS))
+    for (sol, hist), (fsol, fhist), m in zip(kept[2:], fresh[1:], MAGS[1:]):
+        assert _last(hist.numpy()) <= kw["tol"]
+        u, fu = sol["u"], fsol["u"]
+        if f64:
+            assert float((u - fu).norm()) <= 1e-8 * float(fu.norm())
+        else:
+            assert float((u.double() - _solved64(m)).norm()) \
+                <= 2 * fresh_err
+
+
+def test_a_later_solve_leaves_an_earlier_answer_alone():
+    """No returned tensor shares memory with the plan's static tensors, so
+    a second solve on the plan changes nothing the first returned; and the
+    plan dies with its preconditioner, no collection needed."""
+    mesh = _delaunay()
+    args, held = (mesh.coords, mesh), _fresh()
+    sol, hist = tax.aux_pcg_solve(_plate_loss(MAGS[1]), _rest(mesh), args,
+                                  pre=held, **PLAN_KW)
+    u1, h1 = sol["u"].clone(), hist.clone()
+    c = held.plan.loop.carried
+    static = [t for d in (c.x, c.r, c.p) for t in d.values()] + [
+        c.rs0, c.rz, c.rs, c.thresh, c.hist, c.i, c.active]
+    plan_memory = {t.untyped_storage().data_ptr() for t in static}
+    for t in (sol["u"], hist):
+        assert t.untyped_storage().data_ptr() not in plan_memory
+    tax.aux_pcg_solve(_plate_loss(MAGS[2]), _rest(mesh), args, pre=held,
+                      **PLAN_KW)
+    assert held.plan is not None
+    assert torch.equal(sol["u"], u1) and torch.equal(hist, h1)
+    plan = weakref.ref(held.plan)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del held, c, static
+        assert plan() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
+KEY_CHANGES = ("max_iters", "tol", "dtype", "coords_tensor",
+               "coords_in_place")
+
+
+@pytest.mark.parametrize("change", KEY_CHANGES)
+def test_a_key_that_differs_builds_a_new_plan(change):
+    """A solve whose key differs from the held plan's builds its own,
+    which replaces the held one and answers as a fresh preconditioner
+    does."""
+    mesh = _delaunay()
+    coords = mesh.coords.clone()
+    held, loss, rest = _fresh(), _plate_loss(MAGS[0]), _rest(mesh)
+    kw = dict(max_iters=12, tol=1e-6)      # bits, not convergence
+    before = dict(tax.plan_counts)
+    tax.aux_pcg_solve(loss, rest, (coords, mesh), pre=held, **kw)
+    first = held.plan
+    if change == "max_iters":
+        kw["max_iters"] = 10
+    elif change == "tol":
+        kw["tol"] = 1e-5
+    elif change == "dtype":
+        rest = {"u": rest["u"].double()}
+    elif change == "coords_tensor":
+        coords = coords.clone()
+    else:
+        coords.add_(0.0)
+    sol, hist = tax.aux_pcg_solve(loss, rest, (coords, mesh), pre=held,
+                                  **kw)
+    assert _plan_moved(before) == {"built": 2, "reused": 0, "refused": 0}
+    assert held.plan is not first and held.plan.key != first.key
+    fsol, fhist = tax.aux_pcg_solve(loss, rest, (coords, mesh),
+                                    pre=_fresh(), **kw)
+    assert sol["u"].dtype == rest["u"].dtype
+    assert torch.equal(sol["u"], fsol["u"]) and torch.equal(hist, fhist)
+
+
+@pytest.mark.parametrize("change", list(STIFFER))
+def test_a_loss_of_another_stiffness_is_refused(change):
+    """The same arguments, a loss with another stiffness (E x 1.01, nu
+    0.31, x stretched by 1%, E x (1 + 3 tol)): the check refuses the
+    replayed answer, the
+    solve answers bit for bit as a fresh preconditioner does, and the
+    plan it builds serves that loss's next load."""
+    mesh = _delaunay()
+    args, held = (mesh.coords, mesh), _fresh()
+    tax.aux_pcg_solve(_plate_loss(MAGS[0]), _rest(mesh), args, pre=held,
+                      **PLAN_KW)
+    other = _plate_loss(MAGS[1], **STIFFER[change])
+    before = dict(tax.plan_counts)
+    sol, hist = tax.aux_pcg_solve(other, _rest(mesh), args, pre=held,
+                                  **PLAN_KW)
+    assert _plan_moved(before) == {"built": 1, "reused": 0, "refused": 1}
+    fsol, fhist = tax.aux_pcg_solve(other, _rest(mesh), args, pre=_fresh(),
+                                    **PLAN_KW)
+    assert torch.equal(sol["u"], fsol["u"]) and torch.equal(hist, fhist)
+    before = dict(tax.plan_counts)
+    tax.aux_pcg_solve(_plate_loss(MAGS[2], **STIFFER[change]), _rest(mesh),
+                      args, pre=held, **PLAN_KW)
+    assert _plan_moved(before) == {"built": 0, "reused": 1, "refused": 0}
+
+
+def test_a_replaced_preconditioner_carries_no_plan(monkeypatch):
+    """``dataclasses.replace`` (``radapt_aux_solve``'s refresh of the
+    diagonal) makes a preconditioner without the plan, and the r-adaptive
+    solve, whose preconditioner serves one solve an epoch, keeps none:
+    every epoch solves without a plan, and a second run repeats the
+    first's energies and answer bit for bit."""
+    mesh = _delaunay()
+    held = _fresh()
+    tax.aux_pcg_solve(_plate_loss(MAGS[0]), _rest(mesh), (mesh.coords, mesh),
+                      pre=held, **PLAN_KW)
+    assert held.plan is not None
+    assert dataclasses.replace(held, dinv=2.0 * held.dinv).plan is None
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1(), E=E, nu=NU)
+    p0 = {"coords": mesh.coords, "u": torch.zeros_like(mesh.coords)}
+
+    def radapt():
+        return tax.radapt_aux_solve(
+            lambda p, m: energy(p, m), dict(p0), mesh, loss_args=(mesh,),
+            bg_model=TBG(E=E, nu=NU), outer_epochs=2, pcg_iters=40,
+            coord_steps=2, coord_lr=1e-4)
+
+    solve, keeps = tax._aux_pcg, []
+
+    def plain(*a, **kw):
+        keeps.append(kw.get("keep", False))
+        return solve(*a, **kw)
+
+    before = dict(tax.plan_counts)
+    pk, ek = radapt()
+    assert _plan_moved(before) == {"built": 0, "reused": 0, "refused": 0}
+    monkeypatch.setattr(tax, "_aux_pcg", plain)
+    p, e = radapt()
+    assert keeps == [False, False]
+    assert torch.equal(ek, e)
+    assert all(torch.equal(pk[k], p[k]) for k in p)
+
+
+def test_the_sharded_solve_keeps_no_plan():
+    """``aux_pcg_solve_sharded`` (one rank here) runs its own loop on a
+    prebuilt preconditioner and leaves its plan as it found it."""
+    from hidenn_fem_tpu_torch.parallel import DeviceMesh, \
+        aux_pcg_solve_sharded
+
+    mesh = _delaunay()
+    held = _fresh()
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1(), E=E, nu=NU,
+                                  F_total=MAGS[0])
+    params = {"coords": mesh.coords, "u": _rest(mesh)["u"]}
+    one = DeviceMesh(group=None, rank=0, size=1, device=CPU)
+    before = dict(tax.plan_counts)
+    sol, hist = aux_pcg_solve_sharded(energy, mesh, params, dmesh=one,
+                                      pre=held, **PLAN_KW)
+    assert _last(hist.numpy()) <= 1e-6
+    assert held.plan is None
+    assert _plan_moved(before) == {"built": 0, "reused": 0, "refused": 0}
+    tax.aux_pcg_solve(_plate_loss(MAGS[0]), _rest(mesh), (mesh.coords, mesh),
+                      pre=held, **PLAN_KW)
+    plan, before = held.plan, dict(tax.plan_counts)
+    aux_pcg_solve_sharded(energy, mesh, params, dmesh=one, pre=held,
+                          **PLAN_KW)
+    assert held.plan is plan
+    assert _plan_moved(before) == {"built": 0, "reused": 0, "refused": 0}

@@ -27,12 +27,19 @@ solves, and the gauge of CUDA graphs still alive (``solve/loop.py``'s
   third solve on, and give both graphs back when the hierarchy goes,
   with the collector off.  A captured aux-space PCG solve on a mesh with
   banded tables moves K4's launch counter as the eager solve does, and
-  answers as it does.
+  answers as it does.  Load cases on one aux preconditioner
+  (``aux_pcg_solve`` with ``pre``) record two graphs in all and none
+  from the third solve on; a replay moves K4's counter as the eager
+  solve does plus the check's two gradients (``hidenn.aux.check``, after
+  the replays), answers one loss object bit for bit as the eager solve
+  does and another load within 1e-5, and both graphs go when the
+  preconditioner does, with the collector off.
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_spans.py``.
 """
 
+import dataclasses
 import gc
 
 import numpy as np
@@ -373,3 +380,76 @@ def test_a_captured_aux_solve_counts_k4_as_an_eager_one(dev, monkeypatch):
     assert loop.captures["graphs"] - graphs == 1
     assert launches == elaunches > 0
     assert torch.equal(hist, ehist) and torch.equal(u, eu)
+
+
+@pytest.mark.cuda
+def test_load_cases_on_one_aux_preconditioner_replay_its_two_graphs(
+        dev, monkeypatch):
+    from hidenn_fem_tpu_torch.ops import banded_energy
+    from hidenn_fem_tpu_torch.solve import auxspace
+
+    mesh = _banded_delaunay(dev)
+    bg = StructuredGridP1(E=10e9, nu=0.3)
+    up = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    args = (mesh.coords, mesh)
+
+    def loss_of(magnitude):
+        energy = pt.PlaneStressEnergy(model=pt.TriangleP1(),
+                                      F_total=magnitude)
+
+        def u_loss(p, coords, m):
+            return energy.total({"coords": coords, "u": p["u"]}, m)
+        return u_loss
+
+    loss = loss_of(1e5)
+    pre = pt.build_aux_preconditioner(loss, up, args, mesh, bg_model=bg)
+
+    def solve(u_loss, p):
+        before = banded_energy.launch_counts["banded_vg"]
+        sol, hist = pt.aux_pcg_solve(u_loss, up, args, pre=p, bg_model=bg,
+                                     max_iters=60, tol=1e-6)
+        torch.cuda.synchronize()
+        return (sol["u"], hist,
+                banded_energy.launch_counts["banded_vg"] - before)
+
+    held = dataclasses.replace(pre)
+    gc.collect()
+    graphs0, freed0 = loop.captures["graphs"], loop.captures["freed"]
+    counts0 = dict(auxspace.plan_counts)
+    cases = [loss, loss, loss, loss_of(6e4), loss]
+    kept, recorded = [], []
+    for i, u_loss in enumerate(cases):
+        if i == 3:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                kept.append(solve(u_loss, held))
+        else:
+            kept.append(solve(u_loss, held))
+        recorded.append(loop.captures["graphs"] - graphs0)
+    assert recorded == [1, 2, 2, 2, 2]
+    assert {k: auxspace.plan_counts[k] - counts0[k] for k in counts0} == {
+        "built": 1, "reused": 4, "refused": 0}
+    spans = _spans(prof)
+    assert not _named(spans, "hidenn.loop.record")
+    assert _named(spans, "hidenn.loop.replay")
+    (check,) = _named(spans, "hidenn.aux.check")
+    assert _named(spans, "hidenn.loop.replay")[-1][1] <= check[0]
+    monkeypatch.setattr(loop, "capturable", lambda device: False)
+    eager = [solve(u_loss, dataclasses.replace(pre))
+             for u_loss in (loss, cases[3])]
+    # a replay's K4 launches are the eager solve's, and the check's two
+    # gradients (the plan's first solve has no check)
+    assert kept[0][2] == eager[0][2] > 0
+    for i, (u, hist, launches) in enumerate(kept):
+        eu, eh, elaunches = eager[1 if i == 3 else 0]
+        assert launches == elaunches + (2 if i else 0), i
+        if i != 3:
+            assert torch.equal(u, eu) and torch.equal(hist, eh), i
+        else:
+            assert float((u - eu).norm()) <= 1e-5 * float(eu.norm())
+    gc.disable()
+    try:
+        del held
+        assert loop.captures["freed"] - freed0 == 2
+    finally:
+        gc.enable()
