@@ -34,13 +34,13 @@ reading the stop flag once every ``loop.READ_EVERY`` iterations; the
 background levels' operators and the windowed P^T's gather index are
 built before the first iteration, and the history holds zeros past the
 stop.  None of that depends on the load, so a solve on a prebuilt
-preconditioner keeps its plan there (``_Plan``: the level operators, the
-fine operator at the plan's base point and a kept ``linear.PCGLoop``,
-whose start and iteration are each recorded once), and the next solve
-with the same key replays both graphs after one copy of its right-hand
-side.  The fine operator is the caller's loss, which the key cannot see,
-so a replayed answer is returned only where the solve's own loss passes
-it (``_replayed``); ``plan_counts`` counts the plans built, reused and
+preconditioner keeps its plan there (a kept ``linear.PCGLoop`` on the
+level operators and the fine operator at the plan's base point, whose
+start and iteration are each recorded once), and the next solve with the
+same key replays both graphs after one copy of its right-hand side.
+The fine operator is the caller's loss, which the key cannot see, so a
+replayed answer is returned only where the solve's own loss passes it
+(``_replayed``); ``plan_counts`` counts the plans built, reused and
 refused.
 """
 
@@ -58,7 +58,8 @@ from ..ops.assembly import weighted_incidence_gather_sum
 from ..utils.profiling import annotate
 from . import loop as _loop
 from . import multigrid as mg
-from .linear import PCGLoop, _grad, _pcg, _tree_axpy, jacobi_diagonal
+from .linear import (PCGLoop, _grad, _pcg, _tree_axpy, hold_plan,
+                     jacobi_diagonal, take_plan)
 
 __all__ = ["build_aux_preconditioner", "aux_pcg_solve", "radapt_aux_solve"]
 
@@ -113,10 +114,10 @@ class _AuxPrecond:
     # row), derived from the window tables once, not on every application
     ptw_idx: Optional[torch.Tensor] = dataclasses.field(init=False,
                                                         default=None)
-    # the plan of the last ``aux_pcg_solve`` on this preconditioner
-    # (``_Plan``; None before one), which dies with it:
+    # the plan of the last ``aux_pcg_solve`` on this preconditioner (a
+    # kept ``PCGLoop``; None before one), which dies with it:
     # ``dataclasses.replace`` makes a preconditioner without it
-    plan: Optional["_Plan"] = dataclasses.field(init=False, default=None,
+    plan: Optional[PCGLoop] = dataclasses.field(init=False, default=None,
                                                 repr=False, compare=False)
 
     def __post_init__(self):
@@ -587,7 +588,8 @@ def _system(loss_fn, bg_model, pre: _AuxPrecond, u0: dict, g0: dict,
     """(matvec, precond, dot) of the PCG loop: v -> grad loss(u0 + v) - g0
     with g0 = grad loss(u0), which is K v for a quadratic loss whatever
     its load, and M^{-1} on the background levels' operators, built here
-    once (loop-invariant)."""
+    once (loop-invariant).  The closures hold u0, g0 and ``loss_args``,
+    so a plan made of them keeps the identities in its key."""
     ops = mg._level_ops(bg_model, pre.levels)
 
     def matvec(v):
@@ -603,30 +605,10 @@ def _system(loss_fn, bg_model, pre: _AuxPrecond, u0: dict, g0: dict,
     return matvec, precond, dot
 
 
-class _Plan:
-    """What an aux-PCG solve on one preconditioner runs besides its
-    right-hand side, under ``key`` (``_plan_key``): the ``_system`` at
-    static copies of the base point u0 and of g0 = grad loss(u0) of the
-    loss it was built with, and a kept ``linear.PCGLoop`` on it.  It
-    holds ``loss_args``, so their identities in its key stay theirs.  Its
-    closures hold the preconditioner's tables through a copy without the
-    plan (``_unplanned``), never the ``_AuxPrecond`` that holds it."""
-
-    def __init__(self, key: tuple, loss_fn, bg_model, pre: _AuxPrecond,
-                 params: dict, g0: dict, loss_args: tuple, r: dict,
-                 max_iters: int, tol: float, u_key: str):
-        self.key, self.loss_args = key, loss_args
-        self.max_iters, self.tol = max_iters, tol
-        u0 = {k: v.clone() for k, v in params.items()}
-        self.matvec, self.precond, self.dot = _system(
-            loss_fn, bg_model, _unplanned(pre), u0, g0, loss_args, u_key)
-        self.loop = PCGLoop(self.matvec, self.precond, self.dot, r,
-                            max_iters, tol, keep=True)
-
-
 def _unplanned(pre: _AuxPrecond) -> _AuxPrecond:
     """``pre`` without its plan: the same tensors (none copied or derived
-    again), for a plan to hold."""
+    again), for a plan's closures to hold without a cycle through the
+    preconditioner that holds the plan."""
     out = copy.copy(pre)
     object.__setattr__(out, "plan", None)
     return out
@@ -647,7 +629,7 @@ def _plan_key(bg_model, params: dict, loss_args: tuple, max_iters: int,
             _loop.capturable(params[u_key].device))
 
 
-def _replayed(plan: _Plan, loss_fn, params: dict, loss_args: tuple):
+def _replayed(plan: PCGLoop, loss_fn, params: dict, loss_args: tuple):
     """The held plan's (solution, history) for this solve's loss and
     start, or None where the check refuses the answer.
 
@@ -669,13 +651,13 @@ def _replayed(plan: _Plan, loss_fn, params: dict, loss_args: tuple):
     # kept loop, on the system the loop was made with, which the other
     # arguments name
     x, hist = _pcg(plan.matvec, plan.precond, plan.dot, r, plan.max_iters,
-                   plan.tol, loop=plan.loop)
+                   plan.tol, loop=plan)
     sol = {k: params[k] + x[k] for k in params}
     with annotate("hidenn.aux.check"):
         g = _grad(loss_fn, sol, loss_args)
         kx = plan.matvec(x)
         d = {k: g[k] + r[k] - kx[k] for k in g}
-        c = plan.loop.carried
+        c = plan.carried
         # rs0 = ||grad loss(u0)||^2, rs the loop's last recursive ||r||^2
         limit = torch.maximum(plan.tol * plan.tol * c.rs0, c.rs)
         passed = bool(plan.dot(d, d) <= limit)
@@ -688,25 +670,26 @@ def _kept(loss_fn, bg_model, max_iters: int, tol: float, u_key: str,
     the held plan replayed where its key matches and the check passes its
     answer, else a new plan, built, run and held in its place."""
     key = _plan_key(bg_model, params, loss_args, max_iters, tol, u_key)
-    plan = pre.plan
-    # detached while it runs: a solve that raises leaves no plan
-    object.__setattr__(pre, "plan", None)
-    if plan is not None and plan.key == key:
+    plan = take_plan(pre, key)
+    if plan is not None:
         out = _replayed(plan, loss_fn, params, loss_args)
         plan_counts["reused" if out is not None else "refused"] += 1
         if out is not None:
-            object.__setattr__(pre, "plan", plan)
+            hold_plan(pre, plan)
             return out
     plan = None                 # its graphs go before new ones are made
     with annotate("hidenn.aux.level_ops"):
         g0 = _grad(loss_fn, params, loss_args)
         r = {k: -g for k, g in g0.items()}
-        plan = _Plan(key, loss_fn, bg_model, pre, params, g0, loss_args, r,
-                     max_iters, tol, u_key)
+        # the system at a static copy of the base point u0, and at g0
+        u0 = {k: v.clone() for k, v in params.items()}
+        plan = PCGLoop(*_system(loss_fn, bg_model, _unplanned(pre), u0, g0,
+                                loss_args, u_key),
+                       r, max_iters, tol, key=key)
     plan_counts["built"] += 1
     x, hist = _pcg(plan.matvec, plan.precond, plan.dot, r, max_iters, tol,
-                   loop=plan.loop)
-    object.__setattr__(pre, "plan", plan)
+                   loop=plan)
+    hold_plan(pre, plan)
     return {k: params[k] + x[k] for k in params}, hist
 
 

@@ -31,10 +31,11 @@ the same reads); a solve allowed fewer than ``loop.MIN_CAPTURED``
 iterations stays eager.  The calls past the stop are masked device work
 and launch their kernels like any other (the launch counters count
 them).  The carried tensors, the start and the iteration make a
-``PCGLoop``: a solve makes one and drops it, except where
-``multigrid``'s plan keeps one for the solves on a hierarchy, which then
-record the start once too and only replay.  The multigrid and
-auxiliary-space solvers run the same body.
+``PCGLoop``: a solve makes one and drops it, except where a solver keeps
+one as its plan (a loop with a key) on a holder for the next solve,
+which then records the start once too and only replays.  The multigrid
+solver keeps its plan on a hierarchy and the auxiliary-space solver on
+its preconditioner, both through ``take_plan`` and ``hold_plan``.
 The Jacobi diagonal's colored probing is set-up and stays eager.  The
 history has ``max_iters`` entries and holds zeros for iterations never
 run.  Params are dicts of tensors; leaves are taken in sorted-key order,
@@ -160,43 +161,60 @@ class PCGLoop:
     run from x = 0 by calls on a residual: its carried tensors (the first
     call's ``r`` becomes the carried residual), its start and its masked
     iteration, which a ``loop.Replayer`` runs through ``loop.while_loop``.
-    With ``keep`` the loop serves repeated solves: a ``Replayer`` runs the
-    start too and both are kept, so on the card the first call warms up
-    both bodies and records the iteration, the second records the start,
-    and every later call copies its residual in and replays the two
-    graphs.  Without it the start runs eagerly and the loop serves one
-    call.  The closures hold the carried tensors, never the loop, so
-    dropping the loop frees its graphs without a collection."""
+    A loop with a ``key`` is a kept plan, which serves repeated solves of
+    that key: a ``Replayer`` runs the start too and both are kept, so on
+    the card the first call warms up both bodies and records the
+    iteration, the second records the start, and every later call copies
+    its residual in and replays the two graphs.  Without a key the start
+    runs eagerly and the loop serves one call.  The closures hold the
+    carried tensors, never the loop, so dropping the loop frees its
+    graphs without a collection."""
 
     def __init__(self, matvec, precond, dot, r: dict, max_iters: int,
-                 tol: float, atol: float = 0.0, keep: bool = False):
+                 tol: float, atol: float = 0.0, key=None):
+        self.matvec, self.precond, self.dot = matvec, precond, dot
+        self.max_iters, self.tol, self.key = max_iters, tol, key
         self.carried = _Carried(r, max_iters)
         start, body = _bodies(matvec, precond, dot, self.carried, max_iters,
                               tol, atol)
-        self.max_iters, self.keep = max_iters, keep
         self.device = self.carried.rs0.device
         capture = (_loop.capturable(self.device)
                    and max_iters >= _loop.MIN_CAPTURED)
         self.body = _loop.Replayer(body, self.device, capture)
-        self.start = (_loop.Replayer(start, self.device, capture) if keep
-                      else start)
+        self.start = (start if key is None
+                      else _loop.Replayer(start, self.device, capture))
 
     def __call__(self, r: dict):
         """One solve from x = 0 and the residual ``r``: (x, relres history
-        [max_iters]).  x is the carried tensor; with ``keep`` the history
+        [max_iters]).  x is the carried tensor; on a kept loop the history
         is a copy, so a later call changes neither what an earlier one
         returned nor what its caller made of x."""
-        c = self.carried
+        c, kept = self.carried, self.key is not None
         for k, v in r.items():
             if v is not c.r[k]:
                 c.r[k].copy_(v)
         with annotate("hidenn.pcg.start"):
             self.start()
-            if self.keep:
+            if kept:
                 self.start.settle()
         _loop.while_loop(self.body, c.active, self.max_iters, self.device)
         hist = c.hist[:self.max_iters]
-        return c.x, hist.clone() if self.keep else hist
+        return c.x, hist.clone() if kept else hist
+
+
+def take_plan(holder, key):
+    """The kept ``PCGLoop`` on ``holder`` (a ``plan`` attribute, frozen or
+    not) if its key is ``key``, else None.  The holder keeps none: a solve
+    that raises leaves none, and a plan of another key is dropped here,
+    before a new plan records its graphs."""
+    plan = holder.plan
+    object.__setattr__(holder, "plan", None)
+    return plan if plan is not None and plan.key == key else None
+
+
+def hold_plan(holder, plan: PCGLoop):
+    """Keep ``plan`` on ``holder`` for its next solve (``take_plan``)."""
+    object.__setattr__(holder, "plan", plan)
 
 
 def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
@@ -205,11 +223,11 @@ def _pcg(matvec, precond, dot, r: dict, max_iters: int, tol: float,
     ``r`` (a dict of tensors; ``matvec``, ``precond`` map such dicts and
     ``dot`` two of them to a 0-dim tensor), one masked body run by
     ``loop.while_loop`` (module doc).  Returns (x, relres history
-    [max_iters]).  ``loop``: a kept ``PCGLoop`` of these same arguments
-    (bar ``r``) from an earlier call, run again from ``r``; None runs a
-    ``PCGLoop`` made for this call.  What comes before the iterations
-    (the first preconditioner application, the dots, the carried tensors)
-    is a ``hidenn.pcg.start`` span."""
+    [max_iters]).  ``loop``: a ``PCGLoop`` of these same arguments (bar
+    ``r``), run from ``r``; None runs a ``PCGLoop`` made for this call.
+    What comes before the iterations (the first preconditioner
+    application, the dots, the carried tensors) is a ``hidenn.pcg.start``
+    span."""
     if loop is None:
         loop = PCGLoop(matvec, precond, dot, r, max_iters, tol, atol)
     return loop(r)

@@ -39,11 +39,11 @@ operator (its pinned coordinates, stencil weights and gradient at zero:
 the host from ``lmax_host`` in the level's dtype and baked into the
 graph.  None of it depends on the load: the traction enters only the
 right-hand side.  So a solve on a hierarchy from ``build_hierarchy``
-keeps its plan (``_Plan``: the level operators and a kept
-``linear.PCGLoop``, whose start and iteration are each recorded once) on
-that hierarchy, and the next solve on it with the same key replays both
-graphs after one copy of its right-hand side (``plan_counts`` counts the
-plans built and reused).  A solve with no prebuilt hierarchy, as
+keeps its plan (a kept ``linear.PCGLoop`` on the level operators, whose
+start and iteration are each recorded once) on that hierarchy, and the
+next solve on it with the same key replays both graphs after one copy of
+its right-hand side (``plan_counts`` counts the plans built and
+reused).  A solve with no prebuilt hierarchy, as
 ``radapt_mg_solve``'s on every epoch, builds a plan and drops it.
 """
 
@@ -61,7 +61,7 @@ from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
                                 structured_stencil)
 from ..utils.profiling import annotate
 from . import loop as _loop
-from .linear import PCGLoop, _pcg
+from .linear import PCGLoop, _pcg, hold_plan, take_plan
 
 __all__ = ["coarsen_grid", "prolong", "build_hierarchy", "vcycle",
            "mg_pcg_solve", "radapt_mg_solve"]
@@ -359,23 +359,17 @@ def _udot(a: dict, b: dict) -> torch.Tensor:
     return torch.sum(a["u"] * b["u"])
 
 
-class _Plan:
+def _plan(key, model, levels: tuple, r: dict, max_iters: int, tol: float,
+          nu: int, coarse_degree: int) -> PCGLoop:
     """What an MG-PCG solve on one hierarchy runs besides its right-hand
-    side, under ``key`` (``_plan_key``): the level operators (their
-    gradients at zero included) and the PCG loop on them.  ``keep``: the
-    loop is kept for later solves (``linear.PCGLoop``).  Its closures hold
-    the ``_Level``s, not the ``Hierarchy`` that holds the plan."""
-
-    def __init__(self, key: tuple, model, levels: tuple, r: dict,
-                 max_iters: int, tol: float, nu: int, coarse_degree: int,
-                 keep: bool):
-        ops = _level_ops(model, levels)
-        self.key = key
-        self.matvec = lambda v: {"u": ops[0](v["u"])}
-        self.precond = lambda r: {"u": _vcycle(ops, levels, r["u"], nu,
-                                               coarse_degree)}
-        self.loop = PCGLoop(self.matvec, self.precond, _udot, r, max_iters,
-                            tol, keep=keep)
+    side: the PCG loop on the level operators (their gradients at zero
+    included), kept under ``key`` (``_plan_key``; None: one solve's).  Its
+    closures hold the ``_Level``s, not the ``Hierarchy`` that holds it."""
+    ops = _level_ops(model, levels)
+    return PCGLoop(lambda v: {"u": ops[0](v["u"])},
+                   lambda b: {"u": _vcycle(ops, levels, b["u"], nu,
+                                           coarse_degree)},
+                   _udot, r, max_iters, tol, key=key)
 
 
 def _plan_key(model, u0: torch.Tensor, max_iters: int, tol: float,
@@ -392,13 +386,9 @@ def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
             nu: int, coarse_degree: int, keep: bool = False):
     u0 = params["u"].detach()
     coords = levels[0].coords
-    key = _plan_key(model, u0, max_iters, tol, nu, coarse_degree)
-    plan = levels.plan if keep else None
-    if plan is not None:
-        # detached while it runs: a solve that raises leaves no plan
-        levels.plan = None
-        if plan.key != key:
-            plan = None
+    key = (_plan_key(model, u0, max_iters, tol, nu, coarse_degree) if keep
+           else None)
+    plan = take_plan(levels, key) if keep else None
     with annotate("hidenn.mg.level_ops"):
         u = u0.clone().requires_grad_(True)
         (g0,) = torch.autograd.grad(model({"coords": coords, "u": u}, grid),
@@ -407,15 +397,15 @@ def _mg_pcg(model, levels, grid, params, max_iters: int, tol: float,
         if plan is None:
             # loop invariants: every level's operator (level 0's is K of
             # the full energy: the traction term is linear in u)
-            plan = _Plan(key, model, tuple(levels), r, max_iters, tol, nu,
-                         coarse_degree, keep)
+            plan = _plan(key, model, tuple(levels), r, max_iters, tol, nu,
+                         coarse_degree)
             plan_counts["built"] += 1
         else:
             plan_counts["reused"] += 1
     x, hist = _pcg(plan.matvec, plan.precond, _udot, r, max_iters, tol,
-                   loop=plan.loop)
+                   loop=plan)
     if keep:
-        levels.plan = plan
+        hold_plan(levels, plan)
     return {"coords": params["coords"], "u": u0 + x["u"]}, hist
 
 

@@ -15,11 +15,13 @@ Tolerances:
   on JAX's levels the first 5 residuals rtol 1e-3; f64 to relres 1e-10,
   within 1e-8 x max|u| of the port's f64 CG solution.
 
-The plan a hierarchy keeps (``multigrid._Plan``, port only): a solve on
-a kept plan is bit-equal to the same load case on a fresh hierarchy (f32
-and f64, from rest and from the noise start), returns nothing that a
-later solve overwrites, and a plan is rebuilt where its key differs and
-kept nowhere without a prebuilt hierarchy; ``plan_counts`` counts each.
+The plan a hierarchy keeps (a kept ``linear.PCGLoop``, port only): a
+solve on a kept plan is bit-equal to the same load case on a fresh
+hierarchy (f32 and f64, from rest and from the noise start), returns
+nothing that a later solve overwrites, and a plan is rebuilt where its
+key differs and kept nowhere without a prebuilt hierarchy;
+``plan_counts`` counts each.  ``tests/test_torch_kept_plan.py`` holds
+what both solvers' plans share.
 """
 
 import dataclasses
@@ -278,7 +280,7 @@ def test_a_later_solve_leaves_an_earlier_answer_alone():
     sol, hist = tmg.mg_pcg_solve(loaded(LOADS[0]), tg, tp, levels=held,
                                  **PLAN_KW)
     u1, h1 = sol["u"].clone(), hist.clone()
-    c = held.plan.loop.carried
+    c = held.plan.carried
     carried = [t for d in (c.x, c.r, c.p) for t in d.values()] + [
         c.rs0, c.rz, c.rs, c.thresh, c.hist, c.i, c.active]
     plan_memory = {t.untyped_storage().data_ptr() for t in carried}

@@ -117,18 +117,6 @@ MMS = {"delaunay": dict(length=1.0, holes=(), lcs=(1 / 8, 1 / 16),
 E_BAR, BAR_NODES = 175.0, 41
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's solves here are chains of small eager ops: with several
-    test workers on the cores, torch's intra-op pool only slows them (the
-    Tier-1 cases took 221 s of one worker at 8 threads against ~35 s
-    alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _lib(pkg):
     return jnp if pkg is ht else torch
 

@@ -4,7 +4,15 @@ and torch generators give different numbers from the same seed.
 
 The port's entry points put their tensors on the card unless told
 otherwise; these tests run on the CPU and ask for it at every call
-(``device=CPU``)."""
+(``device=CPU``).
+
+Importing this module puts torch on one thread for the whole process.
+The port's CPU solves are chains of small eager ops, and with several
+test workers on the cores torch's intra-op pools only slow them (the
+Tier-1 run, six workers on an 8-core host: 546 s at torch's default
+eight threads a worker, 245 s at one).  Every test worker collects
+every test module, so this reaches every test that runs in one;
+processes the tests spawn set their own threads."""
 
 import dataclasses
 
@@ -16,6 +24,7 @@ import hidenn_fem_tpu as ht
 import hidenn_fem_tpu_torch as pt
 
 CPU = torch.device("cpu")
+torch.set_num_threads(1)
 
 
 def jax_mesh(*, holes=(), nx=17, ny=9, variant="zigzag",
