@@ -116,7 +116,8 @@ Phases (each raises on failure, and the script then exits non-zero):
     section 2's limits of the single-rank run; ms per value-and-grad and
     per step printed as ranks sharing one card.  Each group also solves
     the 898K plate from rest by ``aux_pcg_solve_sharded`` (K4 at row_start
-    each matvec and Jacobi probe, a replicated V-cycle on K6): solution
+    each matvec and Jacobi probe, a replicated V-cycle on the level
+    steps): solution
     and history bit-equal across the ranks, within 6 iterations and
     5e-3 x max|u| of the one-process ``aux_pcg_solve``.  Each group
     also solves example 9's 961x481 grid by ``mg_pcg_solve_sharded`` with
@@ -150,11 +151,22 @@ Phases (each raises on failure, and the script then exits non-zero):
 12. Multigrid (``solve/multigrid.py``): example 9
     (``examples/example9_multigrid_torch.py``: the hole-free 961x481
     ``StructuredGridP1``, 921,600 elements): the six-level hierarchy
-    (lmax against JAX's), ``mg_pcg_solve`` to 1e-6 (K6 every level
-    operator, fractional weights on the coarse levels; K7 the energy), its
+    (lmax against JAX's), ``mg_pcg_solve`` to 1e-6 (the level steps every
+    level operator, fractional weights on the coarse levels; K6 the
+    right-hand side, K7 the energy), its
     energy against JAX's and against the port's own ``cg_solve`` of the
-    same system on the card; ms and K6 launches per MG-PCG iteration;
-    ``radapt_mg_solve`` for 2 epochs (the energies fall).
+    same system on the card; ms and the level kernels' launches per
+    MG-PCG iteration, exact;
+    ``radapt_mg_solve`` for 2 epochs (the energies fall); then each level
+    kernel on every level of the hierarchy against its plain version on
+    the same seeded inputs (``level_kernels``; the same on the 898K
+    plate's 513x257 aux background in phase 14b): the five level steps of
+    K6's level epilogues within LEVEL_ATOL of the largest entry, the
+    restriction bit for bit, the whole V-cycle and the bottom levels'
+    one-CTA V-cycle within LEVEL_CYCLE_ATOL; each on a level above the
+    bottom, and the bottom
+    cycle, timed in turns against its plain version and profiled, with its
+    kernel entry (bytes bound: LEVEL_NODE_BYTES).
 13. Node-space L-BFGS (``solve/nodespace.py``) on example 4, 600 steps
     (K6 each step, K7 the energy at the solution): the final energy
     against the JAX package's node-space value and phase 4's params-space
@@ -167,20 +179,20 @@ Phases (each raises on failure, and the script then exits non-zero):
     warm solves from its noise start; iterations and energy against
     JAX's) and from rest on the same preconditioner (energy against JAX
     at SOLVE_RTOL); b. the 898K Delaunay plate from rest (K4 each matvec
-    and probe, K6 each level operator, K3 the energy; flat P^T as JAX
-    selects it); c. the 847K hybrid plate from rest ("reshape" with rim
-    tables; the hybrid route launches no kernel, so K6 comes from the
-    V-cycle only), then example 12 at its own size; d. example 11 at its
+    and probe, the level steps each level operator, K3 the energy; flat
+    P^T as JAX selects it); c. the 847K hybrid plate from rest ("reshape"
+    with rim tables; the hybrid route launches no kernel, so the level
+    steps of the V-cycle are the only launches), then example 12 at its
+    own size; d. example 11 at its
     own size (gather route) and 2 epochs of ``radapt_aux_solve`` on its
     mesh (the energies fall, the pins stay).  Each solve from rest runs
     three times, the first building the aux plan on a copy of the
     preconditioner without one and the two others replaying it (bit for
-    bit the first's answer), and counts its launches exactly (K6: the
-    levels' gradients once where the plan is built and a V-cycle before
-    the loop and each call of the loop body; the fine kernel once and
-    each call, the iterations rounded up to ``READ_EVERY``, and twice
-    more in a replay's check) and prints its set-up seconds and ms per
-    iteration.
+    bit the first's answer), and counts its launches exactly (the level
+    kernels: a V-cycle before the loop and each call of the loop body,
+    ``solve_launches``; the fine kernel once and each call, the
+    iterations rounded up to ``READ_EVERY``, and twice more in a replay's
+    check) and prints its set-up seconds and ms per iteration.
 
 15. Example 5 (``examples/example5_scaling_torch.py``) at its own size:
     the 1000x500 plate with the three holes (922,250 elements; the hole
@@ -244,9 +256,10 @@ Phases (each raises on failure, and the script then exits non-zero):
     eagerly, in turns eager, captured, captured, eager, to relres 1e-6:
     the 898K Delaunay plate's ``cg_solve`` and ``jacobi_pcg_solve`` from
     rest capped at CG_CAP (K4), example 9's 961x481 ``mg_pcg_solve`` from
-    its noise start (K6), ``aux_pcg_solve`` from rest on example 10's
-    961x481 plate on both backgrounds (K6) and on the 898K plate (K4 and
-    K6).  Where the two eager solves are bit-equal the captured ones must
+    its noise start (K6 and the level steps), ``aux_pcg_solve`` from rest
+    on example 10's 961x481 plate on both backgrounds (K6 and the level
+    steps) and on the 898K plate (K4 and the level steps), the level
+    steps counted exactly.  Where the two eager solves are bit-equal the captured ones must
     be too, every launch count equal, one graph recorded; the energies
     and iteration counts held to the JAX constants of phases 11, 12 and
     14.  For each: whole-solve ms of every run and the host seconds spent
@@ -263,9 +276,11 @@ Phases (each raises on failure, and the script then exits non-zero):
     and launches:
     a. Kirsch/Howland: one hole (d = 0.2) in the 2x1 plate under t = 1e5,
        on the hybrid mesh (lc 0.012, 27,264 elements; the plain hybrid
-       route, K6 in the aux V-cycle) and on the Delaunay mesh (31,418
+       route, the level steps in the aux V-cycle) and on the Delaunay
+       mesh (31,418
        elements, below the banded threshold: K1, K2 and ``incidence_sum``
-       each matvec, K6 in the V-cycle), ``aux_pcg_solve`` to relres 1e-6:
+       each matvec, the level steps in the V-cycle), ``aux_pcg_solve``
+       to relres 1e-6:
        the last relres below 1e-6, the peak P1 centroid von Mises within
        [0.91, 1.05] x 3.14 t and within 2 lc of the rim's top or bottom,
        and within 1% of JAX's;
@@ -2153,6 +2168,13 @@ def phase_scale(ht, mesh, dev, card, steps=50):
 
 
 # ------------------------------------------------- the linear solvers
+def check_launches(name, launches, want):
+    """The launches ``want`` names, exactly (the others unchecked)."""
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+
 def check_hist(name, hist):
     """The executed part of a residual history (fails on a non-finite
     residual: a diverged solve)."""
@@ -2324,15 +2346,19 @@ def phase_minimize_ex4(ht, mesh, dev, card):
 
 def phase_multigrid(ht, ls, dev, card, counts):
     """Phase 12: example 9 at full width (961x481, 921,600 elements):
-    hierarchy, MG-PCG (K6 every level operator, K7 the energy), held to
-    JAX and to the port's own CG; then 2 r-adaptive epochs."""
+    hierarchy, MG-PCG (the level steps every level operator, K6 the
+    right-hand side, K7 the energy), held to JAX and to the port's own CG;
+    then 2 r-adaptive epochs, and the level kernels on the hierarchy's
+    levels against their plain versions (``level_kernels``).  Returns the
+    example's launches and the level kernels' entries."""
     from examples.example9_multigrid_torch import main as example9
     from hidenn_fem_tpu_torch.models.structured_grid import (
         StructuredGridP1, generate_structured_grid)
 
     (sol, hist, _, levels), launches = run_path(
         counts, "example-9 MG-PCG", ("lattice_stencil_vg",
-                                     "lattice_stencil_fwd"),
+                                     "lattice_stencil_fwd",
+                                     "lattice_level_step"),
         lambda: example9(device=dev))
     shapes = [(lv.grid.nx, lv.grid.ny) for lv in levels]
     if shapes != MG_SHAPES:
@@ -2354,20 +2380,28 @@ def phase_multigrid(ht, ls, dev, card, counts):
     check_ref("961x481 MG-PCG energy", e_mg, JAX_MG_ENERGY[0], SOLVE_RTOL,
               JAX_MG_ENERGY[1])
 
-    # the warm solve, timed, with its launches per iteration
+    # the warm solve, timed, with its launches per iteration: K6 once (the
+    # right-hand side), the level steps a V-cycle for the start and a
+    # V-cycle and K p each call of the loop body
     torch.cuda.synchronize()
-    before = ls.launch_counts["lattice_stencil_vg"]
+    counts.reset()
     t0 = time.perf_counter()
     _, hist = ht.mg_pcg_solve(model, grid, params, max_iters=40, tol=1e-6,
                               levels=levels)
     iters = len(check_hist("warm MG-PCG", hist))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k6 = ls.launch_counts["lattice_stencil_vg"] - before
+    launched = counts.read()
     calls = loop_calls(iters, 40)
+    level = {k: launched[k] for k in ls.LEVEL_KERNELS}
     log(f"  warm MG-PCG: {iters} iterations ({calls} calls of the loop "
         f"body) in {seconds:.3f} s, {1e3 * seconds / iters:.3f} ms per "
-        f"iteration; {k6} K6 launches, {k6 / calls:.1f} per call [{card}]")
+        f"iteration; {launched['lattice_stencil_vg']} K6 launches, level "
+        f"kernels {level}, {sum(level.values()) / calls:.2f} per call "
+        f"[{card}]")
+    check_launches("warm MG-PCG", launched, {
+        "lattice_stencil_vg": 1,
+        **solve_launches(model, levels, calls, matvecs=calls)})
 
     # the port's own CG on the same system from the same start.  That
     # start's first residual is the noise's, so a relative residual of
@@ -2411,7 +2445,183 @@ def phase_multigrid(ht, ls, dev, card, counts):
     run_path(counts, "961x481 r-adaptive MG", ("lattice_stencil_vg",
                                                 "lattice_stencil_fwd"),
              radapt)
-    return launches
+    return launches, level_kernels(ls, "961x481 MG", model, levels, card)
+
+
+# The multigrid level kernels against their plain versions on the same
+# inputs, as tests/test_torch_level_step.py holds them: the plain stencil
+# sums in another order than K6, so each output within LEVEL_ATOL of its
+# largest entry (LEVEL_CYCLE_ATOL for the bottom levels' V-cycle), the
+# restriction bit for bit
+LEVEL_ATOL = 1e-5
+LEVEL_CYCLE_ATOL = 1e-4
+# Bytes a node each level step reads and writes once (float32 vectors of
+# 8 B a node, the pinned mask 1 B): coordinates, mask and the staged
+# vector read and w written (K d); b read besides (the residual); d, r, x
+# and dinv read and r, d, x written (a step); b and dinv read and r, d, x
+# written (the first two steps from x = 0); x, free, b and dinv read and
+# r, d, x written (the prolonged correction with the first post-step, xc
+# besides).  Each quad's two presence weights: 8 B more.
+LEVEL_NODE_BYTES = {"MATVEC": 25, "RESIDUAL": 33, "STEP": 65,
+                    "FROM_ZERO": 49, "POST_FIRST": 65}
+
+
+def level_gap(got, want):
+    """(the largest max |got - want| over max |want|, the largest
+    max |got - want|) over the outputs."""
+    gaps = [(g.double() - w.double()).abs().max() for g, w in zip(got, want)]
+    return (max(float(e) / max(float(w.double().abs().max()), 1e-300)
+                for e, w in zip(gaps, want)), max(float(e) for e in gaps))
+
+
+def level_kernels(ls, tag, model, levels, card):
+    """The multigrid level kernels on a hierarchy (``levels`` with their
+    V(3, 3) smoothers, the coarsest to degree 24, as ``multigrid._vcycle``
+    hands them over on the card) against their plain versions on the same
+    seeded inputs: every level step kind (K6's level epilogues: K d, the
+    residual, a Chebyshev step, the first two steps from x = 0, the
+    prolonged correction with the first post-step) and the restriction on
+    every level, within LEVEL_ATOL of the largest entry (the restriction
+    bit for bit), and the whole V-cycle and the bottom cycle
+    (``level_bottom_kernel``, from the first level whose levels fit it)
+    within LEVEL_CYCLE_ATOL.  Each kernel
+    on a level above the bottom, and the bottom cycle, is timed against
+    its plain version and profiled; returns their kernel entries (one a
+    kind and level, ``variant`` names them)."""
+    from hidenn_fem_tpu_torch.solve import multigrid as mg
+
+    lat = mg._fused_levels(mg._level_ops(model, levels), levels, 3, 24)
+    if lat is None:
+        raise AssertionError(f"{tag}: the levels are off the level-step "
+                             "route")
+    bottom = next((k for k in range(len(lat)) if ls._fits_bottom(lat[k:])),
+                  len(lat))
+    src = "hidenn_fem_tpu_torch/csrc/lattice_stencil.cu"
+    jax_mg = "hidenn_fem_tpu/solve/multigrid.py"
+    gen = torch.Generator(device=lat[0].coords.device).manual_seed(24)
+
+    def vec(shape, scale, mask=None):
+        v = scale * torch.randn(shape, generator=gen, device=gen.device)
+        return v if mask is None else v * mask
+
+    entries = []
+    for k, (lev, lv) in enumerate(zip(levels, lat)):
+        nx, ny = lv.nx, lv.ny
+        n, shape = nx * ny, (nx, ny, 2)
+        t1, t2 = lv.stencil["t1"], lv.stencil["t2"]
+        tris = int((t1 != 0).sum()) + int((t2 != 0).sum())
+        quad_bytes = 8 * (nx - 1) * (ny - 1)
+        b, r = vec(shape, 1e3, lev.free), vec(shape, 1e3)
+        d, x = vec(shape, 1e-6, lev.free), vec(shape, 1e-6, lev.free)
+        c = lv.coeffs[0]
+        coarse = k < len(lat) - 1
+        xc = vec((lat[k + 1].nx, lat[k + 1].ny, 2), 1e-6) if coarse else None
+        nc = 0 if xc is None else xc.shape[0] * xc.shape[1]
+        # a step updates r and x in place: it gets copies of its own
+        kinds = {"MATVEC": (ls.MATVEC, d, {}),
+                 "RESIDUAL": (ls.RESIDUAL, x, {"b": b}),
+                 "STEP": (ls.STEP, d, {"r": r.clone(), "x": x.clone(),
+                                       "c": c}),
+                 "FROM_ZERO": (ls.FROM_ZERO, b, {"c": c})}
+        if coarse:
+            kinds["POST_FIRST"] = (ls.POST_FIRST, x, {"b": b, "xc": xc})
+        timed = k < bottom
+        worst = {}
+        for kind, (code, v, kw) in kinds.items():
+            def kernel(code=code, v=v, kw=kw):
+                return ls.lattice_level_step(code, lv, v, **kw)
+
+            def plain(code=code, v=v, kw=kw):
+                return ls.lattice_level_step_plain(code, lv, v, **kw)
+            # the check on copies of r and x, read before the kernel
+            # writes them
+            fresh = {key: t.clone() if key in ("r", "x") else t
+                     for key, t in kw.items()}
+            want = plain(kw=fresh)
+            got = ls.lattice_level_step(code, lv, v, **fresh)
+            want, got = ([t] if torch.is_tensor(t) else list(t)
+                         for t in (want, got))
+            worst[kind], err = level_gap(got, want)
+            if worst[kind] > LEVEL_ATOL:
+                raise AssertionError(f"{tag} {kind} at {nx}x{ny}: kernel "
+                                     f"and plain {worst[kind]:.3g} of the "
+                                     "largest entry apart")
+            if not timed:
+                continue
+            ms, plain_ms = ab_ms(kernel, plain)
+            # the stencil's strain and cotangents of each triangle: a floor
+            # of its operations (the bytes bound it)
+            e = kernel_entry(
+                "lattice_level_step", src, f"{jax_mg}:259 (_cheb_smooth)",
+                err, ms, plain_ms, LEVEL_NODE_BYTES[kind] * n + quad_bytes
+                + (8 * nc if code == ls.POST_FIRST else 0),
+                tris * (TRI_E + TRI_C), device_us(kernel), card,
+                tag=f"{tag} {kind} at {nx}x{ny} ")
+            e["variant"] = f"{tag} {kind} at {nx}x{ny}"
+            entries.append(e)
+        if coarse:
+            res = ls.lattice_level_step(ls.RESIDUAL, lv, x, b=b)
+            got, want = ls.lattice_restrict(res), ls.restrict_plain(res)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{tag} restriction of {nx}x{ny}: "
+                                     "kernel and plain differ")
+            if timed:
+                ms, plain_ms = ab_ms(lambda: ls.lattice_restrict(res),
+                                     lambda: ls.restrict_plain(res))
+                # a coarse entry: the column pass on three rows and the row
+                # pass, four operations each, for each component
+                e = kernel_entry(
+                    "lattice_restrict", src, f"{jax_mg}:110 (_restrict)",
+                    0.0, ms, plain_ms, 8 * n + 8 * nc, 32 * nc,
+                    device_us(lambda: ls.lattice_restrict(res)), card,
+                    tag=f"{tag} restriction of {nx}x{ny} ")
+                e["variant"] = f"{tag} restriction of {nx}x{ny}"
+                entries.append(e)
+        log(f"  {tag} level {nx}x{ny}: kernel against plain, largest gap "
+            "of the largest entry "
+            + ", ".join(f"{kind} {g:.3g}" for kind, g in worst.items())
+            + (", restriction 0 (bit-equal)" if coarse else ""))
+    b = vec((lat[0].nx, lat[0].ny, 2), 1e3, levels[0].free)
+    gap, _ = level_gap([ls.lattice_level_cycle(lat, b)],
+                       [ls.lattice_level_cycle_plain(lat, b)])
+    log(f"  {tag} V-cycle from {lat[0].nx}x{lat[0].ny}: kernels against "
+        f"plain {gap:.3g} of the largest entry")
+    if gap > LEVEL_CYCLE_ATOL:
+        raise AssertionError(f"{tag} V-cycle: kernels and plain {gap:.3g} "
+                             "of the largest entry apart")
+    if bottom == len(lat):
+        return entries
+    sub = lat[bottom:]
+    b = vec((sub[0].nx, sub[0].ny, 2), 1e3, levels[bottom].free)
+    got = ls.lattice_bottom_cycle(sub, b)
+    want = ls.lattice_level_cycle_plain(sub, b)
+    gap, err = level_gap([got], [want])
+    where = (f"{len(sub)} levels, {sub[0].nx}x{sub[0].ny} to "
+             f"{sub[-1].nx}x{sub[-1].ny}")
+    log(f"  {tag} bottom cycle over {where}: kernel against plain "
+        f"{gap:.3g} of the largest entry")
+    if gap > LEVEL_CYCLE_ATOL:
+        raise AssertionError(f"{tag} bottom cycle: kernel and plain "
+                             f"{gap:.3g} of the largest entry apart")
+    ms, plain_ms = ab_ms(lambda: ls.lattice_bottom_cycle(sub, b),
+                         lambda: ls.lattice_level_cycle_plain(sub, b))
+    # each input read once, the answer written once; its stencil passes
+    # (2 nu a level above the coarsest, degree - 1 on the coarsest)
+    bytes_ = 16 * sub[0].nx * sub[0].ny + sum(
+        25 * lv.nx * lv.ny + 8 * (lv.nx - 1) * (lv.ny - 1) for lv in sub)
+    passes = [2 * len(lv.coeffs) + 2 for lv in sub[:-1]] + [
+        len(sub[-1].coeffs)]
+    flops = sum(p * (int((lv.stencil["t1"] != 0).sum())
+                     + int((lv.stencil["t2"] != 0).sum())) * (TRI_E + TRI_C)
+                for p, lv in zip(passes, sub))
+    e = kernel_entry(
+        "lattice_bottom_cycle", src, f"{jax_mg}:288 (vcycle)",
+        err, ms, plain_ms, bytes_, flops,
+        device_us(lambda: ls.lattice_bottom_cycle(sub, b)), card,
+        tag=f"{tag} bottom cycle over {where} ")
+    e["variant"] = f"{tag} bottom cycle over {where}"
+    entries.append(e)
+    return entries
 
 
 def phase_node_space(ht, mesh, dev, card, params_space_final):
@@ -2483,16 +2693,15 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
     launches counted exactly: the first on a copy of the prebuilt
     preconditioner without its plan, so it builds one, the second and
     the third on the plan it keeps (the second records the loop's start,
-    the third replays both graphs).  A solve that builds the plan
-    launches the levels' gradients at zero once, a V-cycle (7 level
-    operators a level, 24 on the coarsest: K6 each) before the loop and
-    each call of the loop body (the iterations, and the masked calls past
-    the stop), and the fine gradient at the start and once a call on
-    ``fine``'s kernel (None: the hybrid route, no kernel).  A replay
-    builds no level operators and takes the fine gradient twice more, in
-    the check of its answer, which is the first's bit for bit (the same
-    loss from the same start).  Returns (solution, history, seconds) of
-    the first."""
+    the third replays both graphs).  Each solve launches a V-cycle's
+    level kernels (``solve_launches``) before the loop and each call of
+    the loop body (the iterations, and the masked calls past the stop), and
+    the fine gradient at the start and once a call on ``fine``'s kernel
+    (None: the hybrid route, no kernel); building the plan launches
+    nothing more (the fused levels need no gradient at zero).  A replay
+    takes the fine gradient twice more, in the check of its answer, which
+    is the first's bit for bit (the same loss from the same start).
+    Returns (solution, history, seconds) of the first."""
     from hidenn_fem_tpu_torch.solve import auxspace
 
     mesh = args[1]
@@ -2511,10 +2720,10 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launched = {k: v for k, v in counts.read().items() if v}
-        iters, n_lev = len(h), len(pre.levels)
+        iters = len(h)
         calls = loop_calls(iters, AUX_MAX_ITERS)
-        want = {"lattice_stencil_vg": (0 if i else n_lev) + (calls + 1)
-                * (7 * (n_lev - 1) + 24)}
+        want = {k: v for k, v in solve_launches(
+            pre.bg_model, pre.levels, calls).items() if v}
         if fine is not None:
             want[fine] = want.get(fine, 0) + 1 + calls + (2 if i else 0)
         log(f"  {name} from rest, solve {i + 1} ({what}): {iters} "
@@ -2547,7 +2756,8 @@ def phase_aux_example10(ht, counts, dev, card):
     """Phase 14a: example 10 at 961x481 (921,600 elements), both
     framings: the example as a user runs it (noise start, timed set-up,
     cold and warm solves), then a solve from rest on its preconditioner
-    with exact launch counts (K6 each matvec and each level operator)."""
+    with exact launch counts (K6 each matvec, the level steps each
+    V-cycle)."""
     from examples.example10_auxspace_torch import FRAMINGS
     from examples.example10_auxspace_torch import main as example10
 
@@ -2582,10 +2792,13 @@ def phase_aux_example10(ht, counts, dev, card):
                   SOLVE_RTOL, f64)
 
 
-def phase_aux_898k(ht, counts, mesh, dev, card):
+def phase_aux_898k(ht, ls, counts, mesh, dev, card):
     """Phase 14b: the 898K Delaunay plate from rest (banded route: K4 each
-    matvec and Jacobi probe, K6 in the V-cycle on the generic background,
-    K3 the energy under no_grad)."""
+    matvec and Jacobi probe, the level steps in the V-cycle on the
+    generic background,
+    K3 the energy under no_grad); then the level kernels on its 513x257
+    background against their plain versions (``level_kernels``), whose
+    kernel entries it returns."""
     loss = aux_loss(ht)
     args = (mesh.coords, mesh)
     u0 = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
@@ -2617,15 +2830,18 @@ def phase_aux_898k(ht, counts, mesh, dev, card):
         return pre
 
     pre, _ = run_path(counts, "898K aux-PCG",
-                      ("banded_vg", "banded_fwd", "lattice_stencil_vg"), path)
+                      ("banded_vg", "banded_fwd", "lattice_level_step"), path)
     timed_aux_solve(ht, counts, "898K aux-PCG, warm", loss, args, pre,
                     "banded_vg", card)
+    return level_kernels(ls, "898K aux background", pre.bg_model,
+                         pre.levels, card)
 
 
 def phase_aux_hybrid(ht, counts, mesh, dev, card):
     """Phase 14c: the 847K hybrid plate from rest (kind "reshape" with the
-    rim tables; the fine matvec is the plain hybrid route, so K6 launches
-    come from the V-cycle only), then example 12 at its own size."""
+    rim tables; the fine matvec is the plain hybrid route, so the only
+    kernels are the V-cycle's level steps), then example 12 at its own
+    size."""
     from examples.example12_hybrid_torch import main as example12
 
     loss = aux_loss(ht)
@@ -2651,7 +2867,7 @@ def phase_aux_hybrid(ht, counts, mesh, dev, card):
         return pre
 
     pre, _ = run_path(counts, "847K hybrid aux set-up",
-                      ("lattice_stencil_vg",), path)
+                      ("lattice_level_step",), path)
     sol, h, _ = timed_aux_solve(ht, counts, "847K hybrid aux-PCG", loss,
                                 args, pre, None, card)
     check_aux_iters("847K hybrid aux-PCG", len(h), want_it)
@@ -2659,7 +2875,7 @@ def phase_aux_hybrid(ht, counts, mesh, dev, card):
         e = float(loss(sol, *args))
     check_ref("847K hybrid aux-PCG energy (from rest)", e, f32, SOLVE_RTOL,
               f64)
-    e12, _ = run_path(counts, "example-12 aux-PCG", ("lattice_stencil_vg",),
+    e12, _ = run_path(counts, "example-12 aux-PCG", ("lattice_level_step",),
                       lambda: example12(device=dev))
     if not np.isfinite(e12):
         raise AssertionError("example 12: non-finite energy")
@@ -2667,14 +2883,15 @@ def phase_aux_hybrid(ht, counts, mesh, dev, card):
 
 def phase_aux_radapt(ht, counts, dev, card):
     """Phase 14d: example 11 at its own size (lc = 0.05, gather route:
-    K1/K2 and incidence_sum each matvec, K6 in the V-cycle), then two
+    K1/K2 and incidence_sum each matvec, the level steps in the V-cycle),
+    then two
     epochs of radapt_aux_solve on the same mesh: the equilibrated energies
     fall and the pinned coordinates do not move."""
     from examples.example11_delaunay_torch import HOLES as EX11_HOLES
     from examples.example11_delaunay_torch import main as example11
 
     gather = ("element_energy_fwd", "element_energy_bwd", "incidence_sum",
-              "lattice_stencil_vg")
+              "lattice_level_step")
     e11, _ = run_path(counts, "example-11 aux-PCG", gather,
                       lambda: example11(device=dev))
     if not np.isfinite(e11):
@@ -2726,10 +2943,11 @@ SHARDED_PATHS = (
 )
 # the sharded aux path: its input (the 898K plate, paired tables rebanded
 # for 4 ranks, which 1 and 2 divide too) and the kernels each group must
-# launch (K4 at row_start each matvec and Jacobi probe, K6 in the
-# replicated V-cycle)
+# launch (K4 at row_start each matvec and Jacobi probe, the level steps in
+# the replicated V-cycle)
 SHARDED_AUX = ("aux-PCG 898K", "delaunay898",
-               ("banded_vg_rows", "lattice_stencil_vg"))
+               ("banded_vg_rows", "lattice_level_step", "lattice_restrict",
+                "lattice_bottom_cycle"))
 SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 SHARDED_TIMEOUT_S = 600
 VG_REPS = 5
@@ -3758,6 +3976,27 @@ def loop_calls(iters, max_iters):
     return min(k * -(-iters // k), max_iters)
 
 
+def solve_launches(model, levels, calls, matvecs=0, nu=3,
+                   coarse_degree=24):
+    """The level kernels' launches of a PCG solve on the card, by wrapper
+    (``ops/lattice_slab.LEVEL_KERNELS``): a fused V(nu, nu) cycle before
+    the loop and each of its ``calls`` (``lattice_slab.cycle_launches`` on
+    the levels as ``multigrid._vcycle`` takes them), and ``matvecs`` level
+    steps of K p.  A cycle on 961x481 (V(3, 3)): 4 levels above the bottom
+    with 2 nu = 6 level steps and one restriction each, and one bottom
+    cycle (61x31 and 31x16): 24 + 4 + 1 = 29 launches; on a 513x257
+    background: 3 x 6 = 18 level steps, 3 restrictions and one bottom
+    (65x33 to 9x5), 22."""
+    from hidenn_fem_tpu_torch.ops import lattice_slab as ls
+    from hidenn_fem_tpu_torch.solve import multigrid as mg
+
+    cycle = ls.cycle_launches(mg._fused_levels(
+        mg._level_ops(model, levels), levels, nu, coarse_degree))
+    out = {k: (calls + 1) * v for k, v in cycle.items()}
+    out["lattice_level_step"] += matvecs
+    return out
+
+
 @contextlib.contextmanager
 def solver_loop(capture=True, every=None):
     """The solvers' loops captured (the default) or eager, with
@@ -3851,7 +4090,7 @@ def phase_solver_loop(counts, name, solve, max_iters, check, needs, caps,
     for k in needs:
         if c1[3][k] == 0:
             raise AssertionError(f"{k} was not launched by {name}")
-    check(c1[0], n)
+    check(c1[0], n, c1[3])
     log(f"  {name}: {n} iterations, {calls} calls of the loop body "
         f"(READ_EVERY {loop.READ_EVERY}); launches {c1[3]}; whole solve "
         f"ms eager {1e3 * e1[2]:.3f} / {1e3 * e2[2]:.3f}, captured "
@@ -3894,9 +4133,12 @@ def phase_solver_loop(counts, name, solve, max_iters, check, needs, caps,
 
 def solver_cases(ht, counts, mesh898, dev, card):
     """Phase 23's solves: name -> (solve(max_iters, tol) -> (u, history),
-    max_iters, check(u, iterations), kernels that must launch, steady-state
-    caps or None).  Hierarchies and preconditioners are built here, once;
-    the energies are held to the JAX constants of phases 11, 12 and 14."""
+    max_iters, check(u, iterations, launches), kernels that must launch,
+    steady-state caps or None).  Hierarchies and preconditioners are built
+    here, once; the energies are held to the JAX constants of phases 11, 12
+    and 14, and the V-cycle's level steps counted exactly: a V-cycle each
+    solve's start and each call of the loop body, and K p each call
+    (multigrid)."""
     from hidenn_fem_tpu_torch.mesh import coloring
 
     energy = ht.PlaneStressEnergy(model=ht.TriangleP1())
@@ -3909,7 +4151,7 @@ def solver_cases(ht, counts, mesh898, dev, card):
     colors = coloring.color_nodes(mesh898.connectivity, mesh898.n_nodes)
 
     def capped_898k(want, what):
-        def check(u, n):
+        def check(u, n, launches):
             with torch.no_grad():
                 e = float(loss({"u": u}, *args898))
             check_ref(f"898K {what} energy after {n} iterations (captured)",
@@ -3932,7 +4174,11 @@ def solver_cases(ht, counts, mesh898, dev, card):
                                  tol=tol, levels=levels)
         return sol["u"], h
 
-    def mg_check(u, n):
+    def mg_check(u, n, launches):
+        calls = loop_calls(n, 40)
+        check_launches("captured MG-PCG", launches, {
+            **solve_launches(model, levels, calls, matvecs=calls),
+            "lattice_stencil_vg": 1})
         if abs(n - JAX_MG_ITERS) > MG_ITERS_SPREAD:
             raise AssertionError(f"captured MG-PCG: {n} iterations, JAX "
                                  f"{JAX_MG_ITERS}")
@@ -3964,7 +4210,10 @@ def solver_cases(ht, counts, mesh898, dev, card):
                                       tol=tol)
             return sol["u"], h
 
-        def check(u, n):
+        def check(u, n, launches):
+            check_launches(f"aux-PCG {key} (captured)", launches,
+                           solve_launches(pre.bg_model, pre.levels,
+                                          loop_calls(n, AUX_MAX_ITERS)))
             check_aux_iters(f"aux-PCG {key} from rest (captured)", n,
                             want_it)
             with torch.no_grad():
@@ -3982,7 +4231,8 @@ def solver_cases(ht, counts, mesh898, dev, card):
             capped_898k(JAX_898K_PCG, "jacobi_pcg_solve"), ("banded_vg",),
             None),
         "961x481 mg_pcg_solve": (mg_solve, 40, mg_check,
-                                 ("lattice_stencil_vg",), SOLVER_CAPS["mg"]),
+                                 ("lattice_stencil_vg", "lattice_level_step"),
+                                 SOLVER_CAPS["mg"]),
     }
     for name, mesh, key, lattice_bg, c in (
             ("961x481 aux_pcg_solve, lattice-aligned background", proxy,
@@ -3991,8 +4241,8 @@ def solver_cases(ht, counts, mesh898, dev, card):
              False, None),
             ("898K aux_pcg_solve", mesh898, "delaunay", True, colors)):
         solve, check = aux_case(mesh, key, lattice_bg, c)
-        needs = ("lattice_stencil_vg",) + (("banded_vg",) if key ==
-                                           "delaunay" else ())
+        needs = ("lattice_level_step",) + (
+            ("banded_vg",) if key == "delaunay" else ("lattice_stencil_vg",))
         cases[name] = (solve, AUX_MAX_ITERS, check, needs,
                        SOLVER_CAPS["aux"])
     return cases
@@ -4364,9 +4614,9 @@ def phase_validation(ht, counts, dev, card):
     launches by check."""
     launches = {}
     for backend, needs in (
-            ("hybrid", ("lattice_stencil_vg",)),
+            ("hybrid", ("lattice_level_step",)),
             ("delaunay", ("element_energy_fwd", "element_energy_bwd",
-                          "incidence_sum", "lattice_stencil_vg"))):
+                          "incidence_sum", "lattice_level_step"))):
         t0 = time.perf_counter()
         _, launches[f"Kirsch {backend}"] = run_path(
             counts, f"Kirsch {backend}", needs,
@@ -4518,7 +4768,8 @@ def main():
              lambda: phase_minimize_ex4(ht, mesh4, dev, card))
 
     phase("[12/24] multigrid: example 9 at 961x481")
-    phase_multigrid(ht, ls, dev, card, counts)
+    mg_launches, level_entries = phase_multigrid(ht, ls, dev, card, counts)
+    kernels += level_entries
 
     phase("[13/24] node-space L-BFGS on example 4, 600 steps")
     run_path(counts, "example-4 node-space", ("lattice_stencil_vg",
@@ -4528,7 +4779,7 @@ def main():
     phase("[14/24] auxiliary-space PCG: examples 10-12, the 898K and 847K "
         "plates, r-adaptivity")
     phase_aux_example10(ht, counts, dev, card)
-    phase_aux_898k(ht, counts, mesh898, dev, card)
+    kernels += phase_aux_898k(ht, ls, counts, mesh898, dev, card)
     phase_aux_hybrid(ht, counts, hybrid, dev, card)
     phase_aux_radapt(ht, counts, dev, card)
 
@@ -4598,11 +4849,11 @@ def main():
     # K6 and its row variant also count slice 9's paths
     k6_paths = (lattice_launches, variants["zoom"], variants["two-loop"],
                 variants["compact"], utils_launches, sharded["sharded MG"],
-                validation["Kirsch hybrid"], validation["Kirsch delaunay"],
                 validation["diagonals"])
-    # phase 24's paths count too: the Kirsch solves for K6 (the Delaunay one
-    # for the gather kernels), the 21x11 plates for K6, K7 and the history
-    # kernels, the bar for the history kernels
+    # phase 24's paths count too: the Delaunay Kirsch solve for the gather
+    # kernels (its V-cycle and the hybrid one's run the level steps), the
+    # 21x11 plates for K6, K7 and the history kernels, the bar for the
+    # history kernels
     gather_paths = sum_launches((gather_launches,
                                  validation["Kirsch delaunay"]))
     path_launches = {
@@ -4627,6 +4878,9 @@ def main():
         "banded_bwd_rows": (sharded["banded 898K, no ownership"],
                             "banded_bwd_rows"),
     }
+    # the level kernels: example 9's MG-PCG (phase 12)
+    for name in ls.LEVEL_KERNELS:
+        path_launches[name] = (mg_launches, name)
     # the history kernels: every compact L-BFGS update of example 4's
     # lattice route, of the 898K plate's banded route and of phase 24
     for name in history:

@@ -36,7 +36,16 @@ In this module:
 * ``structured_domain_slab``: ``StructuredGridP1``'s domain energy on the
   same kernels, the zigzag parity computed in the kernel;
 * ``slab_supported``: which routes the kernels take (identity numbering,
-  float32), as in the JAX package.
+  float32), as in the JAX package;
+* ``lattice_level_step``, ``lattice_restrict``, ``lattice_bottom_cycle``
+  and ``lattice_level_cycle``: the multigrid level steps on a
+  ``LatticeLevel`` (K6's level epilogues, restriction, and the bottom
+  levels' V-cycle in one CTA; each launch adds one to
+  ``launch_counts`` under the wrapper's name), with their plain versions
+  ``lattice_level_step_plain``, ``restrict_plain`` and
+  ``lattice_level_cycle_plain`` (the composition of
+  ``solve/multigrid.py``, bit for bit), ``prolong``, and
+  ``cycle_launches``, the launches of a ``lattice_level_cycle``.
 
 A diagonal is given as ``diag``: 0 every quad "up", 1 every quad "down",
 2 per quad from a ``sel`` mask (> 0: up), 3 the zigzag parity (quad (i, j)
@@ -47,9 +56,11 @@ presence weights of the two triangles, or None when all are present.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .cuda_build import library, raise_on
@@ -62,15 +73,31 @@ __all__ = ["lattice_total_slab", "slab_supported", "structured_domain_slab",
            "lattice_stencil_fwd_rows", "lattice_stencil_vg_rows",
            "lattice_stencil_fwd_rows_plain", "lattice_stencil_vg_rows_plain",
            "route_stencil", "structured_stencil", "launch_counts",
-           "reset_launch_counts",
-           "UP", "DOWN", "SEL_MASK", "PARITY"]
+           "reset_launch_counts", "prolong", "restrict_plain",
+           "LatticeLevel", "lattice_level_step", "lattice_level_step_plain",
+           "lattice_restrict", "lattice_bottom_cycle", "lattice_level_cycle",
+           "lattice_level_cycle_plain", "cycle_launches", "LEVEL_KERNELS",
+           "UP", "DOWN", "SEL_MASK", "PARITY",
+           "MATVEC", "RESIDUAL", "STEP", "FROM_ZERO", "POST_FIRST"]
 
 UP, DOWN, SEL_MASK, PARITY = 0, 1, 2, 3
 _UNIFORM = {UP: "up", DOWN: "down"}
 
+# the multigrid level steps (stencil_vg_kernel's level epilogues)
+MATVEC, RESIDUAL, STEP, FROM_ZERO, POST_FIRST = 1, 2, 3, 4, 5
+# the one-CTA bottom kernel's limits (kBottom* in csrc/lattice_stencil.cu):
+# levels, smoothing degree, nodes and quads of a level, and its shared
+# memory: a fixed part and the levels' vectors, within the block's 227 KB
+_BOTTOM_LEVELS, _BOTTOM_STEPS, _BOTTOM_NODES, _BOTTOM_QUADS = 6, 32, 2304, 2048
+_BOTTOM_SMEM_FIXED, _BOTTOM_SMEM_MAX = 135168, 232448 - 256
+
+# the multigrid level kernels' wrappers, as ``launch_counts`` names them
+LEVEL_KERNELS = ("lattice_level_step", "lattice_restrict",
+                 "lattice_bottom_cycle")
 # launches of each kernel wrapper since the last reset
 launch_counts = {"lattice_stencil_vg": 0, "lattice_stencil_fwd": 0,
-                 "lattice_stencil_vg_rows": 0, "lattice_stencil_fwd_rows": 0}
+                 "lattice_stencil_vg_rows": 0, "lattice_stencil_fwd_rows": 0,
+                 **dict.fromkeys(LEVEL_KERNELS, 0)}
 
 
 def reset_launch_counts() -> None:
@@ -225,6 +252,152 @@ def lattice_stencil_vg_rows_plain(node, nx, ny, E, nu, w_sum, row_lo,
     return energy, grad
 
 
+# ------------------------------------------------- multigrid level steps
+@dataclasses.dataclass(frozen=True)
+class LatticeLevel:
+    """A multigrid level on the stencil: its operator K v, the displacement
+    columns of the stencil gradient (w_sum 0.5) at (``coords``, v with the
+    ``pinned`` rows 0), 0 on the pinned rows, which is the level operator
+    grad E(v) - grad E(0) wherever the pinned rows hold 0; and, for a
+    cycle, its Chebyshev-Jacobi smoother: ``dinv``, ``free``, ``theta``
+    and ``coeffs`` ((c1, c2) of each step after the first)."""
+
+    coords: torch.Tensor                  # [nx, ny, 2] pinned coordinates
+    pinned: torch.Tensor                  # [nx, ny] bool
+    E: float
+    nu: float
+    stencil: dict                         # diag, phase, t1, t2
+    dinv: Optional[torch.Tensor] = None   # [nx, ny, 2]
+    free: Optional[torch.Tensor] = None   # [nx, ny, 2]
+    theta: float = 1.0
+    coeffs: tuple = ()
+
+    @property
+    def nx(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def ny(self) -> int:
+        return self.coords.shape[1]
+
+
+def prolong(cu: torch.Tensor) -> torch.Tensor:
+    """Bilinear lattice interpolation [nxc, nyc, C] -> [2nxc-1, 2nyc-1, C]
+    (split-agnostic and symmetric): a row pass, then a column pass."""
+    nxc, nyc, c = cu.shape
+    rows = torch.stack([cu[:-1], 0.5 * (cu[:-1] + cu[1:])], dim=1)
+    rows = torch.cat([rows.reshape(2 * (nxc - 1), nyc, c), cu[-1:]], dim=0)
+    cols = torch.stack([rows[:, :-1], 0.5 * (rows[:, :-1] + rows[:, 1:])],
+                       dim=2)
+    return torch.cat([cols.reshape(2 * nxc - 1, 2 * (nyc - 1), c),
+                      rows[:, -1:]], dim=1)
+
+
+def _restrict_axis(r: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of one interpolation pass of ``prolong`` along
+    ``dim`` (length 2n-1 -> n): coarse entry i takes half of fine entries
+    2i-1 and 2i+1, then fine entry 2i, added in the order of the JAX
+    package's ``jax.linear_transpose`` (so the two agree bit for bit)."""
+    r = r.movedim(dim, 0)
+    half = 0.5 * r[1::2]
+    out = torch.zeros_like(r[0::2])
+    out[1:] = half
+    out[:-1] += half
+    return (out + r[0::2]).movedim(0, dim)
+
+
+def restrict_plain(r: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction, the exact adjoint of ``prolong``: the
+    transposed column pass, then the transposed row pass (the function
+    ``lattice_restrict`` computes)."""
+    return _restrict_axis(_restrict_axis(r, 1), 0)
+
+
+def _level_product_plain(lv: LatticeLevel, v: torch.Tensor) -> torch.Tensor:
+    """K v on ``lv`` (``LatticeLevel``), in plain torch: the level
+    operator's own stencil gradient, its pinned rows 0."""
+    pin = lv.pinned[..., None]
+    node = torch.cat([lv.coords, torch.where(pin, 0.0, v)], dim=-1)
+    _, g = lattice_stencil_vg_plain(node.reshape(lv.nx * lv.ny, 4), lv.nx,
+                                    lv.ny, lv.E, lv.nu, 0.5, **lv.stencil)
+    return torch.where(pin, 0.0,
+                       g.reshape(lv.nx, lv.ny, 4)[..., 2:]).to(v.dtype)
+
+
+def lattice_level_step_plain(kind: int, lv: LatticeLevel, v: torch.Tensor,
+                             b=None, r=None, x=None, xc=None,
+                             c=(0.0, 0.0)):
+    """The function each level epilogue of K6 computes, in plain torch:
+    the ops of ``solve/multigrid.py``'s composition, bit for bit.
+
+    ``MATVEC``: K v.  ``RESIDUAL``: b - K v (v = x).  ``STEP``: one
+    Chebyshev step from (r, d = v, x) with ``c`` = (c1, c2): r - K d,
+    c1 d + c2 dinv r, x + d, returned as (r, d, x).  ``FROM_ZERO``: the
+    smoother's first two steps from x = 0 on b = v (the first with no
+    stencil: K 0 = 0), (r, d, x).  ``POST_FIRST``: the prolonged
+    correction x + free prolong(xc) of x = v and the smoother's first
+    step on b, (r, d, x)."""
+    c1, c2 = c
+    if kind == FROM_ZERO:
+        d0 = (lv.dinv * v) / lv.theta
+        x0 = torch.zeros_like(v) + d0
+        r = v - _level_product_plain(lv, d0)
+        d = c1 * d0 + c2 * (lv.dinv * r)
+        return r, d, x0 + d
+    if kind == POST_FIRST:
+        xp = v + lv.free * prolong(xc)
+        r = b - _level_product_plain(lv, xp)
+        d = (lv.dinv * r) / lv.theta
+        return r, d, xp + d
+    w = _level_product_plain(lv, v)
+    if kind == MATVEC:
+        return w
+    if kind == RESIDUAL:
+        return b - w
+    if kind == STEP:
+        r = r - w
+        d = c1 * v + c2 * (lv.dinv * r)
+        return r, d, x + d
+    raise ValueError(f"unknown level step {kind!r}")
+
+
+def _smooth_from_zero(step, lv: LatticeLevel, b):
+    """The level's smoothing of K x = b from x = 0, to its degree."""
+    r, d, x = step(FROM_ZERO, lv, b, c=lv.coeffs[0])
+    for c in lv.coeffs[1:]:
+        r, d, x = step(STEP, lv, d, r=r, x=x, c=c)
+    return x
+
+
+def _cycle(levels, b, plain: bool):
+    """V(nu, nu) from ``levels[0]`` (module doc of ``solve/multigrid.py``):
+    the level steps, and on the card the bottom kernel once the levels
+    fit it."""
+    step = lattice_level_step_plain if plain else lattice_level_step
+    if not plain and _fits_bottom(levels):
+        return lattice_bottom_cycle(levels, b)
+    lv = levels[0]
+    x = _smooth_from_zero(step, lv, b)
+    if len(levels) == 1:
+        return x
+    res = step(RESIDUAL, lv, x, b=b)
+    bc = restrict_plain(res) if plain else lattice_restrict(res)
+    xc = _cycle(levels[1:], bc, plain)
+    r, d, x = step(POST_FIRST, lv, x, b=b, xc=xc)
+    for c in lv.coeffs:
+        r, d, x = step(STEP, lv, d, r=r, x=x, c=c)
+    return x
+
+
+def lattice_level_cycle_plain(levels, b: torch.Tensor) -> torch.Tensor:
+    """One V(nu, nu) cycle from ``levels[0]`` (``LatticeLevel``s with
+    their smoothers, finest first; each level's degree is
+    ``len(coeffs) + 1``, at least 2) on the right-hand side b, in plain
+    torch: ``solve/multigrid.py``'s composition bit for bit, and the
+    function the bottom kernel computes over its levels."""
+    return _cycle(levels, b, plain=True)
+
+
 # ----------------------------------------------------------- CUDA kernels
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
@@ -242,6 +415,15 @@ def _library() -> ctypes.CDLL:
     lib.hdnn_lattice_stencil_vg_rows.restype = i
     lib.hdnn_lattice_launch_floor.argtypes = [i, i, i, vp]
     lib.hdnn_lattice_launch_floor.restype = i
+    lib.hdnn_lattice_level_step.argtypes = (
+        [i, i, i, i, i, i, vp, vp, fl, fl, fl, fl] + [vp] * 9 + [i]
+        + [vp] * 3 + [fl, fl, fl, vp])
+    lib.hdnn_lattice_level_step.restype = i
+    lib.hdnn_lattice_restrict.argtypes = [i, i, i, vp, vp, vp]
+    lib.hdnn_lattice_restrict.restype = i
+    lib.hdnn_lattice_bottom.argtypes = [i, i, i, fl, fl, fl, fl, vp, vp, vp,
+                                        vp]
+    lib.hdnn_lattice_bottom.restype = i
     return lib
 
 
@@ -342,6 +524,188 @@ def lattice_stencil_vg_rows(node, nx, ny, E, nu, w_sum, row_lo, row_hi,
     the window's rows equal the whole-lattice K6's bit for bit."""
     return _launch(True, node, nx, ny, float(E), float(nu), float(w_sum),
                    diag, phase, sel, t1, t2, rows=(row_lo, row_hi))
+
+
+def _check_level(lv: LatticeLevel, *vectors) -> torch.device:
+    """The level and its vectors as the level kernels take them."""
+    dev = lv.coords.device
+    if not lv.coords.is_cuda:
+        raise ValueError("the level step kernels take CUDA tensors")
+    st = lv.stencil
+    if st["diag"] not in (UP, DOWN, PARITY) or st.get("sel") is not None \
+            or st["t1"] is None or st["t2"] is None:
+        raise ValueError("the level step kernels take a structured level: "
+                         "its quad mask as both weights, a uniform or "
+                         "zigzag diagonal")
+    shape = (lv.nx, lv.ny, 2)
+    for name, t, want in (("coords", lv.coords, shape),
+                          ("dinv", lv.dinv, shape), ("free", lv.free, shape),
+                          ("t1", st["t1"], (lv.nx - 1, lv.ny - 1)),
+                          ("t2", st["t2"], (lv.nx - 1, lv.ny - 1))) + tuple(
+                              ("vector", v, shape) for v in vectors):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {want} "
+                             f"tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if lv.pinned.dtype != torch.bool or tuple(lv.pinned.shape) != shape[:2] \
+            or not lv.pinned.is_contiguous() or lv.pinned.device != dev:
+        raise ValueError(f"pinned must be a contiguous bool {shape[:2]} "
+                         f"tensor on {dev}")
+    return dev
+
+
+def _inv(theta: float) -> float:
+    """1 / theta in float32, as torch divides a float32 CUDA tensor by a
+    Python scalar (a product with the reciprocal)."""
+    return float(np.float32(1.0) / np.float32(theta))
+
+
+def lattice_level_step(kind: int, lv: LatticeLevel, v: torch.Tensor,
+                       b=None, r=None, x=None, xc=None, c=(0.0, 0.0)):
+    """A multigrid level step on the card, in one launch of K6's level
+    epilogue: ``lattice_level_step_plain``'s function and returns, bit for
+    bit where the stencil sums keep K6's order.  ``STEP`` updates r and x
+    in place (each node reads and writes only its own entries) and returns
+    them with a new d; every other output is a new tensor."""
+    dev = _check_level(lv, v, b, r, x)
+    if kind == POST_FIRST:
+        want = ((lv.nx + 1) // 2, (lv.ny + 1) // 2, 2)
+        if lv.nx % 2 == 0 or lv.ny % 2 == 0 or xc is None \
+                or tuple(xc.shape) != want or xc.dtype != torch.float32 \
+                or xc.device != dev or not xc.is_contiguous():
+            raise ValueError(f"xc must be a contiguous float32 {want} tensor "
+                             f"on {dev} of an odd-sized level")
+    need = {MATVEC: (), RESIDUAL: (b,), STEP: (r, x), FROM_ZERO: (),
+            POST_FIRST: (b,)}
+    if kind not in need:
+        raise ValueError(f"unknown level step {kind!r}")
+    if any(t is None for t in need[kind]):
+        raise ValueError(f"level step {kind} misses one of its vectors")
+    lib = _library()
+    f, shear = _constants(lv.E, lv.nu)
+    out_r = r if kind == STEP else torch.empty_like(v)
+    out_d = out_x = None
+    if kind in (STEP, FROM_ZERO, POST_FIRST):
+        out_d = torch.empty_like(v)
+        out_x = x if kind == STEP else torch.empty_like(v)
+    st = lv.stencil
+    err = lib.hdnn_lattice_level_step(
+        dev.index, kind, lv.nx, lv.ny, st["diag"], int(st["phase"]) % 2,
+        _ptr(st["t1"]), _ptr(st["t2"]), f, lv.nu, shear, 0.5,
+        _ptr(lv.coords), _ptr(lv.pinned), _ptr(lv.dinv), _ptr(lv.free),
+        _ptr(v), _ptr(b), _ptr(r), _ptr(x), _ptr(xc),
+        0 if xc is None else xc.shape[1], _ptr(out_r), _ptr(out_d),
+        _ptr(out_x), float(c[0]), float(c[1]), _inv(lv.theta),
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "lattice_level_step")
+    launch_counts["lattice_level_step"] += 1
+    if kind in (MATVEC, RESIDUAL):
+        return out_r
+    return out_r, out_d, out_x
+
+
+def lattice_restrict(r: torch.Tensor) -> torch.Tensor:
+    """``restrict_plain`` on the card in one launch, bit for bit: r
+    [nx, ny, 2] float32 (nx, ny odd) -> [(nx + 1) / 2, (ny + 1) / 2, 2]."""
+    nx, ny = r.shape[0], r.shape[1]
+    if not r.is_cuda or r.dtype != torch.float32 or r.dim() != 3 \
+            or r.shape[2] != 2 or not r.is_contiguous() or nx % 2 == 0 \
+            or ny % 2 == 0 or nx < 3 or ny < 3:
+        raise ValueError("lattice_restrict takes a contiguous float32 CUDA "
+                         f"[nx, ny, 2] tensor of odd nx, ny >= 3, got "
+                         f"{r.dtype} {tuple(r.shape)} on {r.device}")
+    lib = _library()
+    out = r.new_empty(((nx + 1) // 2, (ny + 1) // 2, 2))
+    err = lib.hdnn_lattice_restrict(
+        r.device.index, nx, ny, r.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    raise_on(lib, err, "lattice_restrict")
+    launch_counts["lattice_restrict"] += 1
+    return out
+
+
+def _fits_bottom(levels) -> bool:
+    """Whether the one-CTA bottom kernel takes these levels: its vectors
+    (level 0's x, r, d, every other level's b, x, r, d) in shared memory
+    beside its fixed part."""
+    top = levels[0]
+    vectors = 8 * sum((4 if k else 3) * lv.nx * lv.ny
+                      for k, lv in enumerate(levels))
+    return (len(levels) <= _BOTTOM_LEVELS
+            and top.nx * top.ny <= _BOTTOM_NODES
+            and (top.nx - 1) * (top.ny - 1) <= _BOTTOM_QUADS
+            and _BOTTOM_SMEM_FIXED + vectors <= _BOTTOM_SMEM_MAX
+            and all(2 <= len(lv.coeffs) + 1 <= _BOTTOM_STEPS
+                    for lv in levels))
+
+
+def lattice_bottom_cycle(levels, b: torch.Tensor) -> torch.Tensor:
+    """``lattice_level_cycle_plain(levels, b)`` on the card in one launch
+    of one CTA (``level_bottom_kernel``): the levels' vectors in its
+    shared memory, the answer a new tensor."""
+    if not _fits_bottom(levels):
+        raise ValueError("the bottom kernel takes at most "
+                         f"{_BOTTOM_LEVELS} levels of at most "
+                         f"{_BOTTOM_NODES} nodes, degrees 2-{_BOTTOM_STEPS}")
+    dev = _check_level(levels[0], b)
+    diag = levels[0].stencil["diag"]
+    out = torch.empty_like(b)
+    ptrs, ints, coefs = [], [], []
+    for k, lv in enumerate(levels):
+        _check_level(lv)
+        if lv.stencil["diag"] != diag:
+            raise ValueError("the bottom levels share one diagonal")
+        st = lv.stencil
+        ptrs += [_ptr(lv.coords), _ptr(lv.pinned), _ptr(lv.dinv),
+                 _ptr(lv.free), _ptr(st["t1"]), _ptr(st["t2"]),
+                 _ptr(b) if k == 0 else 0, _ptr(out) if k == 0 else 0]
+        ints += [lv.nx, lv.ny, int(st["phase"]) % 2, len(lv.coeffs) + 1]
+        pad = [0.0] * (_BOTTOM_STEPS - 1 - len(lv.coeffs))
+        coefs += ([_inv(lv.theta)] + [c1 for c1, _ in lv.coeffs] + pad
+                  + [c2 for _, c2 in lv.coeffs] + pad)
+    lib = _library()
+    f, shear = _constants(levels[0].E, levels[0].nu)
+    err = lib.hdnn_lattice_bottom(
+        dev.index, len(levels), diag, f, levels[0].nu, shear, 0.5,
+        (ctypes.c_uint64 * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(ints))(*ints),
+        (ctypes.c_float * len(coefs))(*coefs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "lattice_bottom_cycle")
+    launch_counts["lattice_bottom_cycle"] += 1
+    return out
+
+
+def lattice_level_cycle(levels, b: torch.Tensor) -> torch.Tensor:
+    """``lattice_level_cycle_plain`` on the card: each level above the
+    bottom in level steps and one restriction, the bottom levels in one
+    launch of ``lattice_bottom_cycle`` (``cycle_launches`` counts them)."""
+    return _cycle(levels, b, plain=False)
+
+
+def cycle_launches(levels) -> dict:
+    """The launches of ``lattice_level_cycle(levels, b)`` by wrapper (the
+    ``LEVEL_KERNELS`` keys of ``launch_counts``), as ``_cycle`` decides
+    them: on each level above the bottom 2 nu level steps (the first two
+    smoothing steps from x = 0 in one, nu - 2 more, the residual, the
+    prolonged correction with the first post-smoothing step, nu - 1 more)
+    and one restriction; then one bottom cycle from the first level whose
+    levels fit it (``_fits_bottom``), or else the coarsest level's
+    degree - 1 steps."""
+    out = dict.fromkeys(LEVEL_KERNELS, 0)
+    for k, lv in enumerate(levels):
+        if _fits_bottom(levels[k:]):
+            out["lattice_bottom_cycle"] += 1
+            break
+        if k == len(levels) - 1:
+            out["lattice_level_step"] += len(lv.coeffs)
+            break
+        out["lattice_level_step"] += 2 * len(lv.coeffs) + 2
+        out["lattice_restrict"] += 1
+    return out
 
 
 # ------------------------------------------------------- autograd wrapper

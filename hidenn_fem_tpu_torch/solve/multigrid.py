@@ -9,12 +9,15 @@ production energy:
 
 * level operators are two-point gradient differences
   ``K_l v = grad(E_l)(v) - grad(E_l)(0)`` of the domain energy on the
-  coarsened grids (exact for the quadratic energy, reverse mode only);
-  each is one launch of the stencil kernel K6 on a CUDA float32 lattice
-  (``lattice_stencil_vg``, called directly: the value-and-grad that
-  ``torch.autograd.grad`` of ``domain_energy`` would run, its ``u``
-  columns, zero on the Dirichlet rows, bit for bit the autograd
-  gradient), its plain version otherwise;
+  coarsened grids (exact for the quadratic energy, reverse mode only):
+  the stencil kernel K6's value-and-grad (``lattice_stencil_vg``, the
+  one ``torch.autograd.grad`` of ``domain_energy`` would run; its ``u``
+  columns, zero on the Dirichlet rows) or its plain version.  On a CUDA
+  float32 lattice with no prescribed displacement the cycle is fused
+  instead (``ops/lattice_slab.lattice_level_cycle``): each Chebyshev
+  step of a level one launch of a level epilogue of K6, the restriction
+  one launch, the bottom levels one launch of one CTA, bit for bit the
+  composition below where the stencil sums keep K6's order;
 * level diagonals come exactly from 8 colored probes: the lattice node
   adjacency (8-neighbourhood for every split) is properly 4-colored by
   ``(i % 2, j % 2)``, times 2 displacement components;
@@ -57,7 +60,10 @@ import numpy as np
 import torch
 
 from ..models.structured_grid import StructuredGrid
-from ..ops.lattice_slab import (lattice_stencil_vg, lattice_stencil_vg_plain,
+from ..ops.lattice_slab import (MATVEC, LatticeLevel, lattice_level_cycle,
+                                lattice_level_step, lattice_stencil_vg,
+                                lattice_stencil_vg_plain, prolong,
+                                restrict_plain as _restrict,
                                 structured_stencil)
 from ..utils.profiling import annotate
 from . import loop as _loop
@@ -96,37 +102,6 @@ def coarsen_grid(grid: StructuredGrid) -> Optional[StructuredGrid]:
         split=grid.split,
         zigzag_phase=grid.zigzag_phase % 2,
     )
-
-
-def prolong(cu: torch.Tensor) -> torch.Tensor:
-    """Bilinear lattice interpolation [nxc, nyc, C] -> [2nxc-1, 2nyc-1, C]
-    (split-agnostic and symmetric): a row pass, then a column pass."""
-    nxc, nyc, c = cu.shape
-    rows = torch.stack([cu[:-1], 0.5 * (cu[:-1] + cu[1:])], dim=1)
-    rows = torch.cat([rows.reshape(2 * (nxc - 1), nyc, c), cu[-1:]], dim=0)
-    cols = torch.stack([rows[:, :-1], 0.5 * (rows[:, :-1] + rows[:, 1:])],
-                       dim=2)
-    return torch.cat([cols.reshape(2 * nxc - 1, 2 * (nyc - 1), c),
-                      rows[:, -1:]], dim=1)
-
-
-def _restrict_axis(r: torch.Tensor, dim: int) -> torch.Tensor:
-    """The transpose of one interpolation pass of ``prolong`` along
-    ``dim`` (length 2n-1 -> n): coarse entry i takes half of fine entries
-    2i-1 and 2i+1, then fine entry 2i, added in the order of the JAX
-    package's ``jax.linear_transpose`` (so the two agree bit for bit)."""
-    r = r.movedim(dim, 0)
-    half = 0.5 * r[1::2]
-    out = torch.zeros_like(r[0::2])
-    out[1:] = half
-    out[:-1] += half
-    return (out + r[0::2]).movedim(0, dim)
-
-
-def _restrict(r: torch.Tensor) -> torch.Tensor:
-    """Full-weighting restriction, the exact adjoint of ``prolong``: the
-    transposed column pass, then the transposed row pass."""
-    return _restrict_axis(_restrict_axis(r, 1), 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,33 +164,86 @@ def level_g0s(model, levels) -> tuple:
         torch.zeros_like(lev.coords)) for lev in levels)
 
 
-def _level_op(model, grid: StructuredGrid, coords: torch.Tensor, g0=None):
+def _stencil_level(model, grid: StructuredGrid, coords: torch.Tensor):
+    """The level as the level-step kernels take it (``LatticeLevel``), or
+    None off their route.  They take the level where its gradient would
+    run K6 (a float32 lattice on the card, ``model._use_kernel``) and
+    grad E(0) is 0, so that K v is the stencil gradient at v alone: no
+    prescribed displacement on the pinned rows."""
+    if not coords.is_cuda or grid.u_dirichlet is not None \
+            or float(model.u_fixed) != 0.0:
+        return None
+    with torch.no_grad():
+        cpin = model.coords({"coords": coords}, grid)
+    if cpin.dtype != torch.float32 or not model._use_kernel(cpin):
+        return None
+    return LatticeLevel(coords=cpin.contiguous(),
+                        pinned=grid.dirichlet_mask.contiguous(),
+                        E=float(model.E), nu=float(model.nu),
+                        stencil=structured_stencil(
+                            grid.quad_mask, grid.split, grid.zigzag_phase,
+                            cpin.dtype))
+
+
+class _LevelOp:
     """The stiffness action v -> K v on a level's ``grid`` at its
-    ``coords`` (two-point gradient difference of the quadratic domain
-    energy)."""
-    g = _level_grad(model, grid, coords)
-    if g0 is None:
-        g0 = g(torch.zeros_like(coords))
+    ``coords``: the two-point gradient difference g(v) - g(0) of the
+    quadratic domain energy (``g0`` its affine part g(0), unless given).
+    Where the level takes the level-step kernels' route, ``stencil`` is
+    its ``LatticeLevel`` (else None): a float32 v on the card then takes
+    one launch of K v, ``_vcycle`` runs the fused cycle on it
+    (``smoother``), and the gradient difference is built only for another
+    v (a float64 one)."""
 
-    def op(v):
-        return g(v) - g0
+    def __init__(self, model, grid: StructuredGrid, coords: torch.Tensor,
+                 g0=None):
+        self.stencil = _stencil_level(model, grid, coords)
+        self.g, self.g0 = None, g0
+        self._level = (model, grid, coords)
+        self._smoothers = {}
+        if self.stencil is None:
+            self._difference()
 
-    return op
+    def _difference(self):
+        """g and g0, the first time the gradient difference is needed."""
+        if self.g is None:
+            self.g = _level_grad(*self._level)
+        if self.g0 is None:
+            self.g0 = self.g(torch.zeros_like(self._level[2]))
+
+    def __call__(self, v):
+        if self.stencil is not None and v.dtype == torch.float32:
+            return lattice_level_step(MATVEC, self.stencil, v.contiguous())
+        self._difference()
+        return self.g(v) - self.g0
+
+    def smoother(self, lev: _Level, degree: int) -> LatticeLevel:
+        """``stencil`` with the Chebyshev-Jacobi smoother of ``degree``
+        on ``lev`` (the level this operator was built for; float32), built
+        the first time a cycle asks for it."""
+        out = self._smoothers.get(degree)
+        if out is None:
+            theta, coeffs = _cheb_coeffs(lev.lmax_host, int(degree), False)
+            out = self._smoothers[degree] = dataclasses.replace(
+                self.stencil, dinv=lev.dinv.contiguous(),
+                free=lev.free.contiguous(), theta=theta, coeffs=coeffs)
+        return out
 
 
 def _level_ops(model, levels, g0s=None) -> list:
-    """Every level's operator, built once a solve: the pinned coordinates,
-    the stencil weights and (unless ``g0s`` gives them) the affine parts
-    are computed here, not on every V-cycle."""
+    """Every level's operator (``_LevelOp``), built once a solve: the
+    pinned coordinates, the stencil weights and (off the level-step route,
+    unless ``g0s`` gives them) the affine parts are computed here, not on
+    every V-cycle."""
     if g0s is None:
         g0s = (None,) * len(levels)
-    return [_level_op(model, lev.grid, lev.coords, g0)
+    return [_LevelOp(model, lev.grid, lev.coords, g0)
             for lev, g0 in zip(levels, g0s)]
 
 
 def _setup_level(model, grid: StructuredGrid, coords: torch.Tensor,
                  power_iters: int) -> _Level:
-    op = _level_op(model, grid, coords)
+    op = _LevelOp(model, grid, coords)
     nx, ny = grid.nx, grid.ny
     dev, dtype = coords.device, coords.dtype
     # exact diagonal by colored probing: (i%2, j%2, comp) is a proper
@@ -327,11 +355,40 @@ def _pad0_rows(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([z, a] if k > 0 else [a, z], dim=0)
 
 
+def _fused_levels(ops, levels, nu: int, coarse_degree: int, _l: int = 0):
+    """The levels from ``_l`` as ``lattice_level_cycle`` takes them, each
+    with its smoother (``_LevelOp.smoother``, built once an operator), or
+    None where a level is off the level-step route (a plain callable, or
+    not float32) or a degree is below 2."""
+    if min(nu, coarse_degree) < 2:
+        return None
+    out = []
+    for k in range(_l, len(levels)):
+        op, lev = ops[k], levels[k]
+        if getattr(op, "stencil", None) is None \
+                or lev.dinv.dtype != torch.float32:
+            return None
+        out.append(op.smoother(
+            lev, coarse_degree if k == len(levels) - 1 else nu))
+    return out
+
+
 def _vcycle(ops, levels, b, nu: int, coarse_degree: int, ks=None,
             _l: int = 0):
     """One V(nu, nu) cycle from level ``_l`` on the level operators
     ``ops``; ``ks`` are the levels' signed dead-row pad counts
-    (``parallel/sharded_mg.py``; None: no level is padded)."""
+    (``parallel/sharded_mg.py``; None: no level is padded).  Where b is
+    float32 on the card, no level is padded and every level takes the
+    level-step kernels' route (``_fused_levels``) the cycle is
+    ``lattice_level_cycle``: each Chebyshev step of a level one launch,
+    the bottom levels one; elsewhere (the CPU, float64, a float64 b on
+    float32 levels, the sharded engines) the composition below, the same
+    function (bit for bit where the stencil sums keep K6's order)."""
+    fused = None
+    if ks is None and b.is_cuda and b.dtype == torch.float32:
+        fused = _fused_levels(ops, levels, nu, coarse_degree, _l)
+    if fused is not None:
+        return lattice_level_cycle(fused, b.contiguous())
     lev, op = levels[_l], ops[_l]
     if _l == len(levels) - 1:
         return _cheb_smooth(op, lev, b, torch.zeros_like(b), coarse_degree)

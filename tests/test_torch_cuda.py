@@ -1016,6 +1016,22 @@ def test_level_operator_is_the_autograd_gradient_bit_for_bit(dev, shape):
         coords = coords[::2, ::2].contiguous()
 
 
+def _solve_launches(model, levels, calls, matvecs=0, nu=3,
+                    coarse_degree=24):
+    """The level kernels' launches (``lattice_slab.LEVEL_KERNELS``) of a
+    PCG solve on the card: a fused V(nu, nu) cycle before the loop and
+    each of its ``calls`` (``lattice_slab.cycle_launches`` on the levels
+    as ``multigrid._vcycle`` takes them), and ``matvecs`` level steps of
+    K p."""
+    from hidenn_fem_tpu_torch.solve import multigrid as tmg
+
+    cycle = ls.cycle_launches(tmg._fused_levels(
+        tmg._level_ops(model, levels), levels, nu, coarse_degree))
+    out = {k: (calls + 1) * v for k, v in cycle.items()}
+    out["lattice_level_step"] += matvecs
+    return out
+
+
 def _calls(iters, max_iters):
     """Calls of a solver's loop body for ``iters`` iterations: the
     iterations rounded up to a multiple of ``loop.READ_EVERY`` (the
@@ -1067,8 +1083,9 @@ def test_cg_solve_on_the_card_matches_the_cpu(dev):
 
 def test_mg_pcg_solve_on_the_card_matches_the_cpu(dev):
     """mg_pcg_solve on the 97x49 zigzag plate with a hole, from u = 0: on
-    the card every level operator is one K6 launch (fractional weights on
-    the coarse levels), counted exactly; against the same solve on the
+    the card every level operator is a level step (fractional weights on
+    the coarse levels) and K6 computes the right-hand side, counted
+    exactly; against the same solve on the
     CPU's plain path, solutions within 1e-4 x max|u|.  (From a noise start
     the first residual is the noise's, and relres 1e-6 leaves the two f32
     solutions 2.4e-4 x max|u| apart: measured on the card.)"""
@@ -1078,29 +1095,31 @@ def test_mg_pcg_solve_on_the_card_matches_the_cpu(dev):
     for where in ("cpu", dev):
         grid, model, params = _mg_plate(97, 49, where)
         params["u"] = torch.zeros_like(params["u"])
-        before = ls.launch_counts["lattice_stencil_vg"]
+        names = ("lattice_stencil_vg",) + ls.LEVEL_KERNELS
+        before = {k: ls.launch_counts[k] for k in names}
         with torch.no_grad():
             levels = tmg.build_hierarchy(model, grid,
                                          model.coords(params, grid))
-        setup = ls.launch_counts["lattice_stencil_vg"] - before
+        setup = {k: ls.launch_counts[k] - b for k, b in before.items()}
         n_lev = len(levels)
-        before = ls.launch_counts["lattice_stencil_vg"]
+        before = {k: ls.launch_counts[k] for k in names}
         sol, hist = tmg.mg_pcg_solve(model, grid, params, max_iters=40,
                                      tol=1e-6, levels=levels)
-        solve = ls.launch_counts["lattice_stencil_vg"] - before
+        solve = {k: ls.launch_counts[k] - b for k, b in before.items()}
         iters = int((hist > 0).sum())
         assert float(hist[iters - 1]) <= 1e-6
         if where == "cpu":
-            assert setup == solve == 0
+            assert not any(setup.values()) and not any(solve.values())
         else:
-            # set-up: g0, 8 probes and 30 power iterations a level; solve:
-            # the right-hand side, the levels' g0s, a V(3,3) cycle (7 level
-            # operators a level, 24 on the coarsest) before the loop and
-            # each call of the loop body, and one fine matvec each call
-            cycle = 7 * (n_lev - 1) + 24
+            # set-up: 8 probes and 30 power iterations a level, K v each;
+            # solve: K6 the right-hand side, the level kernels of a
+            # V(3,3) cycle before the loop and each call of the loop body,
+            # and one fine K v each call
             calls = _calls(iters, 40)
-            assert setup == 39 * n_lev
-            assert solve == 1 + n_lev + (calls + 1) * cycle + calls
+            assert setup == {**dict.fromkeys(names, 0),
+                             "lattice_level_step": 38 * n_lev}
+            assert solve == {"lattice_stencil_vg": 1, **_solve_launches(
+                model, levels, calls, matvecs=calls)}
         out[str(where)] = sol["u"].cpu()
     _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
 
@@ -1153,10 +1172,9 @@ def _aux_pre(kind, where):
                                   "hybrid"])
 def test_apply_aux_on_the_card_matches_the_cpu(dev, kind):
     """``_apply_aux`` on each background kind: on the card each V-cycle
-    launches K6 exactly L + 7 (L - 1) + 24 times (the levels' gradients at
-    zero, then 7 level operators a level and 24 on the coarsest), and two
-    applications are bit-equal (the hybrid rim's ``index_add`` has one
-    addend a row); against the CPU's plain path within 1e-4 x max|z|
+    launches no K6 and its level kernels exactly (``_solve_launches``), and
+    two applications are bit-equal (the hybrid rim's ``index_add`` has
+    one addend a row); against the CPU's plain path within 1e-4 x max|z|
     (38-41 level operators of f32 sums in other orders)."""
     from hidenn_fem_tpu_torch.solve import auxspace as tax
 
@@ -1166,12 +1184,12 @@ def test_apply_aux_on_the_card_matches_the_cpu(dev, kind):
         mesh, pre = _aux_pre(kind, where)
         r = torch.tensor(np.random.default_rng(1).standard_normal(
             (mesh.n_nodes, 2)), dtype=torch.float32, device=where)
-        n_lev = len(pre.levels)
-        before = ls.launch_counts["lattice_stencil_vg"]
+        names = ("lattice_stencil_vg",) + ls.LEVEL_KERNELS
+        before = {k: ls.launch_counts[k] for k in names}
         z = tax._apply_aux(bg, pre, r)
-        launched = ls.launch_counts["lattice_stencil_vg"] - before
-        assert launched == (0 if where == "cpu"
-                            else n_lev + 7 * (n_lev - 1) + 24)
+        launched = {k: ls.launch_counts[k] - b for k, b in before.items()}
+        assert launched == {**dict.fromkeys(names, 0), **(
+            {} if where == "cpu" else _solve_launches(bg, pre.levels, 0))}
         assert torch.equal(z, tax._apply_aux(bg, pre, r))
         out[str(where)] = z.cpu()
     _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
@@ -1179,10 +1197,10 @@ def test_apply_aux_on_the_card_matches_the_cpu(dev, kind):
 
 def test_aux_pcg_solve_on_the_card_matches_the_cpu(dev):
     """aux_pcg_solve from u = 0 on the 41x21 proxy plate (lattice route
-    and lattice-aligned background: K6 each matvec and each level
-    operator) and on a banded Delaunay plate (K4 each matvec, K6 in the
-    V-cycle on the generic background), launches counted exactly; against
-    the CPU's plain path within 1e-4 x max|u|."""
+    and lattice-aligned background: K6 each matvec, the level steps each
+    V-cycle) and on a banded Delaunay plate (K4 each matvec, the level
+    steps in the V-cycle on the generic background), launches counted
+    exactly; against the CPU's plain path within 1e-4 x max|u|."""
     from hidenn_fem_tpu_torch.solve import auxspace as tax
 
     delaunay = pt.generate_mesh_delaunay(lc=0.09, device="cpu")
@@ -1204,8 +1222,8 @@ def test_aux_pcg_solve_on_the_card_matches_the_cpu(dev):
             pre = tax.build_aux_preconditioner(
                 loss, up, (m.coords, m), m,
                 bg_model=StructuredGridP1(E=E, nu=NU))
-            n_lev = len(pre.levels)
-            counters = {"k6": (ls, "lattice_stencil_vg"), "fine": fine}
+            counters = {"k6": (ls, "lattice_stencil_vg"), "fine": fine,
+                        **{k: (ls, k) for k in ls.LEVEL_KERNELS}}
             before = {k: mod.launch_counts[c]
                       for k, (mod, c) in counters.items()}
             sol, hist = tax.aux_pcg_solve(loss, up, (m.coords, m), pre=pre,
@@ -1214,26 +1232,24 @@ def test_aux_pcg_solve_on_the_card_matches_the_cpu(dev):
                    for k, (mod, c) in counters.items()}
             iters = int((hist > 0).sum())
             assert float(hist[iters - 1]) <= 1e-6
-            cycle = 7 * (n_lev - 1) + 24
             if where == "cpu":
-                assert got == {"k6": 0, "fine": 0}
+                assert not any(got.values())
             else:
                 # the fine gradient at the start and one matvec a call of
-                # the loop body; the levels' gradients at zero once, then
-                # a V-cycle before the loop and one each call
+                # the loop body; a V-cycle's level kernels before the loop
+                # and each call
                 calls = _calls(iters, 200)
-                vcycles = n_lev + (calls + 1) * cycle
-                if fine[1] == "lattice_stencil_vg":
-                    assert got["k6"] == 1 + calls + vcycles
-                else:
-                    assert got == {"k6": vcycles, "fine": 1 + calls}
+                steps = _solve_launches(pre.bg_model, pre.levels, calls)
+                k6 = 1 + calls if fine[1] == "lattice_stencil_vg" else 0
+                assert got == {"k6": k6, "fine": 1 + calls, **steps}
             out[str(where)] = sol["u"].cpu()
         _close(out[str(dev)], out["cpu"], rtol=0.0, atol_scale=1e-4)
 
 
 def test_aux_pcg_float64_on_the_card_takes_the_plain_path(dev):
     """A float64 solve (f64 energy and background model) launches no K6
-    (the level operator picks K6 for CUDA float32 only) and reaches
+    and no level step (the level operator takes them for CUDA float32
+    only) and reaches
     relres 1e-10, within 1e-8 x max|u| of the same solve on the CPU."""
     from hidenn_fem_tpu_torch.solve import auxspace as tax
 
@@ -1249,12 +1265,13 @@ def test_aux_pcg_float64_on_the_card_takes_the_plain_path(dev):
 
         up = {"u": torch.zeros((mesh.n_nodes, 2), dtype=torch.float64,
                                device=where)}
-        before = ls.launch_counts["lattice_stencil_vg"]
+        names = ("lattice_stencil_vg",) + ls.LEVEL_KERNELS
+        before = [ls.launch_counts[k] for k in names]
         sol, hist = tax.aux_pcg_solve(
             loss, up, (mesh.coords, mesh), mesh=mesh,
             bg_model=StructuredGridP1(E=E, nu=NU, dtype=torch.float64),
             max_iters=400, tol=1e-10)
-        assert ls.launch_counts["lattice_stencil_vg"] == before
+        assert [ls.launch_counts[k] for k in names] == before
         iters = int((hist > 0).sum())
         assert sol["u"].dtype == torch.float64
         assert float(hist[iters - 1]) <= 1e-10
@@ -1266,7 +1283,8 @@ def test_two_rank_gloo_aux_pcg_on_one_card(dev, tmp_path):
     """Two ranks (gloo) sharing the card solve the proxy plate with its
     lattice stripped by ``aux_pcg_solve_sharded``: the banded route
     rebanded for 2 ranks (K4 at row_start each matvec) and a replicated
-    V-cycle (K6); solutions and histories bit-equal across the ranks and
+    V-cycle (the level steps); solutions and histories bit-equal across
+    the ranks and
     within 5e-3 x max|u| of the single-rank solve (the JAX test's bound),
     iterations within 6."""
     import json
@@ -1305,7 +1323,7 @@ def test_two_rank_gloo_aux_pcg_on_one_card(dev, tmp_path):
     for r in ranks:
         launched = json.loads(str(r["launches"]))
         assert launched["banded_vg_rows"] >= 1
-        assert launched["lattice_stencil_vg"] >= 1
+        assert sum(launched.get(k, 0) for k in ls.LEVEL_KERNELS) >= 1
 
 
 # ------------------------------------------------ the sharded multigrid
@@ -1750,7 +1768,7 @@ def _solver_drive(name, dev):
             sol, h = pt.mg_pcg_solve(model, grid, params, max_iters=40,
                                      tol=1e-6, levels=levels)
             return sol["u"], h
-        return drive, ("lattice_stencil_vg",)
+        return drive, ("lattice_stencil_vg", "lattice_level_step")
     if name.endswith("lattice"):
         mesh, needs = (pt.proxy_plate_mesh(nx=41, ny=21, device=dev),
                        ("lattice_stencil_vg",))
@@ -1770,7 +1788,7 @@ def _solver_drive(name, dev):
         pre = pt.build_aux_preconditioner(
             loss, u0, args, mesh, bg_model=StructuredGridP1(E=E, nu=NU))
         solve = functools.partial(pt.aux_pcg_solve, pre=pre, max_iters=200)
-        needs = needs + ("lattice_stencil_vg",)
+        needs = needs + ("lattice_bottom_cycle",)
     elif name.startswith("jacobi"):
         solve = functools.partial(pt.jacobi_pcg_solve, mesh=mesh,
                                   max_iters=2000)

@@ -307,7 +307,6 @@ def test_load_cases_on_one_hierarchy_replay_its_two_graphs(dev):
 
     fresh = [solve(load, hierarchy()) for load in loads]
     held = hierarchy()
-    n_levels = len(held)
     gc.collect()
     graphs0, freed0 = loop.captures["graphs"], loop.captures["freed"]
     kept, recorded = [], []
@@ -323,10 +322,10 @@ def test_load_cases_on_one_hierarchy_replay_its_two_graphs(dev):
     spans = _spans(prof)
     assert not _named(spans, "hidenn.loop.record")
     assert _named(spans, "hidenn.loop.replay")
+    # the levels take the level steps on the card, so a fresh plan
+    # launches no more than a kept one (no gradients at zero)
     for i, ((u, h, moved), (fu, fh, fmoved)) in enumerate(zip(kept, fresh)):
         assert torch.equal(u, fu) and torch.equal(h, fh), i
-        if i:
-            fmoved[1]["lattice_stencil_vg"] -= n_levels
         assert moved == fmoved, (i, moved, fmoved)
     assert moved[1]["lattice_stencil_vg"] > 0
     gc.disable()
