@@ -182,7 +182,8 @@ Phases (each raises on failure, and the script then exits non-zero):
     and probe, the level steps each level operator, K3 the energy; flat
     P^T as JAX selects it); c. the 847K hybrid plate from rest ("reshape"
     with rim tables; the hybrid route launches no kernel, so the level
-    steps of the V-cycle are the only launches), then example 12 at its
+    steps of the V-cycle are the only launches, and its energies are
+    counted exactly by ``losses.route_counts``), then example 12 at its
     own size; d. example 11 at its
     own size (gather route) and 2 epochs of ``radapt_aux_solve`` on its
     mesh (the energies fall, the pins stay).  Each solve from rest runs
@@ -2697,11 +2698,13 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
     level kernels (``solve_launches``) before the loop and each call of
     the loop body (the iterations, and the masked calls past the stop), and
     the fine gradient at the start and once a call on ``fine``'s kernel
-    (None: the hybrid route, no kernel); building the plan launches
-    nothing more (the fused levels need no gradient at zero).  A replay
-    takes the fine gradient twice more, in the check of its answer, which
-    is the first's bit for bit (the same loss from the same start).
-    Returns (solution, history, seconds) of the first."""
+    (None: the hybrid route, no kernel: ``losses.route_counts["hybrid"]``
+    counts its energies instead, and is held to the same count); building
+    the plan launches nothing more (the fused levels need no gradient at
+    zero).  A replay takes the fine gradient twice more, in the check of
+    its answer, which is the first's bit for bit (the same loss from the
+    same start).  Returns (solution, history, seconds) of the first."""
+    from hidenn_fem_tpu_torch.ops import losses
     from hidenn_fem_tpu_torch.solve import auxspace
 
     mesh = args[1]
@@ -2713,6 +2716,7 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
                               "replays both graphs")):
         torch.cuda.synchronize()
         counts.reset()
+        evals = losses.route_counts["hybrid"]
         t0 = time.perf_counter()
         sol, hist = ht.aux_pcg_solve(loss, u0, args, pre=pre,
                                      max_iters=AUX_MAX_ITERS, tol=1e-6)
@@ -2724,8 +2728,17 @@ def timed_aux_solve(ht, counts, name, loss, args, pre, fine, card):
         calls = loop_calls(iters, AUX_MAX_ITERS)
         want = {k: v for k, v in solve_launches(
             pre.bg_model, pre.levels, calls).items() if v}
+        fine_calls = 1 + calls + (2 if i else 0)
         if fine is not None:
-            want[fine] = want.get(fine, 0) + 1 + calls + (2 if i else 0)
+            want[fine] = want.get(fine, 0) + fine_calls
+        else:
+            evals = losses.route_counts["hybrid"] - evals
+            log(f"  {name}, solve {i + 1}: {evals} energies of the hybrid "
+                f"route (expected {fine_calls})")
+            if evals != fine_calls:
+                raise AssertionError(f"{name}, solve {i + 1}: {evals} "
+                                     "hybrid-route energies, expected "
+                                     f"{fine_calls}")
         log(f"  {name} from rest, solve {i + 1} ({what}): {iters} "
             f"iterations ({calls} calls of the loop body) to "
             f"{h[-1]:.6e} in {seconds:.3f} s, "

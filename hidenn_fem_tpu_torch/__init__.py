@@ -25,7 +25,8 @@ from .mesh.banded import reorder_mesh  # noqa: E402
 from .mesh.delaunay import (generate_mesh_delaunay,  # noqa: E402
                             generate_mesh_unstructured)
 from .mesh.gmsh_backend import generate_mesh_gmsh, have_gmsh  # noqa: E402
-from .mesh.hybrid import generate_mesh_hybrid  # noqa: E402
+from .mesh.hybrid import (generate_mesh_hybrid,  # noqa: E402
+                          hybrid_mesh_from_arrays)
 from .mesh.structured import (generate_mesh, proxy_plate_mesh,  # noqa: E402
                               rectangle_tri_zigzag)
 from .mesh.types import TriMesh  # noqa: E402

@@ -15,6 +15,7 @@ import torch
 
 from .device import resolve_device
 from .mesh.banded import _TABLES, BandedAssembly
+from .mesh.hybrid import hybrid_mesh_from_arrays
 from .mesh.types import TriMesh
 from .models.structured_grid import StructuredGrid
 
@@ -57,7 +58,22 @@ def mesh_from_numpy(mesh, device=None, dtype=torch.float32,
     ``build_banded="auto"``, banded tables the mesh carries (``banded``,
     ``banded_paired``; for example rebuilt by the JAX package's
     ``reband_for_shards``) are carried across as they are, in place of
-    tables built anew."""
+    tables built anew.  A mesh with a hybrid lattice + collar route
+    (``hybrid``, the JAX package's ``generate_mesh_hybrid``) keeps it:
+    the mesh is rebuilt by ``hybrid_mesh_from_arrays`` on the lattice
+    shape and diagonals of its route, and the build options do not apply
+    (the route owns the fast path, as in the generator)."""
+    hy = getattr(mesh, "hybrid", None)
+    if hy is not None:
+        route = hy.lattice
+        return hybrid_mesh_from_arrays(
+            *[np.asarray(a) for a in (
+                mesh.coords, mesh.connectivity, mesh.geom_boundary_mask,
+                mesh.dirichlet_mask, mesh.neumann_mask,
+                mesh.neumann_edges)],
+            nx=route.nx, ny=route.ny,
+            variant=route.uniform_sel or "zigzag", dtype=dtype,
+            device=device)
     carried = {name: getattr(mesh, name, None)
                for name in ("banded", "banded_paired")}
     have = build_banded == "auto" and any(

@@ -39,7 +39,8 @@ from .delaunay import _lc_fn, _walk_circle
 from .lattice import LatticeRoute
 from .types import TriMesh, build_incidence_table
 
-__all__ = ["HybridRoute", "generate_mesh_hybrid"]
+__all__ = ["HybridRoute", "generate_mesh_hybrid",
+           "hybrid_mesh_from_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +101,10 @@ def generate_mesh_hybrid(
     as in the structured generator; ``clear`` is the hole clearance in
     units of ``lc`` (0.6 makes every staircase edge a Gabriel edge of the
     collar points).  Raises if an inflated hole reaches the boundary quad
-    ring (use :func:`generate_mesh_delaunay` for such geometry).
+    ring (use :func:`generate_mesh_delaunay` for such geometry), and
+    where two loaded faces meet at a corner quad whose diagonal joins
+    them (a Neumann edge the route cannot load;
+    :func:`hybrid_mesh_from_arrays`).
     """
     device = resolve_device(device)
     if boundaries is None:
@@ -133,26 +137,8 @@ def generate_mesh_hybrid(
             "generate_mesh_delaunay for this geometry")
     live = ~dead
 
-    # ---- lattice triangles over live quads (families as in
-    # mesh/lattice.py: up T1=(n00,n10,n11) T2=(n00,n11,n01);
-    # down T1=(n00,n10,n01) T2=(n10,n11,n01) — all CCW)
-    selg = np.zeros((nx - 1, ny - 1), dtype=np.float32)
-    if variant == "up":
-        selg[:] = 1.0
-    elif variant == "zigzag":
-        par = (np.add.outer(np.arange(nx - 1), np.arange(ny - 1)) % 2)
-        selg[par == 0] = 1.0
-    qi, qj = np.nonzero(live)
-    up = selg[qi, qj] > 0
-    n00 = qi * ny + qj
-    n10 = (qi + 1) * ny + qj
-    n01 = qi * ny + (qj + 1)
-    n11 = (qi + 1) * ny + (qj + 1)
-    t1 = np.where(up[:, None], np.stack([n00, n10, n11], 1),
-                  np.stack([n00, n10, n01], 1))
-    t2 = np.where(up[:, None], np.stack([n00, n11, n01], 1),
-                  np.stack([n10, n11, n01], 1))
-    lat_cells = np.concatenate([t1, t2], axis=0).astype(np.int64)
+    # ---- lattice triangles over live quads
+    lat_cells = _lattice_triangles(live, _diagonals(variant, nx, ny), ny)
 
     # ---- collar points: staircase lattice nodes + exact rim samples
     lcf = _lc_fn(lc)
@@ -266,14 +252,141 @@ def generate_mesh_hybrid(
     else:
         neumann_edges = np.zeros((0, 2), dtype=np.int64)
 
-    # ---- route: the faces are intact lattice faces (boundary-ring
-    # check above), so every Neumann edge is a face segment
+    return hybrid_mesh_from_arrays(
+        coords.astype(np.float32), connectivity, geom, bc, mn,
+        neumann_edges, nx=nx, ny=ny, variant=variant, dtype=dtype,
+        device=device)
+
+
+def _lattice_triangles(live: np.ndarray, selg: np.ndarray,
+                       ny: int) -> np.ndarray:
+    """[2 L, 3] the two triangles of each live quad, in the generator's
+    order: the first of every quad (``np.nonzero(live)``'s order), then
+    the second of every quad.  Families as in mesh/lattice.py: up
+    T1=(n00,n10,n11) T2=(n00,n11,n01); down T1=(n00,n10,n01)
+    T2=(n10,n11,n01), all counter-clockwise."""
+    qi, qj = np.nonzero(live)
+    up = selg[qi, qj] > 0
+    n00 = qi * ny + qj
+    n10 = (qi + 1) * ny + qj
+    n01 = qi * ny + (qj + 1)
+    n11 = (qi + 1) * ny + (qj + 1)
+    t1 = np.where(up[:, None], np.stack([n00, n10, n11], 1),
+                  np.stack([n00, n10, n01], 1))
+    t2 = np.where(up[:, None], np.stack([n00, n11, n01], 1),
+                  np.stack([n10, n11, n01], 1))
+    return np.concatenate([t1, t2], axis=0).astype(np.int64)
+
+
+def _diagonals(variant: str, nx: int, ny: int) -> np.ndarray:
+    """[nx-1, ny-1] f32 quad diagonals: 1 along n00-n11, 0 along
+    n10-n01."""
+    selg = np.zeros((nx - 1, ny - 1), dtype=np.float32)
+    if variant == "up":
+        selg[:] = 1.0
+    elif variant == "zigzag":
+        par = (np.add.outer(np.arange(nx - 1), np.arange(ny - 1)) % 2)
+        selg[par == 0] = 1.0
+    return selg
+
+
+def hybrid_mesh_from_arrays(
+    coords, connectivity, geom_boundary_mask, dirichlet_mask,
+    neumann_mask, neumann_edges, *, nx: int, ny: int, variant: str,
+    dtype=torch.float32, device=None,
+) -> TriMesh:
+    """A hybrid mesh, its route included, from the six arrays of
+    :func:`generate_mesh_hybrid`'s layout (tensors on ``device``, the card
+    unless given).
+
+    The layout: the ``nx * ny`` lattice nodes first, lexicographic
+    (node ``i * ny + j`` at column i, row j; the dead nodes kept, used by
+    no element), then the rim points; the lattice triangles first, the
+    two of each live quad in the order of :func:`_lattice_triangles`
+    (``variant`` names the diagonals: "up", "down" or "zigzag"), then
+    the collar's.  A quad is live where all four of its corners are used:
+    a dead quad has a corner inside a hole's clearance, which no triangle
+    uses.  Every Neumann edge must be a segment of the lattice's outer
+    faces, which the route's face masks load (a segment is loaded exactly
+    when it is a Neumann edge).  Everything else is derived: the live
+    quads, the route's diagonal and presence masks and Neumann face
+    masks, the staircase ids and the compact collar tables.  No banded or
+    fused tables are built (the route owns the fast path).  Raises
+    ``ValueError`` where the arrays do not have this layout.
+    """
+    device = resolve_device(device)
+    if variant not in ("up", "down", "zigzag"):
+        raise ValueError(f"unknown variant {variant!r}")
+    nx, ny = int(nx), int(ny)
+    coords = np.asarray(coords)
+    conn = np.asarray(connectivity).astype(np.int64).reshape(-1, 3)
+    edges = np.asarray(neumann_edges).astype(np.int64).reshape(-1, 2)
+    n_lat = nx * ny
+    n = coords.shape[0]
+    if nx < 2 or ny < 2 or n < n_lat:
+        raise ValueError(f"a {nx}x{ny} lattice needs at least {n_lat} "
+                         f"nodes first; the arrays have {n}")
+    lat = coords[:n_lat].reshape(nx, ny, 2)
+    xs, ys = lat[:, 0, 0], lat[0, :, 1]
+    if not ((lat[..., 0] == xs[:, None]).all()
+            and (lat[..., 1] == ys[None, :]).all()
+            and (np.diff(xs) > 0).all() and (np.diff(ys) > 0).all()):
+        raise ValueError(f"the first {n_lat} nodes are not a {nx}x{ny} "
+                         "lattice in lexicographic order (x by column, "
+                         "y by row)")
+    if conn.size and (conn.min() < 0 or conn.max() >= n):
+        raise ValueError(f"connectivity indexes nodes outside [0, {n})")
+
+    used = np.zeros(n, dtype=bool)
+    used[conn.reshape(-1)] = True
+    usedg = used[:n_lat].reshape(nx, ny)
+    live = (usedg[:-1, :-1] & usedg[1:, :-1]
+            & usedg[:-1, 1:] & usedg[1:, 1:])
+    if not (live[0, :].all() and live[-1, :].all()
+            and live[:, 0].all() and live[:, -1].all()):
+        raise ValueError("a quad of the boundary ring is dead; hybrid "
+                         "meshes need lattice faces intact")
+    selg = _diagonals(variant, nx, ny)
+    lat_cells = _lattice_triangles(live, selg, ny)
+    n_lc = lat_cells.shape[0]
+    if conn.shape[0] < n_lc or not np.array_equal(conn[:n_lc], lat_cells):
+        raise ValueError(
+            f"the first {n_lc} triangles are not the {variant!r} "
+            f"triangles of the {n_lc // 2} live quads in the generator's "
+            "order")
+    extra = conn[n_lc:]
+
+    # Neumann edges -> face segment masks (as mesh/lattice.py): both
+    # ends on one outer face, one lattice step apart
     edge_masks = {}
-    for face, condition in boundaries.items():
-        if condition == 2:
-            size = ny - 1 if face in ("left", "right") else nx - 1
-            edge_masks[face] = torch.ones((size,), dtype=torch.float32,
-                                          device=device)
+    if edges.size:
+        if edges.max() >= n_lat:
+            raise ValueError("a Neumann edge ends at a rim point; the "
+                             "route loads lattice face segments only")
+        ia, ja = edges[:, 0] // ny, edges[:, 0] % ny
+        ib, jb = edges[:, 1] // ny, edges[:, 1] % ny
+        vert = (ia == ib) & (np.abs(ja - jb) == 1)
+        horz = (ja == jb) & (np.abs(ia - ib) == 1)
+        sj, si = np.minimum(ja, jb), np.minimum(ia, ib)
+        faces = (("left", vert & (ia == 0), sj, ny - 1),
+                 ("right", vert & (ia == nx - 1), sj, ny - 1),
+                 ("down", horz & (ja == 0), si, nx - 1),
+                 ("up", horz & (ja == ny - 1), si, nx - 1))
+        on_face = np.zeros(edges.shape[0], dtype=bool)
+        for _, m, _, _ in faces:
+            on_face |= m
+        if not on_face.all():
+            a, b = edges[~on_face][0]
+            raise ValueError(
+                f"the Neumann edge ({a}, {b}) is no segment of the "
+                "lattice's outer faces, which the route's face masks "
+                "would not load (where two loaded faces meet, a corner "
+                "quad's diagonal joins their nodes)")
+        for face, m, segment, size in faces:
+            if m.any():
+                mask = np.zeros(size, dtype=np.float32)
+                mask[segment[m]] = 1.0
+                edge_masks[face] = torch.tensor(mask, device=device)
 
     def t(a):
         return torch.tensor(a, device=device)
@@ -292,12 +405,12 @@ def generate_mesh_hybrid(
         all_present=bool(live.all()))
 
     mesh = TriMesh.from_arrays(
-        coords=coords.astype(np.float32),
-        connectivity=connectivity,
-        geom_boundary_mask=geom,
-        dirichlet_mask=bc,
-        neumann_mask=mn,
-        neumann_edges=neumann_edges,
+        coords=coords,
+        connectivity=conn,
+        geom_boundary_mask=geom_boundary_mask,
+        dirichlet_mask=dirichlet_mask,
+        neumann_mask=neumann_mask,
+        neumann_edges=edges,
         dtype=dtype, device=device,
         # the hybrid route owns the fast path; banded and fused tables
         # would only serve an A/B with the route stripped (rebuild with
@@ -305,14 +418,12 @@ def generate_mesh_hybrid(
         build_banded=False, build_lattice=False, build_fused=False)
     # compact collar tables (ops/lattice_energy.collar_energy): sorted
     # unique staircase ids + conn remapped into [stair | rim] space
-    extra = np.asarray(extra, dtype=np.int64)
     flat = extra.reshape(-1)
     stair = np.unique(flat[flat < n_lat])
     abs2comp = np.full(n, -1, dtype=np.int64)
     abs2comp[stair] = np.arange(stair.size)
     abs2comp[n_lat:] = stair.size + np.arange(n - n_lat)
     conn_rel = abs2comp[extra]
-    assert (conn_rel >= 0).all(), "collar references an unmapped node"
     incidence = build_incidence_table(conn_rel.astype(np.int64),
                                       stair.size + (n - n_lat))
     return dataclasses.replace(

@@ -99,14 +99,16 @@ def read_flag(flag: torch.Tensor) -> bool:
 
 
 def _counters() -> tuple:
-    """The kernels' launch counters and the collective counters, which a
-    replay must move as the captured launches did."""
+    """The kernels' launch counters, the energy routes' counter and the
+    collective counters, which a replay must move as the captured calls
+    did."""
     from ..ops import banded_energy, element_energy, lattice_slab, \
-        lbfgs_history, window_gather
+        lbfgs_history, losses, window_gather
     from ..parallel import sharding
     return (element_energy.launch_counts, lattice_slab.launch_counts,
             banded_energy.launch_counts, window_gather.launch_counts,
-            lbfgs_history.launch_counts, sharding.collective_counts)
+            lbfgs_history.launch_counts, losses.route_counts,
+            sharding.collective_counts)
 
 
 def capturable(device: torch.device) -> bool:

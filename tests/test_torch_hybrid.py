@@ -5,6 +5,14 @@ against the JAX package on the same numpy inputs.
 * Generation: the same mesh arrays, the same ``LatticeRoute`` over the
   node-table prefix and the same compact collar tables, for the three
   diagonal variants, one hole, no hole; the same rejections.
+* ``hybrid_mesh_from_arrays``: given the generator's six arrays it
+  rebuilds the generator's mesh, every route table equal (two sizes, both
+  diagonal variants); the loaded faces are the arrays' Neumann edges
+  (two faces, part of a face), and a Neumann edge the route cannot load
+  raises, as do arrays of another layout; a JAX hybrid mesh keeps its
+  route through ``mesh_from_numpy``, equal to JAX's.
+* ``losses.route_counts["hybrid"]``: one an energy of the hybrid route,
+  none on another route.
 * ``collar_energy`` (compact ``[stair | rim]`` space, sorted-unique row
   take whose backward is an ``index_add_``) against the generic
   ``extra_elements_energy`` and against JAX's ``collar_energy``.
@@ -34,6 +42,7 @@ from hidenn_fem_tpu.mesh import hybrid as jh
 from hidenn_fem_tpu.ops import lattice_energy as jle
 from hidenn_fem_tpu_torch.mesh import hybrid as th
 from hidenn_fem_tpu_torch.ops import lattice_energy as tle
+from hidenn_fem_tpu_torch.ops import losses as tlosses
 
 from test_torch_delaunay import assert_mesh_equal
 from torch_port_common import (CPU, assert_close, assert_route_equal,
@@ -51,6 +60,8 @@ MESHES = {
 }
 HYBRID_FIELDS = ("extra_conn", "stair_ids", "extra_conn_rel",
                  "extra_incidence")
+ARRAYS = ("coords", "connectivity", "geom_boundary_mask", "dirichlet_mask",
+          "neumann_mask", "neumann_edges")
 
 
 def _meshes(name, dtype=torch.float32):
@@ -89,6 +100,184 @@ def test_hybrid_rejects_like_jax(kw):
         jh.generate_mesh_hybrid(**kw)
     with pytest.raises(ValueError):
         th.generate_mesh_hybrid(device=CPU, **kw)
+
+
+def _arrays(mesh) -> dict:
+    return {k: getattr(mesh, k).numpy() for k in ARRAYS}
+
+
+def _assert_hybrid_equal(got, want):
+    """Every array, route table and static flag of two hybrid meshes."""
+    for name in ARRAYS + ("incidence",):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for name in ("banded", "banded_paired", "lattice", "fused_connectivity",
+                 "fused_incidence"):
+        assert getattr(got, name) is None, name
+    for field in HYBRID_FIELDS:
+        a, b = getattr(got.hybrid, field), getattr(want.hybrid, field)
+        assert a.dtype == b.dtype and torch.equal(a, b), field
+    for name in ("sel", "t1", "t2", "inv_map", "fwd_map"):
+        a, b = getattr(got.hybrid.lattice, name), getattr(
+            want.hybrid.lattice, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    ga, wa = got.hybrid.lattice.edge_masks, want.hybrid.lattice.edge_masks
+    assert sorted(ga) == sorted(wa)
+    assert all(torch.equal(ga[f], wa[f]) for f in wa)
+    for name in ("nx", "ny", "identity", "prefix_identity", "uniform_sel",
+                 "all_present"):
+        assert getattr(got.hybrid.lattice, name) == getattr(
+            want.hybrid.lattice, name), name
+
+
+@pytest.mark.parametrize("variant", ["up", "down"])
+@pytest.mark.parametrize("lc", [0.075, 0.05])
+def test_from_arrays_rebuilds_the_generator_mesh(lc, variant):
+    """The generator's six arrays, handed back with the lattice shape and
+    the diagonals, give the generator's mesh: the same tensors, the same
+    route, the same collar tables."""
+    m = th.generate_mesh_hybrid(lc=lc, variant=variant, device=CPU)
+    r = m.hybrid.lattice
+    got = pt.hybrid_mesh_from_arrays(**_arrays(m), nx=r.nx, ny=r.ny,
+                                     variant=variant, device=CPU)
+    _assert_hybrid_equal(got, m)
+
+
+def test_from_arrays_loads_the_faces_the_arrays_load():
+    """The arrays alone say which faces carry traction: with the top face
+    loaded besides the right one (the "up" diagonals join no two loaded
+    faces), both carry a full mask, and the route's load is the
+    reference's."""
+    bnd = {"up": 2, "down": 0, "right": 2, "left": 1}
+    m = th.generate_mesh_hybrid(lc=0.05, variant="up", boundaries=bnd,
+                                device=CPU)
+    r = m.hybrid.lattice
+    got = pt.hybrid_mesh_from_arrays(**_arrays(m), nx=r.nx, ny=r.ny,
+                                     variant="up", device=CPU)
+    _assert_hybrid_equal(got, m)
+    masks = got.hybrid.lattice.edge_masks
+    assert sorted(masks) == ["right", "up"]
+    assert all(bool((mk == 1.0).all()) for mk in masks.values())
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1(dtype=torch.float64),
+                                  E=E, nu=NU, F_total=1e5,
+                                  traction_length=1.0)
+    got64 = pt.hybrid_mesh_from_arrays(**_arrays(m), nx=r.nx, ny=r.ny,
+                                       variant="up", dtype=torch.float64,
+                                       device=CPU)
+    u = 1e-4 * torch.ones((got64.n_nodes, 2), dtype=torch.float64)
+    p = {"coords": got64.coords, "u": u}
+    stripped = dataclasses.replace(got64, hybrid=None)
+    assert torch.allclose(energy.total(p, got64), energy.total(p, stripped),
+                          rtol=1e-12, atol=0)
+
+
+def test_from_arrays_loads_part_of_a_face():
+    """A Neumann edge on part of a face loads that segment alone."""
+    m = th.generate_mesh_hybrid(lc=0.05, variant="up", device=CPU)
+    r = m.hybrid.lattice
+    a = _arrays(m)
+    a["neumann_edges"] = a["neumann_edges"][:3]
+    got = pt.hybrid_mesh_from_arrays(**a, nx=r.nx, ny=r.ny, variant="up",
+                                     device=CPU)
+    mask = got.hybrid.lattice.edge_masks["right"]
+    assert float(mask.sum()) == 3.0 and mask.shape == (r.ny - 1,)
+
+
+def test_two_loaded_faces_meeting_at_a_diagonal_raise():
+    """Where two loaded faces meet at a corner quad whose diagonal joins
+    them, that diagonal is a Neumann edge the route cannot load: the
+    generator and the constructor raise rather than drop its load."""
+    bnd = {"up": 2, "down": 0, "right": 2, "left": 1}
+    with pytest.raises(ValueError, match="no segment"):
+        th.generate_mesh_hybrid(lc=0.05, variant="down", boundaries=bnd,
+                                device=CPU)
+
+
+def _shuffled_lattice(a, nx, ny):
+    a = dict(a)
+    c = a["coords"].copy()
+    c[[0, 1]] = c[[1, 0]]
+    a["coords"] = c
+    return a, dict(nx=nx, ny=ny, variant="up")
+
+
+def _collar_first(a, nx, ny):
+    a = dict(a)
+    a["connectivity"] = a["connectivity"][::-1].copy()
+    return a, dict(nx=nx, ny=ny, variant="up")
+
+
+def _other_variant(a, nx, ny):
+    return a, dict(nx=nx, ny=ny, variant="down")
+
+
+def _transposed_shape(a, nx, ny):
+    return a, dict(nx=ny, ny=nx, variant="up")
+
+
+def _interior_neumann_edge(a, nx, ny):
+    a = dict(a)
+    a["neumann_edges"] = np.concatenate(
+        [a["neumann_edges"], [[ny + 1, ny + 2]]])
+    return a, dict(nx=nx, ny=ny, variant="up")
+
+
+def _rim_neumann_edge(a, nx, ny):
+    a = dict(a)
+    a["neumann_edges"] = np.concatenate(
+        [a["neumann_edges"], [[nx * ny, nx * ny + 1]]])
+    return a, dict(nx=nx, ny=ny, variant="up")
+
+
+def _unknown_variant(a, nx, ny):
+    return a, dict(nx=nx, ny=ny, variant="diagonal")
+
+
+MALFORMED = (_shuffled_lattice, _collar_first, _other_variant,
+             _transposed_shape, _interior_neumann_edge, _rim_neumann_edge,
+             _unknown_variant)
+
+
+@pytest.mark.parametrize("malform", MALFORMED,
+                         ids=[f.__name__.lstrip("_") for f in MALFORMED])
+def test_from_arrays_rejects_another_layout(malform):
+    m = th.generate_mesh_hybrid(lc=0.05, variant="up", device=CPU)
+    r = m.hybrid.lattice
+    arrays, kw = malform(_arrays(m), r.nx, r.ny)
+    with pytest.raises(ValueError):
+        pt.hybrid_mesh_from_arrays(**arrays, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("name", ["up", "zigzag", "one_hole"])
+def test_mesh_from_numpy_keeps_a_jax_hybrid_route(name):
+    """A JAX hybrid mesh through ``convert.mesh_from_numpy``: the port's
+    generator's mesh, on the hybrid route (not the gather route)."""
+    jm, tm = _meshes(name)
+    cm = pt.mesh_from_numpy(jm, device=CPU)
+    _assert_hybrid_equal(cm, tm)
+    assert_route_equal(cm.hybrid.lattice, jm.hybrid.lattice)
+    for field in HYBRID_FIELDS:
+        np.testing.assert_array_equal(
+            getattr(cm.hybrid, field).numpy(),
+            np.asarray(getattr(jm.hybrid, field)).reshape(
+                getattr(cm.hybrid, field).shape), err_msg=field)
+
+
+def test_route_counts_count_each_hybrid_energy():
+    """One count an energy of the hybrid route (with its gradient or
+    without), none on the same mesh with the route stripped."""
+    _, tm = _meshes("one_hole")
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+    p = {"coords": tm.coords.clone(),
+         "u": torch.zeros((tm.n_nodes, 2), requires_grad=True)}
+    before = tlosses.route_counts["hybrid"]
+    e = energy.total(p, tm)
+    torch.autograd.grad(e, p["u"])
+    with torch.no_grad():
+        energy.total(p, tm)
+    assert tlosses.route_counts["hybrid"] - before == 2
+    energy.total(p, dataclasses.replace(tm, hybrid=None))
+    assert tlosses.route_counts["hybrid"] - before == 2
 
 
 def test_mesh_to_moves_the_hybrid_route():

@@ -17,23 +17,25 @@ solves, and the gauge of CUDA graphs still alive (``solve/loop.py``'s
   the stop-flag reads between lie inside it.
 * On the card (marked ``cuda``): a traced captured solve records one
   graph, and every ``cudaGraphLaunch`` of the solve lies inside a replay
-  span (the spans and the runtime's events share one clock); the gauge of
-  graphs recorded minus freed matches the graphs alive, before and after
-  a collection.  Load cases on one hierarchy (``mg_pcg_solve`` with
-  ``levels``) record two graphs in all, the plan's start and iteration;
-  they move the launch counters as solves on fresh hierarchies do, less
-  the level operators' gradients at zero that only the first plan
-  computes, answer bit for bit as those do, record nothing from the
-  third solve on, and give both graphs back when the hierarchy goes,
-  with the collector off.  A captured aux-space PCG solve on a mesh with
-  banded tables moves K4's launch counter as the eager solve does, and
-  answers as it does.  Load cases on one aux preconditioner
-  (``aux_pcg_solve`` with ``pre``) record two graphs in all and none
-  from the third solve on; a replay moves K4's counter as the eager
-  solve does plus the check's two gradients (``hidenn.aux.check``, after
-  the replays), answers one loss object bit for bit as the eager solve
-  does and another load within 1e-5, and both graphs go when the
-  preconditioner does, with the collector off.
+  span (the spans and the runtime's events share one clock); the gauge
+  of graphs recorded minus freed matches the graphs alive, before and
+  after a collection.  Load cases on one hierarchy (``mg_pcg_solve``
+  with ``levels``) record two graphs in all, the plan's start and
+  iteration; they move the launch counters as solves on fresh
+  hierarchies do, less the level operators' gradients at zero that only
+  the first plan computes, answer bit for bit as those do, record
+  nothing from the third solve on, and give both graphs back when the
+  hierarchy goes, with the collector off.  A captured aux-space PCG
+  solve on a mesh with banded tables moves K4's launch counter as the
+  eager solve does, and answers as it does; on a hybrid mesh it moves
+  the hybrid route's counter (``losses.route_counts``) as the eager
+  solve does.  Load cases on one aux preconditioner (``aux_pcg_solve``
+  with ``pre``) record two graphs in all and none from the third solve
+  on; a replay moves K4's counter as the eager solve does plus the
+  check's two gradients (``hidenn.aux.check``, after the replays),
+  answers one loss object bit for bit as the eager solve does and
+  another load within 1e-5, and both graphs go when the preconditioner
+  does, with the collector off.
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_spans.py``.
@@ -378,6 +380,46 @@ def test_a_captured_aux_solve_counts_k4_as_an_eager_one(dev, monkeypatch):
     eu, ehist, elaunches = solve()
     assert loop.captures["graphs"] - graphs == 1
     assert launches == elaunches > 0
+    assert torch.equal(hist, ehist) and torch.equal(u, eu)
+
+
+@pytest.mark.cuda
+def test_a_captured_aux_solve_counts_the_hybrid_route_as_an_eager_one(
+        dev, monkeypatch):
+    """The hybrid route launches no kernel of the port; its counter moves
+    on every replay of the captured iteration as the eager calls move it:
+    the right-hand side and one matvec each call of the loop body."""
+    from hidenn_fem_tpu_torch.ops import losses
+
+    mesh = pt.generate_mesh_hybrid(lc=0.05, device=dev)
+    assert mesh.hybrid is not None
+    energy = pt.PlaneStressEnergy(model=pt.TriangleP1())
+
+    def u_loss(p, coords, m):
+        return energy.total({"coords": coords, "u": p["u"]}, m)
+
+    up = {"u": torch.zeros((mesh.n_nodes, 2), device=dev)}
+    args = (mesh.coords, mesh)
+    bg = StructuredGridP1(E=10e9, nu=0.3)
+    pre = pt.build_aux_preconditioner(u_loss, up, args, mesh, bg_model=bg)
+    assert pre.lat_kind == "reshape" and pre.rim_corners is not None
+
+    def solve():
+        before = losses.route_counts["hybrid"]
+        sol, hist = pt.aux_pcg_solve(u_loss, up, args, pre=pre, bg_model=bg,
+                                     max_iters=60, tol=1e-6)
+        torch.cuda.synchronize()
+        return (sol["u"], hist, losses.route_counts["hybrid"] - before)
+
+    graphs = loop.captures["graphs"]
+    u, hist, evals = solve()
+    assert loop.captures["graphs"] - graphs == 1
+    monkeypatch.setattr(loop, "capturable", lambda device: False)
+    eu, ehist, eevals = solve()
+    assert loop.captures["graphs"] - graphs == 1
+    iters = int(torch.count_nonzero(hist))
+    calls = min(-(-iters // loop.READ_EVERY) * loop.READ_EVERY, 60)
+    assert evals == eevals == 1 + calls
     assert torch.equal(hist, ehist) and torch.equal(u, eu)
 
 
